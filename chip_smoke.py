@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Smoke run of the deepblast_torch port on one NVIDIA GPU (built for H100).
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+It imports nothing of JAX or of ``deepblast_tpu``, catches no phase's
+failure, and exits non-zero without printing a result when there is no
+CUDA device or no ``deepblast_torch`` package beside it.  Phases:
+
+1. build   — nvcc builds ``deepblast_torch/csrc/dp_kernels.cu`` (sm_90a)
+             and cc builds the C traceback walk, in parallel.
+2. kernels — NW scores through the kernels against a float64 loop over
+             cells (rtol 1e-5 / atol 1e-4, fp32 sums); then each CUDA
+             kernel against its plain PyTorch version on the card, ragged
+             (B, N, M) = (16, 200, 150), nw and sw x softmax / sparsemax /
+             hardmax, outputs allocated over NaN-filled memory:
+             skew exact; forward (Vt, Dx, Dm), score-only forward (Vt) and
+             backward (E) to rtol 1e-4 / atol 1e-5 (fp32, transcendental
+             ulps accumulated over the diagonal walk); tracebacks identical.
+3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
+             seeded random weights, on the card: ``align`` 4 protein pairs
+             of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
+             ``save_model`` and the search CLI on an 8 x 4 FASTA.  Kernel
+             launch counters are zeroed just before and read just after;
+             every kernel must have run.  Then every kernel is held against
+             its plain version again at the potentials this path produced.
+4. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
+             time (CUDA events), the plain version's time, alignments/s,
+             and each kernel's bound (bytes over 3.35 TB/s, flops over
+             67 TFLOP/s fp32; H100 SXM data sheet), counting the valid
+             cells of the run's pairs, not the stream's padding slots.
+
+The line before the last is the kernels JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+RTOL, ATOL = 1e-4, 1e-5
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
+SOURCE = "deepblast_torch/csrc/dp_kernels.cu"
+REPLACES = {
+    "skew": "deepblast_tpu/ops/skew_bm.py:195",
+    "forward": "deepblast_tpu/ops/dp_bm.py:1082",
+    "forward_score": "deepblast_tpu/ops/dp_bm.py:509",
+    "backward": "deepblast_tpu/ops/dp_bm.py:1116",
+}
+# fp32 operations per cell of the slot loop (softmax; the other operators
+# are of the same order), for the operations side of each bound
+FLOPS_PER_CELL = {"skew": 0, "forward": 20, "forward_score": 20,
+                  "backward": 24}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def dp_problem(g, B, N, M, ragged=True):
+    """Potentials of the shape and scale of the JAX package's DP tests:
+    theta ~ N(0, 1), A ~ N(0, 1) - 1, lengths ragged with pair 0 full."""
+    dev = "cuda"
+    theta = torch.randn((B, N, M), generator=g, device=dev)
+    A = torch.randn((B, N, M), generator=g, device=dev) - 1.0
+    if ragged:
+        ln = torch.randint(N // 2, N + 1, (B,), generator=g, device=dev)
+        lm = torch.randint(M // 2, M + 1, (B,), generator=g, device=dev)
+        ln[0], lm[0] = N, M
+    else:
+        ln = torch.full((B,), N, device=dev)
+        lm = torch.full((B,), M, device=dev)
+    return theta, A, ln.to(torch.int32), lm.to(torch.int32)
+
+
+def mutate(rng, x):
+    """A homolog of ``x``: ~20% substitutions and a few short indels."""
+    out = []
+    for c in x:
+        u = rng.random()
+        if u < 0.03:
+            continue
+        out.append(rng.choice(list(RESIDUES)) if u < 0.2 else c)
+        if rng.random() < 0.03:
+            out.extend(rng.choice(list(RESIDUES), rng.integers(1, 4)))
+    return "".join(out)
+
+
+def protein(rng, lo, hi):
+    return "".join(rng.choice(list(RESIDUES), int(rng.integers(lo, hi + 1))))
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from deepblast_torch import native
+    from deepblast_torch.ops import dp_cuda
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(dp_cuda.build), ex.submit(native.build)]
+        paths = [f.result() for f in futs]
+    log(f"phase build: ok in {time.time() - t0:.1f} s -> "
+        f"{', '.join(os.path.relpath(p) for p in paths)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _poison(*tensors):
+    """Fill freed allocator blocks of the outputs' sizes with NaN, so a
+    kernel output allocated with torch.empty starts as NaN garbage."""
+    junk = [torch.full_like(t, float("nan")) for t in tensors]
+    del junk
+
+
+def _close(name, got, want, errs):
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{name}: max abs diff {err} beyond "
+                             f"rtol {RTOL} / atol {ATOL}")
+
+
+def check_kernels(theta, A, ln, lm, mode, operator, errs):
+    """Every kernel against its plain version on the same inputs."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew
+    kw = dict(mode=mode, operator=operator)
+    th_s, A_s = skew(theta), skew(A)
+    _poison(th_s, A_s)
+    th_k = dp_cuda.skew(theta)
+    if not torch.equal(th_k, th_s):
+        raise AssertionError("skew: kernel differs from the plain relayout")
+    if not torch.equal(dp_cuda.skew(A), A_s):
+        raise AssertionError("skew: kernel differs from the plain relayout")
+    errs.setdefault("skew", 0.0)
+
+    vt_p, dx_p, dm_p = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    _poison(dx_p, dm_p)
+    vt_k, dx_k, dm_k = dp_cuda.forward(th_s, A_s, ln, lm, **kw)
+    _close("forward", vt_k, vt_p, errs)
+    _close("forward", dx_k, dx_p, errs)
+    _close("forward", dm_k, dm_p, errs)
+    _close("forward_score", dp_cuda.forward_score(th_s, A_s, ln, lm, **kw),
+           dp_ref.forward_score(th_s, A_s, ln, lm, **kw), errs)
+
+    Et = torch.ones_like(vt_p)
+    E_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et, **kw)
+    _poison(E_p)
+    E_k = dp_cuda.backward(dx_p, dm_p, ln, lm, Et, **kw)
+    _close("backward", E_k, E_p, errs)
+
+    E_kh, E_ph = E_k.cpu().numpy(), E_p.cpu().numpy()
+    for b, (n, m) in enumerate(zip(ln.tolist(), lm.tolist())):
+        if dp_ops.traceback_stream(E_kh, n, m, b) != \
+                dp_ops.traceback_stream(E_ph, n, m, b):
+            raise AssertionError(f"traceback of pair {b} differs")
+
+
+def loop_score(theta, A, n, m, operator):
+    """Terminal NW score by a plain loop over the cells of one pair, in
+    float64 numpy — an oracle independent of the stream layout:
+    ``V[i, j] = theta[i-1, j-1] + smax(A[i-1, j-1] + V[i-1, j], V[i-1, j-1],
+    A[i-1, j-1] + V[i, j-1])`` with ``V = 0`` on the border."""
+    V = np.zeros((n + 1, m + 1))
+    for i in range(1, n + 1):
+        for j in range(1, m + 1):
+            a = A[i - 1, j - 1]
+            args = np.array([a + V[i - 1, j], V[i - 1, j - 1],
+                             a + V[i, j - 1]])
+            mx = args.max()
+            smax = mx if operator == "hardmax" else \
+                mx + np.log(np.exp(args - mx).sum())
+            V[i, j] = theta[i - 1, j - 1] + smax
+    return V[n, m]
+
+
+def phase_kernels(seed):
+    from deepblast_torch.ops import dp as dp_ops
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    errs = {}
+    theta, A, ln, lm = dp_problem(g, 4, 9, 7)
+    th, a = theta.double().cpu().numpy(), A.double().cpu().numpy()
+    for op in ("softmax", "hardmax"):
+        vt = dp_ops.alignment_score(theta, A, (ln, lm), operator=op).cpu()
+        want = torch.tensor([loop_score(th[b], a[b], n, m, op) for b, (n, m)
+                             in enumerate(zip(ln.tolist(), lm.tolist()))])
+        if not torch.allclose(vt.double(), want, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"{op} scores {vt} differ from the cell "
+                                 f"loop's {want}")
+    for mode in ("nw", "sw"):
+        for op in ("softmax", "sparsemax", "hardmax"):
+            theta, A, ln, lm = dp_problem(g, 16, 200, 150)
+            check_kernels(theta, A, ln, lm, mode, op, errs)
+    torch.cuda.synchronize()
+    log("phase kernels: nw scores = float64 cell loop at (4, 9, 7); kernels "
+        "= plain at (16, 200, 150) nw/sw x softmax/sparsemax/hardmax, "
+        f"tracebacks identical; max abs diff {json.dumps(errs)}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the serving path at ProtT5-XL width
+# ---------------------------------------------------------------------------
+
+def _write_fasta(path, seqs, prefix):
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f">{prefix}{i}\n{s}\n")
+
+
+def phase_serving(seed, card):
+    from deepblast_torch.cli import search
+    from deepblast_torch.data.state_utils import pad_sequences
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import save_model
+    from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
+
+    rng = np.random.default_rng(seed)
+    cfg = DeepBLASTConfig(lm_type="prot_t5", embedding_dim=1024,
+                          hidden_dim=1024, layers=2, k_size=5,
+                          layer_type="cnn", alignment_mode="needleman-wunsch",
+                          operator="softmax", seed=seed)
+    t0 = time.time()
+    model = DeepBLAST(cfg)
+    model.init()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.lm.parameters()) + \
+        sum(p.numel() for p in model.aligner.parameters())
+    log(f"phase serving: ProtT5-XL + CNN-1024, {n_params} parameters, "
+        f"built in {time.time() - t0:.1f} s")
+
+    pairs = []
+    for _ in range(4):
+        x = protein(rng, 100, 500)
+        pairs.append((x, mutate(rng, x)[:500]))
+    xs = [protein(rng, 100, 512) for _ in range(32)]
+    ys = [mutate(rng, x)[:512] for x in xs]
+    tok = model.tokenizer
+    xt, xl = pad_sequences([tok(s)[0] for s in xs])
+    yt, yl = pad_sequences([tok(s)[0] for s in ys])
+    xt = np.pad(xt, ((0, 0), (0, 512 - xt.shape[1])))
+    yt = np.pad(yt, ((0, 0), (0, 512 - yt.shape[1])))
+    batch = dict(x=xt, y=yt, x_len=xl, y_len=yl)
+    queries = [protein(rng, 50, 300) for _ in range(8)]
+    db = [mutate(rng, q) for q in queries[:4]]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        qf, dbf = os.path.join(tmp, "q.fa"), os.path.join(tmp, "db.fa")
+        _write_fasta(qf, queries, "q")
+        _write_fasta(dbf, db, "d")
+        ckpt, hits = os.path.join(tmp, "model"), os.path.join(tmp, "hits")
+
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        states = [model.align(x, y) for x, y in pairs]
+        t_align = time.time() - t0
+        t0 = time.time()
+        scores = model.score_pairs(batch)
+        torch.cuda.synchronize()
+        t_score = time.time() - t0
+        t0 = time.time()
+        save_model(model, ckpt)
+        search.main(["--query-fasta", qf, "--db-fasta", dbf,
+                     "--load-from-checkpoint", ckpt, "--output-file", hits,
+                     "--batch-size", "16", "--pad-multiple", "64"])
+        torch.cuda.synchronize()
+        t_search = time.time() - t0
+        launches = dict(dp_cuda.LAUNCHES)
+        with open(hits) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+
+    for (x, y), s in zip(pairs, states):
+        if s.count("1") + s.count(":") != len(x) or \
+                s.count("2") + s.count(":") != len(y):
+            raise AssertionError("align: states do not consume both strings")
+    if scores.shape != (32,) or not torch.isfinite(scores).all():
+        raise AssertionError("score_pairs: non-finite or misshapen scores")
+    if len(rows) != 32 or any(len(r) != 4 for r in rows):
+        raise AssertionError("search: expected 32 rows of 4 columns")
+    # the CLI's scores against score_pairs of the same pairs in one batch
+    qt, ql = pad_sequences([tok(queries[int(r[0][1:])])[0] for r in rows])
+    dt, dl = pad_sequences([tok(db[int(r[1][1:])])[0] for r in rows])
+    want = model.score_pairs(dict(x=qt, y=dt, x_len=ql, y_len=dl)).cpu()
+    got = torch.tensor([float(r[2]) for r in rows])
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        raise AssertionError("search: CLI scores differ from score_pairs")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel did not run on the main path: "
+                             f"{launches}")
+    log(f"phase serving: align x4 {t_align:.2f} s (state lengths "
+        f"{[len(s) for s in states]}), score_pairs 32x512 {t_score:.2f} s, "
+        f"save + search 32 pairs {t_search:.2f} s [{card}]; launches "
+        f"{json.dumps(launches)}")
+
+    # every kernel against its plain version at this path's own shapes
+    errs = {}
+    with torch.no_grad():
+        b = model._as_batch(batch)
+        hx, hy = model._embeddings(b)
+        lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+        theta, A = model.aligner.potentials(hx, hy, lengths)
+        check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+        x, y = pairs[0]
+        b = model._as_batch(dict(
+            x=tok(x)[0][None], y=tok(y)[0][None],
+            x_len=np.asarray([len(x)], np.int32),
+            y_len=np.asarray([len(y)], np.int32)))
+        hx, hy = model._embeddings(b)
+        lengths = (b["x_len"], b["y_len"])
+        theta, A = model.aligner.potentials(hx, hy, lengths)
+        check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+    torch.cuda.synchronize()
+    log(f"phase serving: kernels = plain at the path's shapes (32, 512, 512)"
+        f" and (1, {len(x)}, {len(y)}); max abs diff {json.dumps(errs)}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4: decode at the bench shape
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bench(seed, card):
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew
+    B, N, M = 256, 512, 512
+    K, S = N + M - 1, N + 1
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    theta, A, ln, lm = dp_problem(g, B, N, M, ragged=False)
+    kw = dict(mode="nw", operator="softmax")
+    Et = torch.ones((B,), device="cuda")
+    th_s, A_s = dp_cuda.skew(theta), dp_cuda.skew(A)
+    _, dx, dm = dp_cuda.forward(th_s, A_s, ln, lm, **kw)
+
+    def decode():
+        t, a = dp_cuda.skew(theta), dp_cuda.skew(A)
+        _, x, m = dp_cuda.forward(t, a, ln, lm, **kw)
+        return dp_cuda.backward(x, m, ln, lm, Et, **kw)
+
+    kern = {
+        "skew": lambda: dp_cuda.skew(theta),
+        "forward": lambda: dp_cuda.forward(th_s, A_s, ln, lm, **kw),
+        "forward_score": lambda: dp_cuda.forward_score(th_s, A_s, ln, lm,
+                                                       **kw),
+        "backward": lambda: dp_cuda.backward(dx, dm, ln, lm, Et, **kw),
+    }
+    plain = {
+        "skew": lambda: skew(theta),
+        "forward": lambda: dp_ref.forward(th_s, A_s, ln, lm, **kw),
+        "forward_score": lambda: dp_ref.forward_score(th_s, A_s, ln, lm,
+                                                      **kw),
+        "backward": lambda: dp_ref.backward(dx, dm, ln, lm, Et, **kw),
+    }
+    # The least bytes each function must move: a DP pass reads and writes
+    # only the valid band (ln x lm cells per pair) of each stream, plus the
+    # lengths and Vt or Et; the skew reads the natural tensor and writes
+    # every slot of the layout.
+    f = 4
+    band = int((ln.long() * lm.long()).sum())
+    per_pair = 2 * f * B + f * B
+    nbytes = {
+        "skew": f * B * N * M + f * B * K * S,
+        "forward": 4 * f * band + per_pair,
+        "forward_score": 2 * f * band + per_pair,
+        "backward": 3 * f * band + per_pair,
+    }
+    ms = {k: cuda_ms(fn, 10) for k, fn in kern.items()}
+    plain_ms = {k: cuda_ms(fn, 1) for k, fn in plain.items()}
+    decode_ms = cuda_ms(decode, 10)
+    out = {}
+    for k in kern:
+        b_ms, by = bound(nbytes[k], FLOPS_PER_CELL[k] * band)
+        out[k] = dict(ms=ms[k], plain_ms=plain_ms[k], bound_ms=b_ms,
+                      bound_by=by, bytes=nbytes[k])
+        log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms, "
+            f"bound {b_ms:.4f} ms by {by}, {nbytes[k]} bytes) [{card}]")
+    log(f"phase bench: decode skew x2 + forward + backward at (256, 512, "
+        f"512) nw softmax fp32: {decode_ms:.4f} ms = "
+        f"{B / decode_ms * 1e3:.1f} alignments/s; score-only forward "
+        f"{ms['forward_score']:.4f} ms [{card}]")
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(card)
+    import deepblast_torch  # noqa: F401  (fails outside a checkout)
+
+    seed = 0
+    phase_build()
+    errs = phase_kernels(seed)
+    launches, path_errs = phase_serving(seed, card)
+    bench = phase_bench(seed, card)
+    kernels = []
+    for k in ("skew", "forward", "forward_score", "backward"):
+        kernels.append(dict(
+            name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+            launches=launches[k],
+            max_abs_err=max(errs[k], path_errs[k]),
+            ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
+            bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
+            library_ms=None))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

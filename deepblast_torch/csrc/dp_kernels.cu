@@ -1,0 +1,315 @@
+// Hand-written Hopper (sm_90a) kernels for the serving path of the soft
+// alignment DP: skew, forward (with and without residual stores) and
+// backward (expected alignment), on the port's batch-major stream layout
+// (B, K, S): K = N+M-1 anti-diagonals, S = N+1 slots, 0-based cell (i, j)
+// at [b, i+j, i+1] (deepblast_torch/ops/skew.py).
+//
+// TPU kernels replaced (deepblast_tpu/ops/):
+//   skew_kernel            <- skew_bm.py:195 skew_bm (_skew_kernel :152)
+//   forward_kernel<.,true> <- dp_bm.py:1025 decode_stream_bm, forward phases
+//                             (_fwd_phase_kernel :932)
+//   forward_kernel<.,false><- dp_bm.py:509 forward_score_bm
+//                             (_fwd_score_kernel :468)
+//   backward_kernel        <- dp_bm.py:1025 decode_stream_bm, backward phases
+//                             (_bwd_phase_kernel :976)
+// The plain PyTorch versions are deepblast_torch/ops/skew.py (skew) and
+// deepblast_torch/ops/dp_ref.py (the rest); the arithmetic here follows
+// them operation by operation.
+//
+// What bounds them on the H100: bytes.  Per cell the forward reads 2
+// streams (theta, A) and writes 2 (Dx, Dm), the score-only forward reads 2,
+// the backward reads 2 (Dx, Dm) and writes 1 (E), the skew reads 1 and
+// writes 1 -- a few flops per 4-byte value, far below the card's
+// 20 flop/byte fp32 ridge.  The recurrence is also a chain of K dependent
+// diagonal steps per pair, so at small batch the latency of one step
+// (a global load, a few transcendental ops, one barrier) bounds it
+// instead.
+//
+// What the design does about it, in this first version: one CTA per pair
+// walks all K diagonals in one launch; threads run along the slot axis
+// (coalesced loads and stores of each diagonal row), and the rolling DP
+// rows live in shared memory with one __syncthreads() per diagonal, so
+// the only device-memory traffic is each stream read once and each output
+// written once.  Every output slot is written (zeros, or finite residuals
+// outside the valid band), so no uninitialised memory can reach the
+// backward's Q * E products.  Wider per-thread work, bf16 residuals and
+// TMA prefetch of the next rows are later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        --fmad=false -shared -Xcompiler -fPIC
+// No fast math (the traceback compares E values exactly), and no FMA
+// contraction, so each cell rounds as the plain PyTorch version does.
+// Each C entry returns cudaGetLastError() of its launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum { OP_SOFTMAX = 0, OP_SPARSEMAX = 1, OP_HARDMAX = 2 };
+
+// Smoothed max of (ax, am, ay) and its argmax (deepblast_torch/ops/smooth.py).
+template <int OP>
+__device__ __forceinline__ float max3(float ax, float am, float ay,
+                                      float &px, float &pm, float &py) {
+  if (OP == OP_SOFTMAX) {
+    float mx = fmaxf(fmaxf(ax, am), ay);
+    float ex = expf(ax - mx);
+    float em = expf(am - mx);
+    float ey = expf(ay - mx);
+    float s = ex + em + ey;
+    float inv = 1.0f / s;
+    px = ex * inv;
+    pm = em * inv;
+    py = ey * inv;
+    return mx + logf(s);
+  } else if (OP == OP_SPARSEMAX) {
+    float a_hi = fmaxf(ax, am);
+    float a_lo = fminf(ax, am);
+    float z1 = fmaxf(a_hi, ay);
+    float z3 = fminf(a_lo, ay);
+    float z2 = fmaxf(a_lo, fminf(a_hi, ay));
+    float c1 = z1 + z2 - 1.0f;
+    float c2 = c1 + z3;
+    float cond2 = (2.0f * z2 > c1) ? 1.0f : 0.0f;
+    float cond3 = (3.0f * z3 > c2) ? 1.0f : 0.0f;
+    float rho = 1.0f + cond2 + cond3;
+    float cssv = (z1 - 1.0f) + cond2 * z2 + cond3 * z3;
+    float tau = cssv / rho;
+    px = fmaxf(ax - tau, 0.0f);
+    pm = fmaxf(am - tau, 0.0f);
+    py = fmaxf(ay - tau, 0.0f);
+    return px * (ax - 0.5f * px) + pm * (am - 0.5f * pm) +
+           py * (ay - 0.5f * py);
+  } else {
+    float val = fmaxf(fmaxf(ax, am), ay);
+    float ix = (ax == val) ? 1.0f : 0.0f;
+    float im = (am == val) ? 1.0f : 0.0f;
+    float iy = (ay == val) ? 1.0f : 0.0f;
+    float inv = 1.0f / (ix + im + iy);
+    px = ix * inv;
+    pm = im * inv;
+    py = iy * inv;
+    return val;
+  }
+}
+
+__device__ __forceinline__ bool cell_valid(int s, int k, int n, int m, int lo) {
+  int j = k - s;
+  return s >= lo && j >= lo && s <= n && j <= m;
+}
+
+// out[b, r, s] = x[b, s-1, r-s+1] where that cell exists, else 0.
+__global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
+                            int K, int S, float *__restrict__ out) {
+  const size_t total = (size_t)B * K * S;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
+    int s = (int)(idx % S);
+    size_t t = idx / S;
+    int r = (int)(t % K);
+    int b = (int)(t / K);
+    int j = r - s + 1;
+    float v = 0.0f;
+    if (s >= 1 && j >= 0 && j < M)
+      v = x[((size_t)b * N + (s - 1)) * M + j];
+    out[idx] = v;
+  }
+}
+
+// One CTA per pair.  Shared memory: three rolling V rows (r-1, r-2, r).
+template <int OP, bool kStoreResiduals>
+__global__ void forward_kernel(const float *__restrict__ th,
+                               const float *__restrict__ ad,
+                               const int *__restrict__ ln,
+                               const int *__restrict__ lm, int K, int S,
+                               int lo, float *__restrict__ vt,
+                               float *__restrict__ dxo,
+                               float *__restrict__ dmo) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  // the score-only walk stops at the terminal row; with residuals every
+  // row is written
+  const int rows = kStoreResiduals ? K : min(K, n + m - 1);
+  for (int r = 0; r < rows; ++r) {
+    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
+    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
+    float *vn = smem + (r % 3) * S;              // row r
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float a = ad[row + s];
+      float t = th[row + s];
+      float v1s = v1[s];
+      float v1l = s > 0 ? v1[s - 1] : 0.0f;
+      float v2l = s > 0 ? v2[s - 1] : 0.0f;
+      float dx = v1l - v1s;
+      float dm = v2l - a - v1s;
+      if (kStoreResiduals) {
+        dxo[row + s] = dx;
+        dmo[row + s] = dm;
+      }
+      float px, pm, py;
+      float rel = max3<OP>(dx, dm, 0.0f, px, pm, py);
+      float v = t + a + v1s + rel;
+      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
+      if (s == n && k == n + m) vt[b] = v;
+      vn[s] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// One CTA per pair, rows descending.  Shared memory: E rows r+2, r+1, r
+// (3 x S), Qx and Qy rows r+1, r (2 x S each), Qm rows r+2, r+1, r (3 x S).
+template <int OP>
+__global__ void backward_kernel(const float *__restrict__ dx,
+                                const float *__restrict__ dm,
+                                const int *__restrict__ ln,
+                                const int *__restrict__ lm,
+                                const float *__restrict__ et, int K, int S,
+                                int lo, float *__restrict__ eo) {
+  extern __shared__ float smem[];
+  float *E = smem;
+  float *QX = smem + 3 * S;
+  float *QY = smem + 5 * S;
+  float *QM = smem + 7 * S;
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const float e_t = et[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 10 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = K - 1; r >= 0; --r) {
+    const float *e1 = E + ((r + 1) % 3) * S;    // row r+1
+    const float *e2 = E + ((r + 2) % 3) * S;    // row r+2
+    float *en = E + (r % 3) * S;                // row r
+    const float *qx1 = QX + ((r + 1) & 1) * S;  // row r+1
+    const float *qy1 = QY + ((r + 1) & 1) * S;
+    const float *qm2 = QM + ((r + 2) % 3) * S;  // row r+2
+    float *qxn = QX + (r & 1) * S;
+    float *qyn = QY + (r & 1) * S;
+    float *qmn = QM + (r % 3) * S;
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float dxs = dx[row + s];
+      float dms = dm[row + s];
+      bool in = s + 1 < S;
+      float e1s = e1[s];
+      float e1r = in ? e1[s + 1] : 0.0f;
+      float e2r = in ? e2[s + 1] : 0.0f;
+      float qx1r = in ? qx1[s + 1] : 0.0f;
+      float qm2r = in ? qm2[s + 1] : 0.0f;
+      float e = qx1r * e1r + qm2r * e2r + qy1[s] * e1s;
+      e = cell_valid(s, k, n, m, lo) ? e : 0.0f;
+      if (s == n && k == n + m) e = e + e_t;
+      eo[row + s] = e;
+      en[s] = e;
+      float px, pm, py;
+      max3<OP>(dxs, dms, 0.0f, px, pm, py);
+      qxn[s] = px;
+      qmn[s] = pm;
+      qyn[s] = py;
+    }
+    __syncthreads();
+  }
+}
+
+int threads_for(int S) {
+  int t = ((S + 31) / 32) * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+// Opt in to more than the default 48 KB of dynamic shared memory when the
+// rows need it (S above ~1200 slots in the backward).
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int OP, bool kStoreResiduals>
+cudaError_t launch_forward(const float *th, const float *ad, const int *ln,
+                           const int *lm, int B, int K, int S, int lo,
+                           float *vt, float *dxo, float *dmo,
+                           cudaStream_t st) {
+  size_t smem = 3 * (size_t)S * sizeof(float);
+  auto kern = forward_kernel<OP, kStoreResiduals>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B, threads_for(S), smem, st>>>(th, ad, ln, lm, K, S, lo, vt, dxo,
+                                        dmo);
+  return cudaGetLastError();
+}
+
+template <int OP>
+cudaError_t launch_backward(const float *dx, const float *dm, const int *ln,
+                            const int *lm, const float *et, int B, int K,
+                            int S, int lo, float *eo, cudaStream_t st) {
+  size_t smem = 10 * (size_t)S * sizeof(float);
+  auto kern = backward_kernel<OP>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B, threads_for(S), smem, st>>>(dx, dm, ln, lm, et, K, S, lo, eo);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int dp_skew(const float *x, int B, int N, int M, float *out, void *stream) {
+  int K = N + M - 1, S = N + 1;
+  size_t total = (size_t)B * K * S;
+  size_t want = (total + 255) / 256;
+  int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
+  if (blocks < 1) blocks = 1;
+  skew_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(x, B, N, M, K, S,
+                                                        out);
+  return (int)cudaGetLastError();
+}
+
+int dp_forward(const float *th, const float *ad, const int *ln, const int *lm,
+               int B, int K, int S, int lo, int op, int store, float *vt,
+               float *dxo, float *dmo, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define DP_FWD(OP)                                                         \
+  (store ? launch_forward<OP, true>(th, ad, ln, lm, B, K, S, lo, vt, dxo,  \
+                                    dmo, st)                               \
+         : launch_forward<OP, false>(th, ad, ln, lm, B, K, S, lo, vt,      \
+                                     nullptr, nullptr, st))
+  switch (op) {
+    case OP_SOFTMAX: return (int)DP_FWD(OP_SOFTMAX);
+    case OP_SPARSEMAX: return (int)DP_FWD(OP_SPARSEMAX);
+    case OP_HARDMAX: return (int)DP_FWD(OP_HARDMAX);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DP_FWD
+}
+
+int dp_backward(const float *dx, const float *dm, const int *ln,
+                const int *lm, const float *et, int B, int K, int S, int lo,
+                int op, float *eo, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (op) {
+    case OP_SOFTMAX:
+      return (int)launch_backward<OP_SOFTMAX>(dx, dm, ln, lm, et, B, K, S, lo,
+                                              eo, st);
+    case OP_SPARSEMAX:
+      return (int)launch_backward<OP_SPARSEMAX>(dx, dm, ln, lm, et, B, K, S,
+                                                lo, eo, st);
+    case OP_HARDMAX:
+      return (int)launch_backward<OP_HARDMAX>(dx, dm, ln, lm, et, B, K, S, lo,
+                                              eo, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,83 @@
+"""Neural alignment model (``deepblast_tpu/models/aligner.py``).
+
+:class:`NeuralAligner` turns language-model embeddings of two sequences
+into DP potentials and serves them:
+
+* ``theta = softplus(zx @ zy^T)`` and ``A = log_sigmoid(gx @ gy^T)``
+  (``aligner.py:88-102``), both float32 as the JAX package's
+  ``preferred_element_type`` makes them;
+* :meth:`score` — terminal alignment scores (``aligner.py:113-119``);
+* :meth:`decode_stream` — the expected alignment as a ``(B, K, S)`` stream
+  for the traceback (``DeepBLAST.align``'s decode).
+
+``softplus`` is ``logaddexp(x, 0)``, not ``torch.nn.functional.softplus``,
+which returns ``x`` itself above its threshold where ``jax.nn.softplus``
+does not.  The differentiable natural-layout decode (``__call__`` in the
+JAX package) is the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepblast_torch.models.heads import build_head
+from deepblast_torch.ops import dp as dp_ops
+
+__all__ = ["NeuralAligner"]
+
+_MODE_ALIASES = {
+    "needleman-wunsch": "nw",
+    "smith-waterman": "sw",
+    "nw": "nw",
+    "sw": "sw",
+}
+
+
+class NeuralAligner(nn.Module):
+    """Match/gap heads over LM embeddings + DP scoring and decoding."""
+
+    def __init__(self, embedding_dim=1024, hidden_dim=1024, layers=2,
+                 k_size=5, dropout=0.0, layer_type="cnn",
+                 alignment_mode="needleman-wunsch", operator="softmax",
+                 device=None, dtype=None):
+        super().__init__()
+        self.mode = _MODE_ALIASES[alignment_mode]
+        self.operator = operator
+        kw = dict(embedding_dim=embedding_dim, hidden_dim=hidden_dim,
+                  layers=layers, k_size=k_size, dropout=dropout,
+                  device=device, dtype=dtype)
+        self.match_embedding = build_head(layer_type, **kw)
+        self.gap_embedding = build_head(layer_type, **kw)
+
+    def blosum_factor(self, hx, lengths=None):
+        """Match and gap head features of one side, pad-invariant when
+        ``lengths`` is given."""
+        return (self.match_embedding(hx, lengths),
+                self.gap_embedding(hx, lengths))
+
+    def potentials(self, hx, hy, lengths=None):
+        """Match and gap potentials ``(B, N, M)`` float32."""
+        ln, lm = lengths if lengths is not None else (None, None)
+        zx, gx = self.blosum_factor(hx, ln)
+        zy, gy = self.blosum_factor(hy, lm)
+        match = torch.einsum("bid,bjd->bij", zx, zy).float()
+        gap = torch.einsum("bid,bjd->bij", gx, gy).float()
+        theta = torch.logaddexp(match, torch.zeros((), dtype=match.dtype,
+                                                   device=match.device))
+        A = F.logsigmoid(gap)
+        return theta, A
+
+    def score(self, hx, hy, lengths=None):
+        """Terminal alignment scores ``(B,)``."""
+        theta, A = self.potentials(hx, hy, lengths)
+        return dp_ops.alignment_score(theta, A, lengths, mode=self.mode,
+                                      operator=self.operator)
+
+    def decode_stream(self, hx, hy, lengths=None):
+        """Expected alignment stream ``(B, K, S)`` for
+        :func:`deepblast_torch.ops.dp.traceback_stream`."""
+        theta, A = self.potentials(hx, hy, lengths)
+        return dp_ops.expected_alignment_stream(
+            theta, A, lengths, mode=self.mode, operator=self.operator)

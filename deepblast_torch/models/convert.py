@@ -1,0 +1,66 @@
+"""Weights carried across from the JAX package.
+
+:func:`params_from_jax` turns a flax parameter tree of the JAX package —
+nested dicts of numpy arrays, with or without the outer ``{"params": ...}``
+— into a ``state_dict`` of the matching port module.  The port's modules
+use the flax submodule names, so the mapping is by name, leaf by leaf:
+
+* ``Dense`` ``kernel (in, out)`` -> ``Linear.weight (out, in)``, ``bias`` as is;
+* ``Conv`` ``kernel (k, in, out)`` -> ``Conv1d.weight (out, in, k)``;
+* ``Embed`` ``embedding`` -> ``Embedding.weight``;
+* ``relative_attention_bias (buckets, heads)`` -> ``Embedding(buckets,
+  heads).weight``;
+* RMSNorm ``weight`` as is.
+
+It covers :class:`~deepblast_torch.models.aligner.NeuralAligner` (CNN and
+linear heads) and :class:`~deepblast_torch.models.lm.T5Encoder` /
+:class:`~deepblast_torch.models.lm.TokenEmbed`.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax"]
+
+# flax auto-names of unnamed submodules -> the port's attribute names
+_RENAMES = {"Dense_0": "linear", "Embed_0": "embed"}
+
+
+def _tensor(a, dtype):
+    t = torch.tensor(np.asarray(a))   # a copy: flax leaves are read-only
+    return t if dtype is None else t.to(dtype)
+
+
+def params_from_jax(tree, dtype=None):
+    """flax parameter tree -> port ``state_dict`` (see module docstring).
+    ``dtype`` optionally casts every tensor."""
+    if isinstance(tree, Mapping) and set(tree) == {"params"}:
+        tree = tree["params"]
+    sd = {}
+
+    def walk(node, prefix):
+        for name, v in node.items():
+            name = _RENAMES.get(name, name)
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{name}.")
+                continue
+            a = np.asarray(v)
+            if name == "kernel":
+                a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
+                sd[f"{prefix}weight"] = _tensor(a, dtype)
+            elif name in ("embedding", "weight"):
+                sd[f"{prefix}weight"] = _tensor(a, dtype)
+            elif name == "bias":
+                sd[f"{prefix}bias"] = _tensor(a, dtype)
+            elif name == "relative_attention_bias":
+                sd[f"{prefix}{name}.weight"] = _tensor(a, dtype)
+            else:
+                raise KeyError(f"no port counterpart for flax leaf "
+                               f"{prefix}{name}")
+
+    walk(tree, "")
+    return sd

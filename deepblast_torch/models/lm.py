@@ -1,0 +1,198 @@
+"""Protein language models: the ProtT5 encoder and a plain token embedding
+(``deepblast_tpu/models/lm.py:165-333``).
+
+:class:`T5Encoder` keeps the JAX package's T5 exactly: no ``1/sqrt(d_kv)``
+scaling of the scores (``lm.py:249``), the relative-position bias table
+only in block 0 and shared by every block (``lm.py:252-263``), pad keys
+masked with ``finfo(float32).min`` (``lm.py:264-266``), attention scores,
+their softmax and the RMSNorm variance taken in float32 (``lm.py:214``,
+``:250``), and the output multiplied by the mask (``lm.py:333``).
+Submodule names follow the flax parameter names (``block0.attn.q``, ...)
+so ``models/convert.py`` maps flax trees by name.  The BiLM waits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["TokenEmbed", "T5Config", "RMSNorm", "relative_position_bucket",
+           "T5Attention", "T5FF", "T5Block", "T5Encoder"]
+
+
+class TokenEmbed(nn.Module):
+    """Plain learned token embedding — the LM-free minimal path."""
+
+    def __init__(self, vocab, dim, device=None, dtype=None):
+        super().__init__()
+        self.embed = nn.Embedding(vocab, dim, device=device, dtype=dtype)
+
+    def forward(self, tokens, lengths=None):
+        return self.embed(tokens)
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 128
+    d_model: int = 1024
+    d_kv: int = 128
+    d_ff: int = 16384
+    num_layers: int = 24
+    num_heads: int = 32
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "relu"   # "relu" | "gated-gelu"
+
+    @classmethod
+    def prot_t5_xl(cls, **kw):
+        """Rostlab/prot_t5_xl_uniref50 encoder geometry."""
+        return cls(vocab_size=128, d_model=1024, d_kv=128, d_ff=16384,
+                   num_layers=24, num_heads=32, **kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Small config for tests."""
+        return cls(vocab_size=32, d_model=32, d_kv=8, d_ff=64,
+                   num_layers=2, num_heads=4, **kw)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim, eps=1e-6, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        var = x.float().square().mean(-1, keepdim=True)
+        return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
+
+
+def relative_position_bucket(rel_pos, num_buckets=32, max_distance=128):
+    """T5's bidirectional relative-position bucketing (in float32, as the
+    JAX package computes it)."""
+    num_buckets //= 2
+    ret = (rel_pos > 0).long() * num_buckets
+    n = rel_pos.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-6)
+        / math.log(max_distance / max_exact) * (num_buckets - max_exact)
+    ).long()
+    val_if_large = torch.clamp_max(val_if_large, num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5Config, has_relative_bias=False, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.cfg = cfg
+        inner = cfg.num_heads * cfg.d_kv
+        self.q = nn.Linear(cfg.d_model, inner, **kw)
+        self.k = nn.Linear(cfg.d_model, inner, **kw)
+        self.v = nn.Linear(cfg.d_model, inner, **kw)
+        self.o = nn.Linear(inner, cfg.d_model, **kw)
+        self.relative_attention_bias = nn.Embedding(
+            cfg.relative_attention_num_buckets, cfg.num_heads,
+            device=device, dtype=dtype) if has_relative_bias else None
+
+    def position_bias(self, L, device):
+        """``(1, H, L, L)`` bias from the bucketed key-minus-query offsets."""
+        pos = torch.arange(L, device=device)
+        buckets = relative_position_bucket(
+            pos[None, :] - pos[:, None],
+            self.cfg.relative_attention_num_buckets,
+            self.cfg.relative_attention_max_distance)
+        return self.relative_attention_bias(buckets).permute(2, 0, 1)[None]
+
+    def forward(self, x, mask, position_bias=None):
+        cfg = self.cfg
+        B, L, _ = x.shape
+        shape = (B, L, cfg.num_heads, cfg.d_kv)
+        q = self.q(x).view(shape)
+        k = self.k(x).view(shape)
+        v = self.v(x).view(shape)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        if self.relative_attention_bias is not None:
+            position_bias = self.position_bias(L, x.device)
+        if position_bias is not None:
+            scores = scores + position_bias
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :],
+                                        torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+        return self.o(out), position_bias
+
+
+class T5FF(nn.Module):
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.gated = cfg.feed_forward_proj == "gated-gelu"
+        if self.gated:
+            self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+            self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        else:
+            self.wi = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
+
+    def forward(self, x):
+        if self.gated:
+            h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
+        else:
+            h = torch.relu(self.wi(x))
+        return self.wo(h)
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5Config, has_relative_bias=False, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln_attn = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+        self.attn = T5Attention(cfg, has_relative_bias, **kw)
+        self.ln_ff = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+        self.ff = T5FF(cfg, **kw)
+
+    def forward(self, x, mask, position_bias=None):
+        attn, position_bias = self.attn(self.ln_attn(x), mask, position_bias)
+        x = x + attn
+        x = x + self.ff(self.ln_ff(x))
+        return x, position_bias
+
+
+class T5Encoder(nn.Module):
+    """ProtT5-class encoder producing residue embeddings
+    ``(B, L, d_model)``, zero at pad positions."""
+
+    def __init__(self, cfg: T5Config, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+        for i in range(cfg.num_layers):
+            self.add_module(f"block{i}",
+                            T5Block(cfg, has_relative_bias=(i == 0), **kw))
+        self.ln_final = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
+
+    def forward(self, tokens, mask=None):
+        if mask is None:
+            mask = torch.ones(tokens.shape, dtype=torch.bool,
+                              device=tokens.device)
+        mask = mask.bool()
+        x = self.embed(tokens)
+        position_bias = None
+        for i in range(self.cfg.num_layers):
+            x, position_bias = getattr(self, f"block{i}")(x, mask,
+                                                          position_bias)
+        x = self.ln_final(x)
+        return x * mask[..., None].to(x.dtype)
