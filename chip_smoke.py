@@ -14,21 +14,47 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              kernel against its plain PyTorch version on the card, ragged
              (B, N, M) = (16, 200, 150), nw and sw x softmax / sparsemax /
              hardmax, outputs allocated over NaN-filled memory:
-             skew exact; forward (Vt, Dx, Dm), score-only forward (Vt) and
-             backward (E) to rtol 1e-4 / atol 1e-5 (fp32, transcendental
-             ulps accumulated over the diagonal walk); tracebacks identical.
+             skew and unskew exact; forward (Vt, Dx, Dm), score-only forward
+             (Vt), backward (E, and E with EA), adjoint forward with and
+             without Za (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) to
+             rtol 1e-4 / atol 1e-5 (fp32, transcendental ulps accumulated
+             over the diagonal walk); tracebacks identical; autograd of
+             ``alignment_score`` (two orders) and ``expected_alignment``
+             through the kernels = through the plain passes on the card
+             (same tolerance) and = on the CPU (each output to 1e-4 of its
+             largest magnitude, see ``check_autograd``).
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
              of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
              ``save_model`` and the search CLI on an 8 x 4 FASTA.  Kernel
              launch counters are zeroed just before and read just after;
-             every kernel must have run.  Then every kernel is held against
-             its plain version again at the potentials this path produced.
-4. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
+             every kernel of the path must have run.  Then every kernel is
+             held against its plain version again at the potentials this
+             path produced.
+4. train   — ``python -m deepblast_torch.cli.train`` in-process, ProtT5-XL
+             + CNN-1024 (the ``deepblast-train`` defaults: dropout 0.5, NW,
+             softmax, cross entropy, cosine schedule, clip 10, lr 5e-5) on
+             synthetic TM-align TSVs: 48 pairs of length 100-500 and 8 of
+             600-1000 (one batch padded past 600 slots, where the adjoint
+             backward needs more than 48 KB of shared memory), 16 valid
+             pairs, batch 16, 2 epochs.  Counters zeroed before, read
+             after: every training kernel must have run.  Losses finite,
+             aligner changed (against the config's seeded init), at most
+             3 checkpoints, ``load_model`` serves ``align``.  Then every
+             kernel, and autograd through them, is held against its plain
+             version (and the CPU) at the trained model's potentials of the
+             longest training batch (8, 992, 1024).  The whole run's
+             time, the intervals between the ``train_loss`` records of
+             its own ``metrics.jsonl``, and peak device memory.
+5. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
              time (CUDA events), the plain version's time, alignments/s,
              and each kernel's bound (bytes over 3.35 TB/s, flops over
              67 TFLOP/s fp32; H100 SXM data sheet), counting the valid
-             cells of the run's pairs, not the stream's padding slots.
+             cells of the run's pairs, not the stream's padding slots;
+             the unskew's library time is one strided ``clone``; then the
+             training kernels at the same shape and one whole
+             differentiable DP step (``expected_alignment`` + ``backward()``
+             of a cross entropy).
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,16 +76,33 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 SOURCE = "deepblast_torch/csrc/dp_kernels.cu"
+KERNELS = ("skew", "unskew", "forward", "forward_score", "backward",
+           "adjoint_forward", "adjoint_backward")
+SERVING_KERNELS = ("skew", "forward", "forward_score", "backward")
+TRAIN_KERNELS = ("skew", "unskew", "forward", "backward", "adjoint_forward",
+                 "adjoint_backward")
+# every TPU pallas_call site each kernel stands for
 REPLACES = {
-    "skew": "deepblast_tpu/ops/skew_bm.py:195",
-    "forward": "deepblast_tpu/ops/dp_bm.py:1082",
-    "forward_score": "deepblast_tpu/ops/dp_bm.py:509",
-    "backward": "deepblast_tpu/ops/dp_bm.py:1116",
+    "skew": ["deepblast_tpu/ops/skew_bm.py:195"],
+    "unskew": ["deepblast_tpu/ops/skew_bm.py:321"],
+    "forward": ["deepblast_tpu/ops/dp_bm.py:1082",
+                "deepblast_tpu/ops/dp_bm.py:423",
+                "deepblast_tpu/ops/dp_bm_train.py:179"],
+    "forward_score": ["deepblast_tpu/ops/dp_bm.py:509"],
+    "backward": ["deepblast_tpu/ops/dp_bm.py:1116",
+                 "deepblast_tpu/ops/dp_bm.py:617",
+                 "deepblast_tpu/ops/dp_bm_train.py:303"],
+    "adjoint_forward": ["deepblast_tpu/ops/dp_bm.py:709",
+                        "deepblast_tpu/ops/dp_bm_train.py:442"],
+    "adjoint_backward": ["deepblast_tpu/ops/dp_bm.py:827",
+                         "deepblast_tpu/ops/dp_bm_train.py:595"],
 }
 # fp32 operations per cell of the slot loop (softmax; the other operators
 # are of the same order), for the operations side of each bound
-FLOPS_PER_CELL = {"skew": 0, "forward": 20, "forward_score": 20,
-                  "backward": 24}
+FLOPS_PER_CELL = {"skew": 0, "unskew": 0, "forward": 20,
+                  "forward_score": 20, "backward": 24, "backward_gap": 27,
+                  "adjoint_forward": 28, "adjoint_forward_za": 29,
+                  "adjoint_backward": 45}
 
 
 def log(msg):
@@ -172,9 +215,9 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
            dp_ref.forward_score(th_s, A_s, ln, lm, **kw), errs)
 
     Et = torch.ones_like(vt_p)
-    E_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et, **kw)
+    E_p, _ = dp_ref.backward(dx_p, dm_p, ln, lm, Et, **kw)
     _poison(E_p)
-    E_k = dp_cuda.backward(dx_p, dm_p, ln, lm, Et, **kw)
+    E_k, _ = dp_cuda.backward(dx_p, dm_p, ln, lm, Et, **kw)
     _close("backward", E_k, E_p, errs)
 
     E_kh, E_ph = E_k.cpu().numpy(), E_p.cpu().numpy()
@@ -182,6 +225,101 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
         if dp_ops.traceback_stream(E_kh, n, m, b) != \
                 dp_ops.traceback_stream(E_ph, n, m, b):
             raise AssertionError(f"traceback of pair {b} differs")
+    check_train_kernels(theta, dx_p, dm_p, E_p, ln, lm, kw, errs)
+
+
+def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
+    """The training kernels against their plain versions: unskew exactly,
+    backward with the gap output, the adjoint forward with and without a
+    Za stream, the adjoint backward; random cotangents."""
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew, unskew
+    B, N, M = theta.shape
+    u_p = unskew(E, N, M)
+    _poison(u_p)
+    if not torch.equal(dp_cuda.unskew(E, N, M), u_p):
+        raise AssertionError("unskew: kernel differs from the plain relayout")
+    errs.setdefault("unskew", 0.0)
+
+    Et = torch.ones((B,), device=theta.device)
+    E_p, EA_p = dp_ref.backward(dx, dm, ln, lm, Et, want_gap=True, **kw)
+    _poison(E_p, EA_p)
+    E_k, EA_k = dp_cuda.backward(dx, dm, ln, lm, Et, want_gap=True, **kw)
+    _close("backward", E_k, E_p, errs)
+    _close("backward", EA_k, EA_p, errs)
+
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(B * N + M)
+    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device))
+    za_s = skew(torch.randn(theta.shape, generator=g, device=theta.device))
+    for za in (None, za_s):
+        vtd_p, dxd_p, dmd_p = dp_ref.adjoint_forward(dx, dm, zt_s, za, ln,
+                                                     lm, **kw)
+        _poison(dxd_p, dmd_p)
+        vtd_k, dxd_k, dmd_k = dp_cuda.adjoint_forward(dx, dm, zt_s, za, ln,
+                                                      lm, **kw)
+        for got, want in ((vtd_k, vtd_p), (dxd_k, dxd_p), (dmd_k, dmd_p)):
+            _close("adjoint_forward", got, want, errs)
+
+    Ed_p, EdA_p = dp_ref.adjoint_backward(dx, dm, dxd_p, dmd_p, E, ln, lm,
+                                          **kw)
+    _poison(Ed_p, EdA_p)
+    Ed_k, EdA_k = dp_cuda.adjoint_backward(dx, dm, dxd_p, dmd_p, E, ln, lm,
+                                           **kw)
+    _close("adjoint_backward", Ed_k, Ed_p, errs)
+    _close("adjoint_backward", EdA_k, EdA_p, errs)
+
+
+def check_autograd(theta, A, ln, lm, mode, operator, errs):
+    """``torch.autograd.grad`` through the dispatcher on the card (the
+    kernels) against the same calls with the plain passes, on the card and
+    on CPU copies: ``alignment_score`` to first and second order,
+    ``expected_alignment`` with and without the gap output.
+
+    Against the plain passes on the card: rtol 1e-4 / atol 1e-5 per
+    element, as every kernel.  Against the CPU, where exp and log round
+    differently, each output to atol 1e-5 + rtol 1e-4 of its largest
+    magnitude: the DP differences V[r-1] - V[r-2] cancel, so a last-bit
+    change of V moves a small output by more than its own rtol."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_ref
+    kw = dict(mode=mode, operator=operator)
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(1)
+    Zt = torch.randn(theta.shape, generator=g, device=theta.device)
+    Za = torch.randn(theta.shape, generator=g, device=theta.device)
+
+    def grads(dev):
+        t = theta.detach().to(dev).requires_grad_()
+        a = A.detach().to(dev).requires_grad_()
+        lens = (ln.to(dev), lm.to(dev))
+        zt, za = Zt.to(dev), Za.to(dev)
+        vt = dp_ops.alignment_score(t, a, lens, **kw)
+        g1 = torch.autograd.grad(vt.sum(), (t, a), create_graph=True)
+        g2 = torch.autograd.grad((g1[0] * g1[0]).sum(), (t, a))
+        E = dp_ops.expected_alignment(t, a, lens, **kw)
+        g3 = torch.autograd.grad((E * zt).sum(), (t, a))
+        E, EA = dp_ops.expected_alignment(t, a, lens, return_gap=True, **kw)
+        g4 = torch.autograd.grad((E * zt).sum() + (EA * za).sum(), (t, a))
+        return [x.detach() for x in (vt, *g1, *g2, E, EA, *g3, *g4)]
+
+    kern = grads(theta.device)
+    passes = dp_ops._passes
+    dp_ops._passes = lambda t: dp_ref
+    try:
+        plain = grads(theta.device)
+    finally:
+        dp_ops._passes = passes
+    cpu = grads("cpu")
+    for i, (k, p, c) in enumerate(zip(kern, plain, cpu)):
+        _close("autograd", k, p, errs)
+        err = (k.cpu() - c).abs().max().item()
+        scale = c.abs().max().item()
+        errs["autograd_cpu"] = max(errs.get("autograd_cpu", 0.0),
+                                   err / max(scale, 1.0))
+        if not torch.isfinite(k).all() or err > ATOL + RTOL * scale:
+            raise AssertionError(f"autograd output {i}: card vs CPU max abs "
+                                 f"diff {err} at scale {scale}")
 
 
 def loop_score(theta, A, n, m, operator):
@@ -220,10 +358,12 @@ def phase_kernels(seed):
         for op in ("softmax", "sparsemax", "hardmax"):
             theta, A, ln, lm = dp_problem(g, 16, 200, 150)
             check_kernels(theta, A, ln, lm, mode, op, errs)
+            check_autograd(theta, A, ln, lm, mode, op, errs)
     torch.cuda.synchronize()
     log("phase kernels: nw scores = float64 cell loop at (4, 9, 7); kernels "
         "= plain at (16, 200, 150) nw/sw x softmax/sparsemax/hardmax, "
-        f"tracebacks identical; max abs diff {json.dumps(errs)}")
+        "tracebacks identical; autograd on the card = on the CPU; max abs "
+        f"diff {json.dumps(errs)}")
     return errs
 
 
@@ -313,8 +453,8 @@ def phase_serving(seed, card):
     got = torch.tensor([float(r[2]) for r in rows])
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
         raise AssertionError("search: CLI scores differ from score_pairs")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel did not run on the main path: "
+    if any(launches[k] == 0 for k in SERVING_KERNELS):
+        raise AssertionError(f"a kernel did not run on the serving path: "
                              f"{launches}")
     log(f"phase serving: align x4 {t_align:.2f} s (state lengths "
         f"{[len(s) for s in states]}), score_pairs 32x512 {t_score:.2f} s, "
@@ -347,7 +487,156 @@ def phase_serving(seed, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: decode at the bench shape
+# phase 4: training through the CLI at ProtT5-XL width
+# ---------------------------------------------------------------------------
+
+def homolog_row(rng, name, lo, hi):
+    """A TM-align TSV row: a protein of length lo..hi, a homolog with
+    substitutions and short indels, and the alignment that made it."""
+    while True:
+        x = protein(rng, lo, hi)
+        y, states = [], []
+        for c in x:
+            u = rng.random()
+            if u < 0.04:
+                states.append("1")              # deleted from y
+                continue
+            y.append(rng.choice(list(RESIDUES)) if u < 0.25 else c)
+            states.append(":")
+            if rng.random() < 0.03:             # inserted into y
+                ins = rng.integers(1, 4)
+                y.extend(rng.choice(list(RESIDUES), ins))
+                states.extend("2" * ins)
+        if max(len(x), len(y)) < 1024:
+            tm = rng.uniform(0.5, 0.9)
+            return [f"{name}_a", f"{name}_b", f"{tm:.4f}", f"{tm:.4f}",
+                    "1.0", x, "".join(y), "".join(states)]
+
+
+def _write_tsv(path, rows):
+    with open(path, "w") as f:
+        for r in rows:
+            f.write("\t".join(r) + "\n")
+
+
+def step_intervals(metrics):
+    """Seconds between consecutive ``train_loss`` records of one epoch, by
+    their ``wall_time``.  ``fit`` reads step i's loss back once step i+1
+    is issued, and a step starts with a host-to-device copy of its batch
+    that waits for the card, so these are host intervals of the user's
+    own path, not per-step device times (PERF.md section 5)."""
+    out, prev = [], None
+    for m in metrics:
+        if m["tag"] != "train_loss":
+            prev = None
+            continue
+        if prev is not None:
+            out.append(m["wall_time"] - prev)
+        prev = m["wall_time"]
+    return out
+
+
+def phase_train(seed, card):
+    from deepblast_torch.cli import train as cli_train
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import load_model
+    from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
+
+    rng = np.random.default_rng(seed + 1)
+    rows = [homolog_row(rng, f"s{i}", 100, 500) for i in range(48)]
+    rows += [homolog_row(rng, f"l{i}", 600, 1000) for i in range(8)]
+    valid = [homolog_row(rng, f"v{i}", 100, 500) for i in range(16)]
+    errs = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        out = os.path.join(tmp, "out")
+        torch.cuda.reset_peak_memory_stats()
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        rc = cli_train.main([
+            "--train-pairs", paths[0], "--valid-pairs", paths[1],
+            "-o", out, "--lm-type", "prot_t5", "--batch-size", "16",
+            "--epochs", "2", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+        launches = dict(dp_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"cli.train returned {rc}")
+        logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
+        with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [(m["tag"], m["value"]) for m in metrics
+                  if m["tag"] in ("train_loss", "validation_loss")]
+        kept = os.listdir(os.path.join(out, "checkpoints"))
+
+        # the aligner the run started from: the same config's seeded init
+        with open(os.path.join(out, "config.json")) as f:
+            config = DeepBLASTConfig.from_json(f.read())
+        before = {k: v.clone() for k, v in
+                  DeepBLAST(config).init().aligner.state_dict().items()}
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        model = load_model(out)
+        pairs = [rows[0][5:7], rows[-1][5:7]]
+        states = [model.align(x, y) for x, y in pairs]
+        t_load = time.time() - t0
+        changed = any(not torch.equal(v, before[k])
+                      for k, v in model.aligner.state_dict().items())
+
+        # every training kernel, and autograd through them, against the
+        # plain versions at the potentials of the longest training batch
+        batches = list(model._batches(model._dataset(paths[0]), True, seed))
+        batch = max(batches, key=lambda b: b["x"].shape[1])
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+        check_autograd(theta, A, *lengths, "nw", "softmax", errs)
+        torch.cuda.synchronize()
+        checked = tuple(theta.shape)
+        del model, hx, hy, theta, A
+        torch.cuda.empty_cache()
+
+    if any(launches[k] == 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"a kernel did not run on the training path: "
+                             f"{launches}")
+    n_train = sum(t == "train_loss" for t, _ in losses)
+    if n_train != 2 * len(batches) or \
+            not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"training losses {losses}")
+    if batch["x"].shape[1] < 600:
+        raise AssertionError("no training batch was padded past 600")
+    if not changed:
+        raise AssertionError("training left the aligner unchanged")
+    if not 1 <= len(kept) <= 3:
+        raise AssertionError(f"checkpoints/ holds {kept}")
+    for (x, y), s in zip(pairs, states):
+        if s.count("1") + s.count(":") != len(x) or \
+                s.count("2") + s.count(":") != len(y):
+            raise AssertionError("align: states do not consume both strings")
+    shapes = [tuple(bt["x"].shape) + (bt["y"].shape[1],) for bt in batches]
+    log(f"phase train: cli.train ProtT5-XL + CNN-1024, {len(rows)} train / "
+        f"{len(valid)} valid pairs, batch 16, 2 epochs: {t_train:.2f} s; "
+        f"batches (B, Lx, Ly) {shapes}; seconds between train_loss records "
+        f"{[round(t, 4) for t in step_intervals(metrics)]}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; losses {losses}; checkpoints "
+        f"{sorted(kept)}; load_model + align x2 {t_load:.2f} s [{card}]; "
+        f"launches {json.dumps(launches)}")
+    log(f"phase train: kernels = plain and autograd = plain and CPU at the "
+        f"longest training batch {checked}; max abs diff "
+        f"{json.dumps(errs)}")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 5: decode at the bench shape
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps):
@@ -370,8 +659,10 @@ def bound(nbytes, flops):
 
 
 def phase_bench(seed, card):
+    from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
-    from deepblast_torch.ops.skew import skew
+    from deepblast_torch.ops.skew import skew, unskew
+    from deepblast_torch.train.losses import matrix_cross_entropy
     B, N, M = 256, 512, 512
     K, S = N + M - 1, N + 1
     g = torch.Generator(device="cuda")
@@ -381,53 +672,102 @@ def phase_bench(seed, card):
     Et = torch.ones((B,), device="cuda")
     th_s, A_s = dp_cuda.skew(theta), dp_cuda.skew(A)
     _, dx, dm = dp_cuda.forward(th_s, A_s, ln, lm, **kw)
+    E, _ = dp_cuda.backward(dx, dm, ln, lm, Et, **kw)
+    zt = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+    za = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+    _, dxd, dmd = dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm, **kw)
 
     def decode():
         t, a = dp_cuda.skew(theta), dp_cuda.skew(A)
         _, x, m = dp_cuda.forward(t, a, ln, lm, **kw)
         return dp_cuda.backward(x, m, ln, lm, Et, **kw)
 
+    target = (torch.rand((B, N, M), generator=g, device="cuda")
+              < 1.0 / N).float()
+    gmask = torch.ones((B, N, M), dtype=torch.bool, device="cuda")
+    t_req = theta.clone().requires_grad_()
+    a_req = A.clone().requires_grad_()
+
+    def dp_step():
+        aln = dp_ops.expected_alignment(t_req, a_req, (ln, lm), **kw)
+        matrix_cross_entropy(target, aln, ln, lm, gmask).backward()
+
     kern = {
         "skew": lambda: dp_cuda.skew(theta),
+        "unskew": lambda: dp_cuda.unskew(E, N, M),
         "forward": lambda: dp_cuda.forward(th_s, A_s, ln, lm, **kw),
         "forward_score": lambda: dp_cuda.forward_score(th_s, A_s, ln, lm,
                                                        **kw),
         "backward": lambda: dp_cuda.backward(dx, dm, ln, lm, Et, **kw),
+        "backward_gap": lambda: dp_cuda.backward(dx, dm, ln, lm, Et,
+                                                 want_gap=True, **kw),
+        "adjoint_forward": lambda: dp_cuda.adjoint_forward(
+            dx, dm, zt, None, ln, lm, **kw),
+        "adjoint_forward_za": lambda: dp_cuda.adjoint_forward(
+            dx, dm, zt, za, ln, lm, **kw),
+        "adjoint_backward": lambda: dp_cuda.adjoint_backward(
+            dx, dm, dxd, dmd, E, ln, lm, **kw),
     }
     plain = {
         "skew": lambda: skew(theta),
+        "unskew": lambda: unskew(E, N, M),
         "forward": lambda: dp_ref.forward(th_s, A_s, ln, lm, **kw),
         "forward_score": lambda: dp_ref.forward_score(th_s, A_s, ln, lm,
                                                       **kw),
         "backward": lambda: dp_ref.backward(dx, dm, ln, lm, Et, **kw),
+        "backward_gap": lambda: dp_ref.backward(dx, dm, ln, lm, Et,
+                                                want_gap=True, **kw),
+        "adjoint_forward": lambda: dp_ref.adjoint_forward(
+            dx, dm, zt, None, ln, lm, **kw),
+        "adjoint_forward_za": lambda: dp_ref.adjoint_forward(
+            dx, dm, zt, za, ln, lm, **kw),
+        "adjoint_backward": lambda: dp_ref.adjoint_backward(
+            dx, dm, dxd, dmd, E, ln, lm, **kw),
     }
     # The least bytes each function must move: a DP pass reads and writes
     # only the valid band (ln x lm cells per pair) of each stream, plus the
     # lengths and Vt or Et; the skew reads the natural tensor and writes
-    # every slot of the layout.
+    # every slot of the layout; the unskew reads and writes B x N x M.
     f = 4
     band = int((ln.long() * lm.long()).sum())
     per_pair = 2 * f * B + f * B
-    nbytes = {
-        "skew": f * B * N * M + f * B * K * S,
-        "forward": 4 * f * band + per_pair,
-        "forward_score": 2 * f * band + per_pair,
-        "backward": 3 * f * band + per_pair,
-    }
+    streams = {"forward": 4, "forward_score": 2, "backward": 3,
+               "backward_gap": 4, "adjoint_forward": 5,
+               "adjoint_forward_za": 6, "adjoint_backward": 7}
+    nbytes = {k: n * f * band + per_pair for k, n in streams.items()}
+    nbytes["skew"] = f * B * N * M + f * B * K * S
+    nbytes["unskew"] = 2 * f * B * N * M
+    # One PyTorch call that computes the same function, where there is
+    # one: the unskew is a strided copy, since cell (i, j) of pair b sits at
+    # the affine offset b*K*S + 1 + i*(S+1) + j*S of the contiguous stream.
+    # The skew also zero-fills the out-of-band slots (two calls), and no
+    # library call runs a DP recurrence.
+    library = {"unskew": lambda: torch.as_strided(
+        E, (B, N, M), (K * S, S + 1, S), 1).clone(
+            memory_format=torch.contiguous_format)}
+    if not torch.equal(library["unskew"](), dp_cuda.unskew(E, N, M)):
+        raise AssertionError("unskew: the strided copy differs")
     ms = {k: cuda_ms(fn, 10) for k, fn in kern.items()}
     plain_ms = {k: cuda_ms(fn, 1) for k, fn in plain.items()}
+    library_ms = {k: cuda_ms(fn, 10) for k, fn in library.items()}
     decode_ms = cuda_ms(decode, 10)
+    step_ms = cuda_ms(dp_step, 5)
     out = {}
     for k in kern:
         b_ms, by = bound(nbytes[k], FLOPS_PER_CELL[k] * band)
         out[k] = dict(ms=ms[k], plain_ms=plain_ms[k], bound_ms=b_ms,
-                      bound_by=by, bytes=nbytes[k])
-        log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms, "
-            f"bound {b_ms:.4f} ms by {by}, {nbytes[k]} bytes) [{card}]")
+                      bound_by=by, library_ms=library_ms.get(k))
+        lib = f", library {library_ms[k]:.4f} ms" if k in library_ms else ""
+        log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms"
+            f"{lib}, bound {b_ms:.4f} ms by {by}, {nbytes[k]} bytes) "
+            f"[{card}]")
     log(f"phase bench: decode skew x2 + forward + backward at (256, 512, "
         f"512) nw softmax fp32: {decode_ms:.4f} ms = "
         f"{B / decode_ms * 1e3:.1f} alignments/s; score-only forward "
         f"{ms['forward_score']:.4f} ms [{card}]")
+    log(f"phase bench: differentiable DP step (expected_alignment + "
+        f"backward() of a cross entropy) at (256, 512, 512) nw softmax "
+        f"fp32: {step_ms:.4f} ms = {B / step_ms * 1e3:.1f} pairs/s [{card}]")
     return out
 
 
@@ -442,17 +782,19 @@ def main():
     seed = 0
     phase_build()
     errs = phase_kernels(seed)
-    launches, path_errs = phase_serving(seed, card)
+    serving, path_errs = phase_serving(seed, card)
+    training, train_errs = phase_train(seed, card)
     bench = phase_bench(seed, card)
     kernels = []
-    for k in ("skew", "forward", "forward_score", "backward"):
+    for k in KERNELS:
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-            launches=launches[k],
-            max_abs_err=max(errs[k], path_errs[k]),
+            launches=serving[k] + training[k],
+            max_abs_err=max(errs[k], path_errs.get(k, 0.0),
+                            train_errs.get(k, 0.0)),
             ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
             bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
-            library_ms=None))
+            library_ms=bench[k]["library_ms"]))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,158 @@
+"""Shared CLI plumbing of the port (the parts of
+``deepblast_tpu/cli/common.py`` that ``cli.train`` needs), with the
+``deepblast-train`` defaults.
+
+Flags of options the port does not have yet are accepted so that a
+``deepblast-train`` command line parses, and :func:`config_from_args`
+rejects any of them set away from its default with an error that names
+the ROADMAP.md item that ports it; none is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from deepblast_torch.train.trainer import DeepBLASTConfig
+
+__all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
+           "config_from_args"]
+
+MODE_ALIASES = {
+    "needleman-wunch": "needleman-wunsch",     # reference typo kept working
+    "needleman-wunsch": "needleman-wunsch",
+    "smith-waterman": "smith-waterman",
+}
+
+#: flag destination -> (the values the port takes, ROADMAP.md item)
+UNPORTED = {
+    "finetune": ((False,), "queue A item 1 (trainer options: finetune)"),
+    "precision": (("32",), "queue A item 1 (trainer options: precision "
+                           "bf16/16)"),
+    "grad_accum": ((1,), "queue A item 1 (trainer options: grad_accum)"),
+    "steps_per_dispatch": ((1,), "queue A item 1 (trainer options: "
+                                 "steps_per_dispatch)"),
+    "lm_type": (("embed", "prot_t5"), "queue A item 2 (BiLM)"),
+    "layer_type": (("cnn",), "queue A item 2 (the RNN head)"),
+    "dp_bf16_residuals": ((None,), "queue A item 3 (the storage-dtype "
+                                   "menu)"),
+    "dp_i16_streams": ((False,), "queue A item 3 (the storage-dtype menu)"),
+    "dp_decode_menu": (("default",), "queue A item 3 (the storage-dtype "
+                                     "menu)"),
+    "backend": ((None,), "queue A item 4 (the pallas and pallas_long "
+                         "backends; the port runs its CUDA kernels on the "
+                         "card and their plain versions on the CPU)"),
+    "nodes": ((1,), "queue A item 5 (data parallel)"),
+    "coordinator": ((None,), "queue A item 5 (data parallel)"),
+    "process_id": ((None,), "queue A item 5 (data parallel)"),
+    "tp": ((1,), "queue A item 5 (data parallel)"),
+    "visualization_fraction": ((0.0,), "queue A item 7 (visualisations "
+                                       "and TensorBoard)"),
+    "pretrain_path": ((None,), "queue A item 8 (HF ProtT5 weights)"),
+}
+
+
+def add_model_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--train-pairs", required=True,
+                        help="Training pairs file (TM-align TSV)")
+    parser.add_argument("--test-pairs", default=None,
+                        help="Testing pairs file (kept in config.json)")
+    parser.add_argument("--valid-pairs", required=True,
+                        help="Validation pairs file (TM-align TSV)")
+    parser.add_argument("--pretrain-path", type=str, default=None,
+                        help="not ported: HF ProtT5 weights")
+    parser.add_argument("--lm-type", type=str, default="embed",
+                        choices=["embed", "bilstm", "prot_t5"],
+                        help="prot_t5 runs ProtT5-XL geometry with seeded "
+                             "random weights; bilstm is not ported")
+    parser.add_argument("--vocab-size", type=int, default=32)
+    parser.add_argument("--embedding-dim", type=int, default=1024)
+    parser.add_argument("--hidden-dim", type=int, default=1024)
+    parser.add_argument("--layers", type=int, default=2,
+                        help="Number of head layers (default 2)")
+    parser.add_argument("--k-size", type=int, default=5,
+                        help="CNN kernel width")
+    parser.add_argument("--layer-type", type=str, default="cnn",
+                        choices=["cnn", "rnn"])
+    parser.add_argument("--dropout", type=float, default=0.5)
+    parser.add_argument("--loss", type=str, default="cross_entropy",
+                        choices=["sse", "path", "cross_entropy"])
+    parser.add_argument("--learning-rate", type=float, default=5e-5)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--mode", "--alignment-mode", dest="alignment_mode",
+                        type=str, default="needleman-wunsch")
+    parser.add_argument("--operator", type=str, default="softmax",
+                        choices=["softmax", "sparsemax", "hardmax"])
+    parser.add_argument("--backend", type=str, default=None,
+                        help="not ported: the DP runs the CUDA kernels on "
+                             "the card and their plain versions on the CPU")
+    parser.add_argument("--finetune", type=bool, default=False)
+    parser.add_argument("--mask-gaps", type=bool, default=True)
+    parser.add_argument("--scheduler", type=str, default="cosine")
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--visualization-fraction", type=float, default=0.0,
+                        help="not ported: alignment figures")
+    parser.add_argument("--max-len", type=int, default=1024)
+    parser.add_argument("-o", "--output-directory", required=True,
+                        help="Output directory of model results")
+    return parser
+
+
+def add_infra_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--grad-accum", type=int, default=1)
+    parser.add_argument("--steps-per-dispatch", type=int, default=1)
+    parser.add_argument("--grad-clip", type=float, default=10.0)
+    parser.add_argument("--nodes", type=int, default=1)
+    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--load-from-checkpoint", type=str, default=None,
+                        help="a checkpoints/ directory of an earlier run to "
+                             "resume from (its best state)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--precision", type=str, default="32",
+                        choices=("32", "bf16", "16"))
+    parser.add_argument("--dp-bf16-residuals",
+                        action=argparse.BooleanOptionalAction, default=None)
+    parser.add_argument("--dp-i16-streams", action="store_true")
+    parser.add_argument("--dp-decode-menu", choices=["default", "fast"],
+                        default="default")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (cuda, or cpu)")
+    return parser
+
+
+def config_from_args(args) -> DeepBLASTConfig:
+    """The config of a parsed command line; raises ``ValueError`` naming
+    the ROADMAP.md item for a flag the port does not have yet."""
+    for dest, (ported, item) in UNPORTED.items():
+        value = getattr(args, dest, ported[0])
+        if value not in ported:
+            flag = "--" + dest.replace("_", "-")
+            raise ValueError(f"{flag} {value} is not ported to "
+                             f"deepblast_torch yet: ROADMAP.md {item}")
+    mode = MODE_ALIASES.get(args.alignment_mode, args.alignment_mode)
+    return DeepBLASTConfig(
+        embedding_dim=args.embedding_dim,
+        hidden_dim=args.hidden_dim,
+        layers=args.layers,
+        k_size=args.k_size,
+        dropout=args.dropout,
+        layer_type=args.layer_type,
+        alignment_mode=mode,
+        operator=args.operator,
+        lm_type=args.lm_type,
+        vocab_size=args.vocab_size,
+        batch_size=args.batch_size,
+        learning_rate=args.learning_rate,
+        epochs=args.epochs,
+        scheduler=args.scheduler,
+        loss=args.loss,
+        grad_clip=getattr(args, "grad_clip", None),
+        mask_gaps=bool(args.mask_gaps),
+        seed=getattr(args, "seed", 0),
+        train_pairs=args.train_pairs,
+        valid_pairs=args.valid_pairs,
+        test_pairs=args.test_pairs,
+        max_len=args.max_len,
+        output_directory=args.output_directory,
+    )

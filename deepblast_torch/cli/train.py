@@ -1,0 +1,55 @@
+"""Train the aligner on TM-align pairs (``deepblast_tpu/cli/train.py``).
+
+    python -m deepblast_torch.cli.train --train-pairs train.tsv \\
+        --valid-pairs valid.tsv -o out_dir [--lm-type prot_t5] [...]
+
+It writes ``config.json`` to the output directory, trains with
+``DeepBLAST.fit`` (metrics to ``<out_dir>/logdir_*/metrics.jsonl``, the
+three best states by validation loss to ``<out_dir>/checkpoints/``), and
+finally writes ``model.pt``, so that
+``deepblast_torch.train.checkpoint.load_model(out_dir)`` serves ``align``
+and the search CLI from the best checkpoint.  It runs on one device
+(``--device``, CUDA by default).  Flags of options that are not ported yet
+raise (``cli/common.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from deepblast_torch.cli.common import (add_infra_args, add_model_args,
+                                        config_from_args)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("deepblast-train")
+    add_infra_args(parser)
+    add_model_args(parser)
+    args = parser.parse_args(argv)
+    config = config_from_args(args)
+
+    from deepblast_torch.train.checkpoint import (Checkpointer, save_config,
+                                                  save_model)
+    from deepblast_torch.train.trainer import DeepBLAST
+    from deepblast_torch.utils.logging import MetricsLogger
+
+    model = DeepBLAST(config, device=args.device).init()
+    if args.load_from_checkpoint:
+        model.load_train_state(Checkpointer(args.load_from_checkpoint)
+                               .restore(device=model.device))
+    out = args.output_directory
+    save_config(model, out)
+    logger = MetricsLogger(out)
+    ckpt = Checkpointer(os.path.join(out, "checkpoints"))
+    try:
+        _, history = model.fit(logger=logger, checkpointer=ckpt)
+    finally:
+        logger.close()
+    save_model(model, out)
+    print(f"final: {history[-1]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

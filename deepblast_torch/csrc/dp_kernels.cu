@@ -1,29 +1,46 @@
-// Hand-written Hopper (sm_90a) kernels for the serving path of the soft
-// alignment DP: skew, forward (with and without residual stores) and
-// backward (expected alignment), on the port's batch-major stream layout
-// (B, K, S): K = N+M-1 anti-diagonals, S = N+1 slots, 0-based cell (i, j)
-// at [b, i+j, i+1] (deepblast_torch/ops/skew.py).
+// Hand-written Hopper (sm_90a) kernels of the soft alignment DP: skew and
+// unskew, forward (with and without residual stores), backward (expected
+// alignment, optionally with the gap expectation) and the two adjoint
+// passes of training, on the port's batch-major stream layout (B, K, S):
+// K = N+M-1 anti-diagonals, S = N+1 slots, 0-based cell (i, j) at
+// [b, i+j, i+1] (deepblast_torch/ops/skew.py).
 //
 // TPU kernels replaced (deepblast_tpu/ops/):
 //   skew_kernel            <- skew_bm.py:195 skew_bm (_skew_kernel :152)
+//   unskew_kernel          <- skew_bm.py:321 unskew_bm (_unskew_kernel :290)
 //   forward_kernel<.,true> <- dp_bm.py:1025 decode_stream_bm, forward phases
-//                             (_fwd_phase_kernel :932)
+//                             (_fwd_phase_kernel :932); dp_bm.py:423
+//                             forward_bm (_fwd_kernel :383); dp_bm_train.py:179
+//                             forward_bm_phased
 //   forward_kernel<.,false><- dp_bm.py:509 forward_score_bm
 //                             (_fwd_score_kernel :468)
 //   backward_kernel        <- dp_bm.py:1025 decode_stream_bm, backward phases
-//                             (_bwd_phase_kernel :976)
-// The plain PyTorch versions are deepblast_torch/ops/skew.py (skew) and
-// deepblast_torch/ops/dp_ref.py (the rest); the arithmetic here follows
-// them operation by operation.
+//                             (_bwd_phase_kernel :976); with kWantGap:
+//                             dp_bm.py:617 backward_bm (_bwd_kernel :559),
+//                             dp_bm_train.py:303 backward_bm_phased
+//                             (_bwd_train_kernel :239)
+//   adjoint_forward_kernel <- dp_bm.py:709 adjoint_forward_bm (:665);
+//                             dp_bm_train.py:442 adjoint_forward_bm_phased
+//                             (_afwd_train_kernel :381)
+//   adjoint_backward_kernel<- dp_bm.py:827 adjoint_backward_bm (:756);
+//                             dp_bm_train.py:595 adjoint_backward_bm_phased
+//                             (_abwd_train_kernel :512)
+// One kernel stands for both the phased and the monolithic TPU entry: the
+// phase windows and the mod-Mp row fold there exist because Pallas block
+// shapes are static.  The plain PyTorch versions are
+// deepblast_torch/ops/skew.py (skew, unskew) and deepblast_torch/ops/dp_ref.py
+// (the rest); the arithmetic here follows them operation by operation.
 //
 // What bounds them on the H100: bytes.  Per cell the forward reads 2
 // streams (theta, A) and writes 2 (Dx, Dm), the score-only forward reads 2,
-// the backward reads 2 (Dx, Dm) and writes 1 (E), the skew reads 1 and
-// writes 1 -- a few flops per 4-byte value, far below the card's
-// 20 flop/byte fp32 ridge.  The recurrence is also a chain of K dependent
-// diagonal steps per pair, so at small batch the latency of one step
-// (a global load, a few transcendental ops, one barrier) bounds it
-// instead.
+// the backward reads 2 (Dx, Dm) and writes 1 (E) or 2 (E, EA), the adjoint
+// forward reads 3 or 4 (Dx, Dm, Zt[, Za]) and writes 2 (Dxd, Dmd), the
+// adjoint backward reads 5 (Dx, Dm, Dxd, Dmd, E) and writes 2 (Ed, EdA),
+// the relayouts read 1 and write 1 -- tens of flops per 4-byte value at
+// most, below the card's 20 flop/byte fp32 ridge.  The recurrence is also a
+// chain of K dependent diagonal steps per pair, so at small batch the
+// latency of one step (a global load, a few transcendental ops, one
+// barrier) bounds it instead.
 //
 // What the design does about it, in this first version: one CTA per pair
 // walks all K diagonals in one launch; threads run along the slot axis
@@ -31,9 +48,12 @@
 // rows live in shared memory with one __syncthreads() per diagonal, so
 // the only device-memory traffic is each stream read once and each output
 // written once.  Every output slot is written (zeros, or finite residuals
-// outside the valid band), so no uninitialised memory can reach the
-// backward's Q * E products.  Wider per-thread work, bf16 residuals and
-// TMA prefetch of the next rows are later work.
+// outside the valid band), so no uninitialised memory can reach a Q * E or
+// Qd * E product (0 * NaN).  Wider per-thread work, bf16 residuals and
+// TMA prefetch of the next rows are later work.  The rows a pair keeps in
+// shared memory bound its length: the adjoint backward holds 20 rows of S
+// floats (80 S bytes), so one CTA holds a pair up to S ~ 2,900 slots in the
+// 227 KB an H100 block can use.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -94,6 +114,39 @@ __device__ __forceinline__ float max3(float ax, float am, float ay,
   }
 }
 
+// Hessian-vector product of the smoothed max at p along (zx, zm, zy)
+// (deepblast_torch/ops/smooth.py hessian3, operation by operation).
+template <int OP>
+__device__ __forceinline__ void hessian3(float px, float pm, float py,
+                                         float zx, float zm, float zy,
+                                         float &hx, float &hm, float &hy) {
+  if (OP == OP_SOFTMAX) {
+    float prodx = px * zx;
+    float prodm = pm * zm;
+    float prody = py * zy;
+    float tot = prodx + prodm + prody;
+    hx = prodx - px * tot;
+    hm = prodm - pm * tot;
+    hy = prody - py * tot;
+  } else if (OP == OP_SPARSEMAX) {
+    float sx = (px > 0.0f) ? 1.0f : 0.0f;
+    float sm = (pm > 0.0f) ? 1.0f : 0.0f;
+    float sy = (py > 0.0f) ? 1.0f : 0.0f;
+    float support = sx + sm + sy;
+    float prodx = sx * zx;
+    float prodm = sm * zm;
+    float prody = sy * zy;
+    float avg = (prodx + prodm + prody) / fmaxf(support, 1.0f);
+    hx = prodx - sx * avg;
+    hm = prodm - sm * avg;
+    hy = prody - sy * avg;
+  } else {
+    hx = 0.0f;
+    hm = 0.0f;
+    hy = 0.0f;
+  }
+}
+
 __device__ __forceinline__ bool cell_valid(int s, int k, int n, int m, int lo) {
   int j = k - s;
   return s >= lo && j >= lo && s <= n && j <= m;
@@ -114,6 +167,24 @@ __global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
     if (s >= 1 && j >= 0 && j < M)
       v = x[((size_t)b * N + (s - 1)) * M + j];
     out[idx] = v;
+  }
+}
+
+// out[b, r, c] = s[b, r+c, r+1]: every natural cell is written.  Threads
+// run along c, so the writes are coalesced and the reads have stride S in
+// the stream (uncoalesced: one 32-byte sector per 4-byte value).  Tiling
+// through shared memory (read a band of diagonals coalesced, write rows
+// coalesced) is the later fix.
+__global__ void unskew_kernel(const float *__restrict__ s, int B, int K,
+                              int S, int N, int M, float *__restrict__ out) {
+  const size_t total = (size_t)B * N * M;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
+    int c = (int)(idx % M);
+    size_t t = idx / M;
+    int r = (int)(t % N);
+    int b = (int)(t / N);
+    out[idx] = s[((size_t)b * K + (r + c)) * S + (r + 1)];
   }
 }
 
@@ -166,13 +237,16 @@ __global__ void forward_kernel(const float *__restrict__ th,
 
 // One CTA per pair, rows descending.  Shared memory: E rows r+2, r+1, r
 // (3 x S), Qx and Qy rows r+1, r (2 x S each), Qm rows r+2, r+1, r (3 x S).
-template <int OP>
+// With kWantGap it also writes EA[r] = E[r] (Qx[r] + Qy[r]), Q of the same
+// row recomputed from Dx/Dm (as _bwd_train_kernel, dp_bm_train.py:290-292).
+template <int OP, bool kWantGap>
 __global__ void backward_kernel(const float *__restrict__ dx,
                                 const float *__restrict__ dm,
                                 const int *__restrict__ ln,
                                 const int *__restrict__ lm,
                                 const float *__restrict__ et, int K, int S,
-                                int lo, float *__restrict__ eo) {
+                                int lo, float *__restrict__ eo,
+                                float *__restrict__ eao) {
   extern __shared__ float smem[];
   float *E = smem;
   float *QX = smem + 3 * S;
@@ -212,9 +286,140 @@ __global__ void backward_kernel(const float *__restrict__ dx,
       en[s] = e;
       float px, pm, py;
       max3<OP>(dxs, dms, 0.0f, px, pm, py);
+      if (kWantGap) eao[row + s] = e * (px + py);
       qxn[s] = px;
       qmn[s] = pm;
       qyn[s] = py;
+    }
+    __syncthreads();
+  }
+}
+
+// Tangent of the forward along (Zt, Za): one CTA per pair, diagonals
+// ascending, Vd rows r-1, r-2 and r in shared memory (3 x S), Q recomputed
+// from Dx/Dm; the term order is _afwd_train_kernel's (dp_bm_train.py:
+// 425-430).  Without kHasZa there is no Za stream at all (a zero gap
+// cotangent, the training decode path).  Dxd and Dmd are written for every
+// slot; Vd is zero outside the band, so they stay finite there.
+template <int OP, bool kHasZa>
+__global__ void adjoint_forward_kernel(const float *__restrict__ dx,
+                                       const float *__restrict__ dm,
+                                       const float *__restrict__ zt,
+                                       const float *__restrict__ za,
+                                       const int *__restrict__ ln,
+                                       const int *__restrict__ lm, int K,
+                                       int S, int lo,
+                                       float *__restrict__ vtd,
+                                       float *__restrict__ dxdo,
+                                       float *__restrict__ dmdo) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = 0; r < K; ++r) {
+    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
+    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
+    float *vn = smem + (r % 3) * S;              // row r
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float px, pm, py;
+      max3<OP>(dx[row + s], dm[row + s], 0.0f, px, pm, py);
+      float v1s = v1[s];
+      float v1l = s > 0 ? v1[s - 1] : 0.0f;
+      float v2l = s > 0 ? v2[s - 1] : 0.0f;
+      float dxd = v1l - v1s;
+      float v;
+      if (kHasZa) {
+        float zas = za[row + s];
+        float dmd = v2l - zas - v1s;
+        dmdo[row + s] = dmd;
+        v = zt[row + s] + zas + v1s + px * dxd + pm * dmd;
+      } else {
+        float dmd = v2l - v1s;
+        dmdo[row + s] = dmd;
+        v = zt[row + s] + v1s + px * dxd + pm * dmd;
+      }
+      dxdo[row + s] = dxd;
+      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
+      if (s == n && k == n + m) vtd[b] = v;
+      vn[s] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// Tangent of the backward: one CTA per pair, rows descending.  Per row it
+// recomputes Q from Dx/Dm and Qd = hessian3(Q, (Dxd, Dmd, 0)), and carries
+// in shared memory (20 x S floats): Ed and E rows r+2, r+1, r (3 x S
+// each), Qx, Qy, Qdx, Qdy rows r+1, r (2 x S each), Qm and Qdm rows r+2,
+// r+1, r (3 x S each).  E comes from the backward's stream.  It writes Ed
+// (masked; the terminal seed has zero tangent) and the fused gap adjoint
+// EdA = Ed (Qx + Qy) + E (Qdx + Qdy), as _abwd_train_kernel
+// (dp_bm_train.py:567-576).
+template <int OP>
+__global__ void adjoint_backward_kernel(const float *__restrict__ dx,
+                                        const float *__restrict__ dm,
+                                        const float *__restrict__ dxd,
+                                        const float *__restrict__ dmd,
+                                        const float *__restrict__ E,
+                                        const int *__restrict__ ln,
+                                        const int *__restrict__ lm, int K,
+                                        int S, int lo,
+                                        float *__restrict__ edo,
+                                        float *__restrict__ edao) {
+  extern __shared__ float smem[];
+  float *ED = smem;
+  float *EE = smem + 3 * S;
+  float *QX = smem + 6 * S;
+  float *QY = smem + 8 * S;
+  float *QM = smem + 10 * S;
+  float *QDX = smem + 13 * S;
+  float *QDY = smem + 15 * S;
+  float *QDM = smem + 17 * S;
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 20 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = K - 1; r >= 0; --r) {
+    const int i1 = (r + 1) % 3, i2 = (r + 2) % 3, i0 = r % 3;
+    const int h1 = (r + 1) & 1, h0 = r & 1;
+    const float *ed1 = ED + i1 * S, *ed2 = ED + i2 * S;
+    const float *e1 = EE + i1 * S, *e2 = EE + i2 * S;
+    const float *qx1 = QX + h1 * S, *qy1 = QY + h1 * S;
+    const float *qdx1 = QDX + h1 * S, *qdy1 = QDY + h1 * S;
+    const float *qm2 = QM + i2 * S, *qdm2 = QDM + i2 * S;
+    float *edn = ED + i0 * S, *en = EE + i0 * S;
+    float *qxn = QX + h0 * S, *qyn = QY + h0 * S, *qmn = QM + i0 * S;
+    float *qdxn = QDX + h0 * S, *qdyn = QDY + h0 * S, *qdmn = QDM + i0 * S;
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float t1 = 0.0f, t2 = 0.0f;
+      if (s + 1 < S) {
+        t1 = qdx1[s + 1] * e1[s + 1] + qx1[s + 1] * ed1[s + 1];
+        t2 = qdm2[s + 1] * e2[s + 1] + qm2[s + 1] * ed2[s + 1];
+      }
+      float ed = t1 + t2 + qdy1[s] * e1[s] + qy1[s] * ed1[s];
+      ed = cell_valid(s, k, n, m, lo) ? ed : 0.0f;
+      edo[row + s] = ed;
+      edn[s] = ed;
+      float px, pm, py, hx, hm, hy;
+      max3<OP>(dx[row + s], dm[row + s], 0.0f, px, pm, py);
+      hessian3<OP>(px, pm, py, dxd[row + s], dmd[row + s], 0.0f, hx, hm,
+                   hy);
+      float e = E[row + s];
+      en[s] = e;
+      edao[row + s] = ed * (px + py) + e * (hx + hy);
+      qxn[s] = px;
+      qmn[s] = pm;
+      qyn[s] = py;
+      qdxn[s] = hx;
+      qdmn[s] = hm;
+      qdyn[s] = hy;
     }
     __syncthreads();
   }
@@ -226,7 +431,8 @@ int threads_for(int S) {
 }
 
 // Opt in to more than the default 48 KB of dynamic shared memory when the
-// rows need it (S above ~1200 slots in the backward).
+// rows need it (S above ~1200 slots in the backward, ~600 in the adjoint
+// backward).
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -248,16 +454,55 @@ cudaError_t launch_forward(const float *th, const float *ad, const int *ln,
   return cudaGetLastError();
 }
 
-template <int OP>
+template <int OP, bool kWantGap>
 cudaError_t launch_backward(const float *dx, const float *dm, const int *ln,
                             const int *lm, const float *et, int B, int K,
-                            int S, int lo, float *eo, cudaStream_t st) {
+                            int S, int lo, float *eo, float *eao,
+                            cudaStream_t st) {
   size_t smem = 10 * (size_t)S * sizeof(float);
-  auto kern = backward_kernel<OP>;
+  auto kern = backward_kernel<OP, kWantGap>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<B, threads_for(S), smem, st>>>(dx, dm, ln, lm, et, K, S, lo, eo);
+  kern<<<B, threads_for(S), smem, st>>>(dx, dm, ln, lm, et, K, S, lo, eo,
+                                        eao);
   return cudaGetLastError();
+}
+
+template <int OP, bool kHasZa>
+cudaError_t launch_adjoint_forward(const float *dx, const float *dm,
+                                   const float *zt, const float *za,
+                                   const int *ln, const int *lm, int B, int K,
+                                   int S, int lo, float *vtd, float *dxdo,
+                                   float *dmdo, cudaStream_t st) {
+  size_t smem = 3 * (size_t)S * sizeof(float);
+  auto kern = adjoint_forward_kernel<OP, kHasZa>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B, threads_for(S), smem, st>>>(dx, dm, zt, za, ln, lm, K, S, lo,
+                                        vtd, dxdo, dmdo);
+  return cudaGetLastError();
+}
+
+template <int OP>
+cudaError_t launch_adjoint_backward(const float *dx, const float *dm,
+                                    const float *dxd, const float *dmd,
+                                    const float *E, const int *ln,
+                                    const int *lm, int B, int K, int S,
+                                    int lo, float *edo, float *edao,
+                                    cudaStream_t st) {
+  size_t smem = 20 * (size_t)S * sizeof(float);
+  auto kern = adjoint_backward_kernel<OP>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<B, threads_for(S), smem, st>>>(dx, dm, dxd, dmd, E, ln, lm, K, S,
+                                        lo, edo, edao);
+  return cudaGetLastError();
+}
+
+int grid_for(size_t total) {
+  size_t want = (total + 255) / 256;
+  int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
+  return blocks < 1 ? 1 : blocks;
 }
 
 }  // namespace
@@ -266,12 +511,15 @@ extern "C" {
 
 int dp_skew(const float *x, int B, int N, int M, float *out, void *stream) {
   int K = N + M - 1, S = N + 1;
-  size_t total = (size_t)B * K * S;
-  size_t want = (total + 255) / 256;
-  int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  if (blocks < 1) blocks = 1;
-  skew_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(x, B, N, M, K, S,
-                                                        out);
+  skew_kernel<<<grid_for((size_t)B * K * S), 256, 0, (cudaStream_t)stream>>>(
+      x, B, N, M, K, S, out);
+  return (int)cudaGetLastError();
+}
+
+int dp_unskew(const float *s, int B, int K, int S, int N, int M, float *out,
+              void *stream) {
+  unskew_kernel<<<grid_for((size_t)B * N * M), 256, 0,
+                  (cudaStream_t)stream>>>(s, B, K, S, N, M, out);
   return (int)cudaGetLastError();
 }
 
@@ -293,20 +541,60 @@ int dp_forward(const float *th, const float *ad, const int *ln, const int *lm,
 #undef DP_FWD
 }
 
+// eao == nullptr: E only (the decode path); else also EA = E (Qx + Qy).
 int dp_backward(const float *dx, const float *dm, const int *ln,
                 const int *lm, const float *et, int B, int K, int S, int lo,
-                int op, float *eo, void *stream) {
+                int op, float *eo, float *eao, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define DP_BWD(OP)                                                          \
+  (eao ? launch_backward<OP, true>(dx, dm, ln, lm, et, B, K, S, lo, eo,     \
+                                   eao, st)                                 \
+       : launch_backward<OP, false>(dx, dm, ln, lm, et, B, K, S, lo, eo,    \
+                                    nullptr, st))
+  switch (op) {
+    case OP_SOFTMAX: return (int)DP_BWD(OP_SOFTMAX);
+    case OP_SPARSEMAX: return (int)DP_BWD(OP_SPARSEMAX);
+    case OP_HARDMAX: return (int)DP_BWD(OP_HARDMAX);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DP_BWD
+}
+
+// za == nullptr: no gap cotangent, the kernel without a Za stream.
+int dp_adjoint_forward(const float *dx, const float *dm, const float *zt,
+                       const float *za, const int *ln, const int *lm, int B,
+                       int K, int S, int lo, int op, float *vtd, float *dxdo,
+                       float *dmdo, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define DP_AFWD(OP)                                                          \
+  (za ? launch_adjoint_forward<OP, true>(dx, dm, zt, za, ln, lm, B, K, S,    \
+                                         lo, vtd, dxdo, dmdo, st)            \
+      : launch_adjoint_forward<OP, false>(dx, dm, zt, nullptr, ln, lm, B, K, \
+                                          S, lo, vtd, dxdo, dmdo, st))
+  switch (op) {
+    case OP_SOFTMAX: return (int)DP_AFWD(OP_SOFTMAX);
+    case OP_SPARSEMAX: return (int)DP_AFWD(OP_SPARSEMAX);
+    case OP_HARDMAX: return (int)DP_AFWD(OP_HARDMAX);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DP_AFWD
+}
+
+int dp_adjoint_backward(const float *dx, const float *dm, const float *dxd,
+                        const float *dmd, const float *E, const int *ln,
+                        const int *lm, int B, int K, int S, int lo, int op,
+                        float *edo, float *edao, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (op) {
     case OP_SOFTMAX:
-      return (int)launch_backward<OP_SOFTMAX>(dx, dm, ln, lm, et, B, K, S, lo,
-                                              eo, st);
+      return (int)launch_adjoint_backward<OP_SOFTMAX>(
+          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
     case OP_SPARSEMAX:
-      return (int)launch_backward<OP_SPARSEMAX>(dx, dm, ln, lm, et, B, K, S,
-                                                lo, eo, st);
+      return (int)launch_adjoint_backward<OP_SPARSEMAX>(
+          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
     case OP_HARDMAX:
-      return (int)launch_backward<OP_HARDMAX>(dx, dm, ln, lm, et, B, K, S, lo,
-                                              eo, st);
+      return (int)launch_adjoint_backward<OP_HARDMAX>(
+          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,2 +1,2 @@
-"""Tokenizer, alignment-state helpers and FASTA input (own copies of the
-numpy-only parts of ``deepblast_tpu.data`` the serving path needs)."""
+"""Tokenizer, alignment-state helpers, TM-align and FASTA datasets and
+batching (own copies of the numpy-only parts of ``deepblast_tpu.data``)."""

@@ -6,14 +6,17 @@ into DP potentials and serves them:
 * ``theta = softplus(zx @ zy^T)`` and ``A = log_sigmoid(gx @ gy^T)``
   (``aligner.py:88-102``), both float32 as the JAX package's
   ``preferred_element_type`` makes them;
+* :meth:`forward` — ``(aln, theta, A)`` with ``aln`` the differentiable
+  natural-layout expected alignment (``aligner.py:104-111``), the
+  training path;
 * :meth:`score` — terminal alignment scores (``aligner.py:113-119``);
 * :meth:`decode_stream` — the expected alignment as a ``(B, K, S)`` stream
   for the traceback (``DeepBLAST.align``'s decode).
 
 ``softplus`` is ``logaddexp(x, 0)``, not ``torch.nn.functional.softplus``,
 which returns ``x`` itself above its threshold where ``jax.nn.softplus``
-does not.  The differentiable natural-layout decode (``__call__`` in the
-JAX package) is the training slice.
+does not.  The heads' dropout draws from the ``generator`` passed to
+:meth:`forward` and acts only in ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -51,23 +54,31 @@ class NeuralAligner(nn.Module):
         self.match_embedding = build_head(layer_type, **kw)
         self.gap_embedding = build_head(layer_type, **kw)
 
-    def blosum_factor(self, hx, lengths=None):
+    def blosum_factor(self, hx, lengths=None, generator=None):
         """Match and gap head features of one side, pad-invariant when
         ``lengths`` is given."""
-        return (self.match_embedding(hx, lengths),
-                self.gap_embedding(hx, lengths))
+        return (self.match_embedding(hx, lengths, generator),
+                self.gap_embedding(hx, lengths, generator))
 
-    def potentials(self, hx, hy, lengths=None):
+    def potentials(self, hx, hy, lengths=None, generator=None):
         """Match and gap potentials ``(B, N, M)`` float32."""
         ln, lm = lengths if lengths is not None else (None, None)
-        zx, gx = self.blosum_factor(hx, ln)
-        zy, gy = self.blosum_factor(hy, lm)
+        zx, gx = self.blosum_factor(hx, ln, generator)
+        zy, gy = self.blosum_factor(hy, lm, generator)
         match = torch.einsum("bid,bjd->bij", zx, zy).float()
         gap = torch.einsum("bid,bjd->bij", gx, gy).float()
         theta = torch.logaddexp(match, torch.zeros((), dtype=match.dtype,
                                                    device=match.device))
         A = F.logsigmoid(gap)
         return theta, A
+
+    def forward(self, hx, hy, lengths=None, generator=None):
+        """``(aln, theta, A)``: the expected alignment ``(B, N, M)``,
+        differentiable in the heads' parameters, and the potentials."""
+        theta, A = self.potentials(hx, hy, lengths, generator)
+        aln = dp_ops.expected_alignment(theta, A, lengths, mode=self.mode,
+                                        operator=self.operator)
+        return aln, theta, A
 
     def score(self, hx, hy, lengths=None):
         """Terminal alignment scores ``(B,)``."""

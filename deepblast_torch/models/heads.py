@@ -10,6 +10,10 @@ transpose to PyTorch's ``(B, C, L)`` internally.
 width or pad content (``heads.py:42-67``).  Submodule names follow the flax
 parameter names (``embed``, ``conv0``, ...) so ``models/convert.py`` maps
 flax trees by name.  The RNN head is not ported yet.
+
+Dropout (flax ``nn.Dropout``: keep with probability ``1 - rate``, scale
+kept values by ``1 / (1 - rate)``) draws its mask from the
+``torch.Generator`` the caller passes, and acts only in ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["StackedCNN", "LinearHead", "build_head"]
+__all__ = ["StackedCNN", "LinearHead", "build_head", "dropout"]
 
 
 def _length_mask(x, lengths):
@@ -28,6 +32,19 @@ def _length_mask(x, lengths):
     lengths = torch.as_tensor(lengths, device=x.device)
     pos = torch.arange(L, device=x.device)
     return (pos[None, :] < lengths[:, None])[..., None].to(x.dtype)
+
+
+def dropout(x, rate, generator=None):
+    """flax's dropout with a mask drawn from ``generator`` (``None``: the
+    global generator of ``x``'s device)."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class StackedCNN(nn.Module):
@@ -44,9 +61,9 @@ class StackedCNN(nn.Module):
             self.add_module(f"conv{i}", nn.Conv1d(
                 in_features if i == 0 else features, features, k_size,
                 padding="same", **kw))
-        self.dropout = nn.Dropout(dropout)
+        self.rate = dropout
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, lengths=None, generator=None):
         mask = _length_mask(x, lengths)
         h = self.embed(x)
         for i in range(self.layers):
@@ -54,7 +71,7 @@ class StackedCNN(nn.Module):
                 h = h * mask
             conv = getattr(self, f"conv{i}")
             h = torch.relu(conv(h.transpose(1, 2)).transpose(1, 2))
-        return self.dropout(h)
+        return dropout(h, self.rate, generator) if self.training else h
 
 
 class LinearHead(nn.Module):
@@ -66,7 +83,7 @@ class LinearHead(nn.Module):
         self.linear = nn.Linear(in_features, features, device=device,
                                 dtype=dtype)
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, lengths=None, generator=None):
         return self.linear(x)
 
 

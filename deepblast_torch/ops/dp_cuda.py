@@ -3,10 +3,20 @@
 
 TPU functions replaced (``deepblast_tpu/ops/``):
 
-* :func:`skew` <- ``skew_bm.py:195`` ``skew_bm`` (via ``dp_bm.skew_input``);
+* :func:`skew` <- ``skew_bm.py:195`` ``skew_bm`` (via ``dp_bm.skew_input``
+  and, for cotangents, ``dp_bm.skew_cotangent``);
+* :func:`unskew` <- ``skew_bm.py:321`` ``unskew_bm``;
 * :func:`forward` <- ``dp_bm.py:1025`` ``decode_stream_bm``, forward phases;
+  ``dp_bm.py:423`` ``forward_bm``; ``dp_bm_train.py:179``
+  ``forward_bm_phased``;
 * :func:`forward_score` <- ``dp_bm.py:509`` ``forward_score_bm``;
-* :func:`backward` <- ``dp_bm.py:1025`` ``decode_stream_bm``, backward phases.
+* :func:`backward` <- ``dp_bm.py:1025`` ``decode_stream_bm``, backward phases;
+  with ``want_gap`` also ``dp_bm.py:617`` ``backward_bm`` and
+  ``dp_bm_train.py:303`` ``backward_bm_phased``;
+* :func:`adjoint_forward` <- ``dp_bm.py:709`` ``adjoint_forward_bm``;
+  ``dp_bm_train.py:442`` ``adjoint_forward_bm_phased`` (``za=None`` form);
+* :func:`adjoint_backward` <- ``dp_bm.py:827`` ``adjoint_backward_bm``;
+  ``dp_bm_train.py:595`` ``adjoint_backward_bm_phased``.
 
 The source is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``deepblast_torch/_build/`` (keyed by the hash of source and flags), as a
@@ -34,8 +44,9 @@ import torch
 
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "skew", "forward",
-           "forward_score", "backward"]
+__all__ = ["LAUNCHES", "reset_launches", "build", "skew", "unskew",
+           "forward", "forward_score", "backward", "adjoint_forward",
+           "adjoint_backward"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -47,7 +58,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES = {"skew": 0, "forward": 0, "forward_score": 0, "backward": 0}
+#: (``backward`` counts its launches with and without the gap output)
+LAUNCHES = {"skew": 0, "unskew": 0, "forward": 0, "forward_score": 0,
+            "backward": 0, "adjoint_forward": 0, "adjoint_backward": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -96,10 +109,18 @@ def _lib():
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.dp_skew.argtypes = [p, i, i, i, p, p]
+            lib.dp_unskew.argtypes = [p, i, i, i, i, i, p, p]
             lib.dp_forward.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                        p, p, p, p]
-            lib.dp_backward.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
-            for fn in (lib.dp_skew, lib.dp_forward, lib.dp_backward):
+            lib.dp_backward.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                        p, p, p]
+            lib.dp_adjoint_forward.argtypes = [p, p, p, p, p, p, i, i, i,
+                                               i, i, p, p, p, p]
+            lib.dp_adjoint_backward.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                i, i, i, p, p, p]
+            for fn in (lib.dp_skew, lib.dp_unskew, lib.dp_forward,
+                       lib.dp_backward, lib.dp_adjoint_forward,
+                       lib.dp_adjoint_backward):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -150,6 +171,22 @@ def skew(x):
     return out
 
 
+def unskew(s, N, M):
+    """Stream ``(B, K, S)`` float32 -> natural ``(B, N, M)``,
+    ``out[b, i, j] = s[b, i+j, i+1]``; every natural cell is written."""
+    _check_f32("s", s)
+    B, K, S = s.shape
+    if S != N + 1 or K != N + M - 1:
+        raise ValueError(f"stream {tuple(s.shape)} does not hold ({N}, {M})")
+    out = torch.empty((B, N, M), dtype=s.dtype, device=s.device)
+    with torch.cuda.device(s.device):
+        rc = _lib().dp_unskew(_ptr(s), B, K, S, N, M, _ptr(out),
+                              _stream(s.device))
+    _raise_on(rc, "unskew")
+    LAUNCHES["unskew"] += 1
+    return out
+
+
 def _forward(th_s, A_s, ln, lm, mode, operator, store):
     _check_f32("th_s", th_s)
     _check_f32("A_s", A_s, th_s.shape)
@@ -183,8 +220,11 @@ def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
     return _forward(th_s, A_s, ln, lm, mode, operator, False)
 
 
-def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax"):
-    """Expected alignment stream ``E (B, K, S)``, seeded with ``Et``."""
+def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
+             want_gap=False):
+    """``(E, EA)``: the expected alignment stream ``E (B, K, S)`` seeded
+    with ``Et``, and with ``want_gap`` the gap expectation
+    ``EA = E (Qx + Qy)`` (else None)."""
     _check_f32("Dx", dxs)
     _check_f32("Dm", dms, dxs.shape)
     B, K, S = dxs.shape
@@ -192,11 +232,61 @@ def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax"):
     _check_len("ln", ln, B, dxs.device)
     _check_len("lm", lm, B, dxs.device)
     E = torch.empty_like(dxs)
+    EA = torch.empty_like(dxs) if want_gap else None
     with torch.cuda.device(dxs.device):
         rc = _lib().dp_backward(
             _ptr(dxs), _ptr(dms), _ptr(ln), _ptr(lm), _ptr(Et), B, K, S,
             MODE_BOUNDS[mode][1], _OPS[operator], _ptr(E),
-            _stream(dxs.device))
+            _ptr(EA) if want_gap else None, _stream(dxs.device))
     _raise_on(rc, "backward")
     LAUNCHES["backward"] += 1
-    return E
+    return E, EA
+
+
+def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
+                    operator="softmax"):
+    """``(vtd (B,), Dxd, Dmd (B, K, S))``: the tangent of the forward along
+    the skewed cotangents; ``za_s=None`` launches the kernel without a Za
+    stream (a zero gap cotangent)."""
+    _check_f32("Dx", dxs)
+    _check_f32("Dm", dms, dxs.shape)
+    _check_f32("Zt", zt_s, dxs.shape)
+    if za_s is not None:
+        _check_f32("Za", za_s, dxs.shape)
+    B, K, S = dxs.shape
+    _check_len("ln", ln, B, dxs.device)
+    _check_len("lm", lm, B, dxs.device)
+    vtd = torch.zeros((B,), dtype=torch.float32, device=dxs.device)
+    dxd = torch.empty_like(dxs)
+    dmd = torch.empty_like(dxs)
+    with torch.cuda.device(dxs.device):
+        rc = _lib().dp_adjoint_forward(
+            _ptr(dxs), _ptr(dms), _ptr(zt_s),
+            None if za_s is None else _ptr(za_s), _ptr(ln), _ptr(lm),
+            B, K, S, MODE_BOUNDS[mode][2], _OPS[operator], _ptr(vtd),
+            _ptr(dxd), _ptr(dmd), _stream(dxs.device))
+    _raise_on(rc, "adjoint_forward")
+    LAUNCHES["adjoint_forward"] += 1
+    return vtd, dxd, dmd
+
+
+def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
+                     operator="softmax"):
+    """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the backward and
+    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``."""
+    _check_f32("Dx", dxs)
+    for name, t in (("Dm", dms), ("Dxd", dxds), ("Dmd", dmds), ("E", E)):
+        _check_f32(name, t, dxs.shape)
+    B, K, S = dxs.shape
+    _check_len("ln", ln, B, dxs.device)
+    _check_len("lm", lm, B, dxs.device)
+    Ed = torch.empty_like(dxs)
+    EdA = torch.empty_like(dxs)
+    with torch.cuda.device(dxs.device):
+        rc = _lib().dp_adjoint_backward(
+            _ptr(dxs), _ptr(dms), _ptr(dxds), _ptr(dmds), _ptr(E), _ptr(ln),
+            _ptr(lm), B, K, S, MODE_BOUNDS[mode][3], _OPS[operator],
+            _ptr(Ed), _ptr(EdA), _stream(dxs.device))
+    _raise_on(rc, "adjoint_backward")
+    LAUNCHES["adjoint_backward"] += 1
+    return Ed, EdA

@@ -26,6 +26,34 @@ Backward, rows descending, with ``Q[r] = softargmax(Dx[r], Dm[r], 0)``::
 masked by `valid`, plus ``Et`` at the terminal cell.  Dx and Dm are kept
 for every slot (finite everywhere), Q is recomputed unmasked, and E is
 zero outside the valid band, so Q outside the band only ever multiplies 0.
+With ``want_gap`` the backward also returns ``EA[r] = E[r] (Qx[r] + Qy[r])``,
+the expected gap-potential usage ``dVt/dA`` (``deepblast_tpu/ops/dp.py:87-95``).
+
+The training passes are the JVP of the forward and of the backward along
+the cotangents ``(Zt, Za)`` (the expected alignment's VJP by Hessian
+symmetry, ``deepblast_tpu/ops/dp.py:232-271``), after the batch-minor
+training kernels ``_afwd_train_kernel`` / ``_abwd_train_kernel``
+(``deepblast_tpu/ops/dp_bm_train.py:381``/``:512``) with the boundaries of
+``dp_scan.adjoint_forward_scan`` / ``adjoint_backward_scan`` (``:191-283``).
+
+Adjoint forward, rows ascending, ``Q[r]`` recomputed from ``(Dx, Dm)``::
+
+    Dxd = shr(Vd[r-1]) - Vd[r-1]
+    Dmd = shr(Vd[r-2]) - Za[r] - Vd[r-1]        (no Za term when Za is None)
+    Vd[r] = Zt[r] + Za[r] + Vd[r-1] + Qx Dxd + Qm Dmd          masked
+
+(``Q`` sums to one, so the tangent of ``max3`` telescopes to the
+differences), and ``vtd`` is ``Vd`` at the terminal cell.  Adjoint
+backward, rows descending, with ``Qd[r] = hessian3(Q[r], (Dxd, Dmd, 0))``::
+
+    Ed[r] = shl(Qdx[r+1] E[r+1] + Qx[r+1] Ed[r+1])
+          + shl(Qdm[r+2] E[r+2] + Qm[r+2] Ed[r+2])
+          + Qdy[r+1] E[r+1] + Qy[r+1] Ed[r+1]                  masked
+    EdA[r] = Ed[r] (Qx[r] + Qy[r]) + E[r] (Qdx[r] + Qdy[r])
+
+The terminal seed has zero tangent, so ``Ed`` has no seed.  Dxd and Dmd are
+written for every slot, so the unmasked ``Qd`` stays finite and, like
+``Q``, only ever multiplies a zero ``E``/``Ed`` outside the band.
 """
 
 from __future__ import annotations
@@ -34,9 +62,10 @@ import torch
 import torch.nn.functional as F
 
 from deepblast_torch.ops import smooth
-from deepblast_torch.ops.skew import skew
+from deepblast_torch.ops.skew import skew, unskew
 
-__all__ = ["MODE_BOUNDS", "skew", "forward", "forward_score", "backward"]
+__all__ = ["MODE_BOUNDS", "skew", "unskew", "forward", "forward_score",
+           "backward", "adjoint_forward", "adjoint_backward"]
 
 # Lower loop bounds per pass (forward, backward, adjoint_fwd, adjoint_bwd),
 # as deepblast_tpu/ops/dp_scan.py:55-58.
@@ -103,10 +132,12 @@ def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
     return _forward(th_s, A_s, ln, lm, mode, operator, False)[0]
 
 
-def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax"):
+def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
+             want_gap=False):
     """Expected alignment ``E (B, K, S)`` from the forward residuals,
-    seeded with ``Et (B,)`` at each pair's terminal cell.  Plain version of
-    the ``backward`` kernel."""
+    seeded with ``Et (B,)`` at each pair's terminal cell, and with
+    ``want_gap`` the gap expectation ``EA = E (Qx + Qy)`` (else None).
+    Returns ``(E, EA)``.  Plain version of the ``backward`` kernel."""
     B, K, S = dxs.shape
     lo = MODE_BOUNDS[mode][1]
     slots = torch.arange(S, device=dxs.device)
@@ -116,6 +147,7 @@ def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax"):
     e1 = e2 = z
     qx1 = qm1 = qy1 = qm2 = z
     E = torch.empty_like(dxs)
+    EA = torch.empty_like(dxs) if want_gap else None
     for r in reversed(range(K)):
         e = _shl(qx1 * e1) + _shl(qm2 * e2) + qy1 * e1
         valid, term = _masks(slots, r + 2, ln, lm, lo)
@@ -124,7 +156,77 @@ def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax"):
         E[:, r] = e
         _, (qx, qm, qy) = smooth.max3(operator, dxs[:, r], dms[:, r],
                                       torch.zeros_like(e))
+        if want_gap:
+            EA[:, r] = e * (qx + qy)
         e2, e1 = e1, e
         qm2 = qm1
         qx1, qm1, qy1 = qx, qm, qy
-    return E
+    return E, EA
+
+
+def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
+                    operator="softmax"):
+    """Tangent of the forward along the skewed cotangents ``zt_s`` and
+    ``za_s`` (``None``: a zero gap cotangent, no Za term at all).  Returns
+    ``(vtd (B,), Dxd, Dmd (B, K, S))``.  Plain version of the
+    ``adjoint_forward`` kernel."""
+    B, K, S = dxs.shape
+    lo = MODE_BOUNDS[mode][2]
+    slots = torch.arange(S, device=dxs.device)
+    zero = dxs.new_zeros(())
+    vd1 = dxs.new_zeros((B, S))
+    vd2 = vd1
+    vtd = dxs.new_zeros((B,))
+    dxds = torch.empty_like(dxs)
+    dmds = torch.empty_like(dxs)
+    for r in range(K):
+        _, (qx, qm, _) = smooth.max3(operator, dxs[:, r], dms[:, r],
+                                     torch.zeros_like(vd1))
+        dxd = _shr(vd1) - vd1
+        if za_s is None:
+            dmd = _shr(vd2) - vd1
+            vd = zt_s[:, r] + vd1 + qx * dxd + qm * dmd
+        else:
+            za = za_s[:, r]
+            dmd = _shr(vd2) - za - vd1
+            vd = zt_s[:, r] + za + vd1 + qx * dxd + qm * dmd
+        dxds[:, r] = dxd
+        dmds[:, r] = dmd
+        valid, term = _masks(slots, r + 2, ln, lm, lo)
+        vd = torch.where(valid, vd, zero)
+        vtd = vtd + torch.where(term, vd, zero).sum(1)
+        vd2, vd1 = vd1, vd
+    return vtd, dxds, dmds
+
+
+def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
+                     operator="softmax"):
+    """Tangent of the backward: ``(Ed, EdA)``, both ``(B, K, S)``, from the
+    forward residuals, the adjoint forward's ``Dxd``/``Dmd`` and the
+    backward's ``E``.  Plain version of the ``adjoint_backward`` kernel."""
+    B, K, S = dxs.shape
+    lo = MODE_BOUNDS[mode][3]
+    slots = torch.arange(S, device=dxs.device)
+    zero = dxs.new_zeros(())
+    z = dxs.new_zeros((B, S))
+    ed1 = ed2 = e1 = e2 = z
+    qx1 = qm1 = qy1 = qm2 = z
+    qdx1 = qdm1 = qdy1 = qdm2 = z
+    Ed = torch.empty_like(dxs)
+    EdA = torch.empty_like(dxs)
+    for r in reversed(range(K)):
+        ed = (_shl(qdx1 * e1 + qx1 * ed1) + _shl(qdm2 * e2 + qm2 * ed2)
+              + qdy1 * e1 + qy1 * ed1)
+        valid, _ = _masks(slots, r + 2, ln, lm, lo)
+        ed = torch.where(valid, ed, zero)
+        Ed[:, r] = ed
+        q = smooth.max3(operator, dxs[:, r], dms[:, r], torch.zeros_like(ed))[1]
+        qd = smooth.hessian3(operator, q,
+                             (dxds[:, r], dmds[:, r], torch.zeros_like(ed)))
+        e = E[:, r]
+        EdA[:, r] = ed * (q[0] + q[2]) + e * (qd[0] + qd[2])
+        ed2, ed1 = ed1, ed
+        e2, e1 = e1, e
+        qm2, qdm2 = qm1, qdm1
+        (qx1, qm1, qy1), (qdx1, qdm1, qdy1) = q, qd
+    return Ed, EdA

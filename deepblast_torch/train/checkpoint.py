@@ -1,18 +1,25 @@
-"""Model checkpoints: ``config.json`` plus a ``torch.save`` state dict
-(the serving counterpart of ``deepblast_tpu/train/checkpoint.py``).
+"""Model directories and training checkpoints
+(``deepblast_tpu/train/checkpoint.py``).
 
-A checkpoint directory holds ``config.json`` — the
+A model directory holds ``config.json`` — the
 :class:`~deepblast_torch.train.trainer.DeepBLASTConfig` fields, plus the
-T5 geometry under ``"t5"`` when the language model is a T5 encoder — and
-``model.pt`` with the ``lm`` and ``aligner`` state dicts.  Best-k
-checkpointing during training is the training slice.
+T5 geometry under ``"t5"`` when the language model is a T5 encoder
+(:func:`save_config`) — and ``model.pt`` with the ``lm`` and ``aligner``
+state dicts (:func:`save_model`).  Training adds ``checkpoints/``, where a
+:class:`Checkpointer` keeps the best *k* training states by a monitored
+metric, one subdirectory per step with ``state.pt`` (step, aligner,
+optimizer and schedule state) and ``metrics.json``.  :func:`load_model`
+rebuilds the model from ``model.pt`` and, when ``checkpoints/`` holds any,
+takes the aligner and the training state from the best checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 
 import torch
 
@@ -20,34 +27,102 @@ from deepblast_torch.models.lm import T5Config, T5Encoder
 from deepblast_torch.train.trainer import (DeepBLAST, DeepBLASTConfig,
                                            resolve_device)
 
-__all__ = ["save_model", "load_model"]
+__all__ = ["Checkpointer", "save_config", "save_model", "load_model"]
 
 
-def save_model(model: DeepBLAST, directory):
-    """Write ``model`` to ``directory`` (created if missing)."""
+class Checkpointer:
+    """Writes training states under ``directory`` and keeps the ``keep``
+    best by ``monitor`` (lowest first; a state saved without that metric
+    is ranked by its ``train_loss``)."""
+
+    def __init__(self, directory, keep=3, monitor="validation_loss"):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.keep = keep
+        self.monitor = monitor
+
+    def _metric(self, metrics):
+        return float(metrics.get(self.monitor,
+                                 metrics.get("train_loss", math.inf)))
+
+    def steps(self):
+        """``[(metric, step), ...]`` of the kept checkpoints, best first."""
+        out = []
+        for name in os.listdir(self.directory):
+            path = os.path.join(self.directory, name, "metrics.json")
+            if name.isdigit() and os.path.exists(path):
+                with open(path) as f:
+                    out.append((self._metric(json.load(f)), int(name)))
+        return sorted(out)
+
+    def save(self, state, metrics=None):
+        """Write ``state`` (a ``DeepBLAST.train_state()``) at its step, then
+        delete all but the ``keep`` best."""
+        step = int(state["step"])
+        path = os.path.join(self.directory, str(step))
+        os.makedirs(path, exist_ok=True)
+        torch.save(state, os.path.join(path, "state.pt"))
+        with open(os.path.join(path, "metrics.json"), "w") as f:
+            json.dump({k: float(v) for k, v in (metrics or {}).items()
+                       if isinstance(v, (int, float))}, f)
+        for _, old in self.steps()[self.keep:]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def best_step(self):
+        kept = self.steps()
+        return kept[0][1] if kept else None
+
+    def restore(self, step=None, device=None):
+        """The training state at ``step`` (default: the best), with its
+        tensors on ``device``."""
+        step = self.best_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return torch.load(os.path.join(self.directory, str(step), "state.pt"),
+                          map_location=device, weights_only=True)
+
+
+def save_config(model: DeepBLAST, directory):
+    """Write ``config.json`` for ``model`` to ``directory`` (created if
+    missing)."""
     os.makedirs(directory, exist_ok=True)
     cfg = dataclasses.asdict(model.config)
     if isinstance(model.lm, T5Encoder):
         cfg["t5"] = dataclasses.asdict(model.lm.cfg)
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
+
+
+def save_model(model: DeepBLAST, directory):
+    """Write ``model`` (config and weights) to ``directory``."""
+    save_config(model, directory)
     torch.save({"lm": model.lm.state_dict(),
                 "aligner": model.aligner.state_dict()},
                os.path.join(directory, "model.pt"))
 
 
-def load_model(directory, device=None, tokenizer=None):
-    """Rebuild a :class:`DeepBLAST` from a :func:`save_model` directory on
-    ``device`` (CUDA unless asked otherwise)."""
+def load_model(directory, device=None, tokenizer=None, step=None):
+    """Rebuild a :class:`DeepBLAST` from a model directory on ``device``
+    (CUDA unless asked otherwise).  Without ``model.pt`` the weights come
+    from ``init()`` with the config's seed; with checkpoints, the aligner
+    and the training state come from the best one (or ``step``)."""
     device = resolve_device(device)
     with open(os.path.join(directory, "config.json")) as f:
         raw = f.read()
     config = DeepBLASTConfig.from_json(raw)
     t5 = json.loads(raw).get("t5")
     lm = T5Encoder(T5Config(**t5), device=device) if t5 else None
-    state = torch.load(os.path.join(directory, "model.pt"),
-                       map_location=device, weights_only=True)
+    weights = os.path.join(directory, "model.pt")
+    state = torch.load(weights, map_location=device, weights_only=True) \
+        if os.path.exists(weights) else None
     model = DeepBLAST(config, tokenizer=tokenizer, lm=lm,
-                      lm_params=state["lm"], device=device)
-    model.aligner.load_state_dict(state["aligner"])
+                      lm_params=state["lm"] if state else None,
+                      device=device)
+    if state:
+        model.aligner.load_state_dict(state["aligner"])
+    else:
+        model.init()
+    ckpts = os.path.join(directory, "checkpoints")
+    if os.path.isdir(ckpts) and Checkpointer(ckpts).steps():
+        model.load_train_state(Checkpointer(ckpts).restore(step, device))
     return model

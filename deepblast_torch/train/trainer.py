@@ -1,20 +1,33 @@
-"""The model object for serving (``deepblast_tpu/train/trainer.py``).
+"""The model and its training loop (``deepblast_tpu/train/trainer.py``).
 
 :class:`DeepBLAST` holds the language model and the
 :class:`~deepblast_torch.models.aligner.NeuralAligner` on one device and
-serves the two inference entry points of the JAX package:
+serves the entry points of the JAX package:
 
+* :meth:`DeepBLAST.fit` — epochs of length-bucketed, shuffled batches:
+  frozen LM under ``no_grad`` -> heads -> potentials -> differentiable
+  ``expected_alignment`` -> masked loss -> ``backward()`` (the adjoint
+  passes) -> global-norm clip -> AdamW with the schedule -> NaN check; a
+  validation epoch with loss and traceback statistics; best-k
+  checkpoints (``trainer.py:485-629``);
 * :meth:`DeepBLAST.align` — one pair of strings -> alignment state string
   (``trainer.py:704-736``: potentials -> expected-alignment stream ->
   traceback walk on the stream);
 * :meth:`DeepBLAST.score_pairs` — a padded batch -> alignment scores
   (``trainer.py:738-749``), the search path.
 
+The optimizer is optax's ``clip_by_global_norm`` + ``adamw`` in PyTorch:
+the clip ``g <- g / |g| * c`` when ``|g| >= c`` (``clip_grad_norm_`` adds
+1e-6 to the norm), then ``torch.optim.AdamW`` with optax's defaults
+(weight decay 1e-4, where torch's is 1e-2; eps 1e-8; betas 0.9, 0.999),
+its rate set per update by ``LambdaLR`` over a base rate of 1.  Only the
+aligner trains; the LM is frozen (``finetune`` is a later slice).
+
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; without a CUDA device and without ``device="cpu"`` they raise.
-The slice runs at precision "32": on CUDA the serving path turns TF32 off
-for matmuls and cuDNN convolutions (process-wide PyTorch flags).  Fitting,
-the losses and the other language models are later slices.
+The port runs at precision "32": on CUDA it turns TF32 off for matmuls
+and cuDNN convolutions (process-wide PyTorch flags).  Dropout masks come
+from a ``torch.Generator`` seeded with ``seed + 1``.
 """
 
 from __future__ import annotations
@@ -22,25 +35,31 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from deepblast_torch.data.alphabet import ProtT5Tokenizer
-from deepblast_torch.data.state_utils import revstate_f
+from deepblast_torch.data.dataset import TMAlignDataset, make_batches
+from deepblast_torch.data.state_utils import revstate_f, states2edges
+from deepblast_torch.eval.score import ROC_COLUMNS, filter_gaps, roc_edges
 from deepblast_torch.models.aligner import NeuralAligner
 from deepblast_torch.models.lm import RMSNorm, T5Config, T5Encoder, TokenEmbed
 from deepblast_torch.ops import dp as dp_ops
+from deepblast_torch.train.losses import get_loss
+from deepblast_torch.train.schedules import make_schedule
 
 __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 
 @dataclasses.dataclass
 class DeepBLASTConfig:
-    """Model hyper-parameters of the serving path (the JAX package's field
-    names; its training and dtype-menu fields are ignored on load)."""
+    """Hyper-parameters (the JAX package's field names; its fields for
+    options the port does not have yet are ignored on load)."""
 
+    # model
     embedding_dim: int = 1024       # LM feature dim fed to the heads
     hidden_dim: int = 1024
     layers: int = 2
@@ -51,7 +70,22 @@ class DeepBLASTConfig:
     operator: str = "softmax"
     lm_type: str = "embed"          # embed | prot_t5
     vocab_size: int = 32
+    # optimisation
+    batch_size: int = 32
+    learning_rate: float = 5e-5
+    epochs: int = 10
+    scheduler: str = "cosine"
+    loss: str = "cross_entropy"
+    grad_clip: Optional[float] = None
+    mask_gaps: bool = True
     seed: int = 0
+    # data
+    train_pairs: Optional[str] = None
+    valid_pairs: Optional[str] = None
+    test_pairs: Optional[str] = None
+    max_len: int = 1024
+    pad_multiple: int = 16
+    output_directory: Optional[str] = None
 
     @classmethod
     def from_json(cls, s):
@@ -121,6 +155,11 @@ class DeepBLAST:
             operator=config.operator,
             device=self.device,
         ).eval()
+        self.loss_fn = get_loss(config.loss)
+        self.step = 0
+        self.state = None   # training state to resume from (load_model)
+        self._spe = 1
+        self._opt = self._sched = None
 
     def _build_lm(self):
         c = self.config
@@ -146,9 +185,8 @@ class DeepBLAST:
 
     # -- forward -----------------------------------------------------------
 
-    def _as_batch(self, batch):
-        return {k: torch.as_tensor(batch[k]).to(self.device)
-                for k in ("x", "y", "x_len", "y_len")}
+    def _as_batch(self, batch, keys=("x", "y", "x_len", "y_len")):
+        return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
 
     def _lm_apply(self, tokens, lengths):
         if isinstance(self.lm, T5Encoder):
@@ -189,3 +227,175 @@ class DeepBLAST:
         batch = self._as_batch(batch)
         hx, hy = self._embeddings(batch)
         return self.aligner.score(hx, hy, (batch["x_len"], batch["y_len"]))
+
+    # -- training ----------------------------------------------------------
+
+    def _build_optimizer(self):
+        """AdamW over the aligner with optax's defaults, its rate driven by
+        the schedule (``trainer.py:282-293``)."""
+        c = self.config
+        sched = make_schedule(c.scheduler, c.learning_rate, c.epochs,
+                              steps_per_epoch=self._spe)
+        self._opt = torch.optim.AdamW(
+            self.aligner.parameters(), lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=1e-4)
+        self._sched = torch.optim.lr_scheduler.LambdaLR(self._opt, sched)
+
+    def train_state(self):
+        """What a checkpoint holds: the step, the aligner's weights and the
+        optimizer's and schedule's state."""
+        return {"step": self.step, "aligner": self.aligner.state_dict(),
+                "optimizer": self._opt.state_dict() if self._opt else None,
+                "scheduler": self._sched.state_dict() if self._sched
+                else None}
+
+    def load_train_state(self, state):
+        """Restore a :meth:`train_state` (the optimizer's part on the next
+        :meth:`fit`)."""
+        self.aligner.load_state_dict(state["aligner"])
+        self.step = int(state["step"])
+        self.state = state
+
+    def compute_loss(self, batch, aln):
+        """The configured loss of ``aln`` against the batch's targets;
+        integer targets are cast to the prediction's dtype
+        (``trainer.py:346-353``)."""
+        c = self.config
+        G = batch["gmask"] if c.mask_gaps else torch.ones_like(batch["gmask"])
+        target = batch["path"] if c.loss == "path" else batch["aln"]
+        if not target.is_floating_point():
+            target = target.to(aln.dtype)
+        return self.loss_fn(target, aln, batch["x_len"], batch["y_len"], G)
+
+    def _loss_batch(self, batch):
+        keys = ["x", "y", "x_len", "y_len", "gmask",
+                "path" if self.config.loss == "path" else "aln"]
+        return self._as_batch(batch, keys)
+
+    def _clip_grads(self):
+        """optax ``clip_by_global_norm``: ``g / |g| * c`` when the global
+        norm ``|g|`` is at least ``c``."""
+        c = self.config.grad_clip
+        grads = [p.grad for p in self.aligner.parameters()
+                 if p.grad is not None]
+        if not c or not grads:
+            return
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        for g in grads:
+            g.copy_(torch.where(norm < c, g, g / norm * c))
+
+    def train_step(self, batch, generator=None):
+        """One update on a collated batch; returns the loss (a 0-d tensor on
+        the device, not yet read back)."""
+        self.aligner.train()
+        b = self._loss_batch(batch)
+        hx, hy = self._embeddings(b)
+        aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]),
+                                 generator=generator)
+        loss = self.compute_loss(b, aln)
+        self._opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self._clip_grads()
+        self._opt.step()
+        self._sched.step()
+        self.step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def validation_step(self, batch):
+        """``(loss, aln)`` of a batch with the aligner in eval mode."""
+        self.aligner.eval()
+        b = self._loss_batch(batch)
+        hx, hy = self._embeddings(b)
+        aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]))
+        return self.compute_loss(b, aln), aln
+
+    def validation_stats(self, batch, aln):
+        """Per-pair traceback accuracy stats ``ROC_COLUMNS`` of the natural
+        expected alignment ``aln`` (``trainer.py:668-681``)."""
+        stats = []
+        aln = aln.detach().cpu().numpy()
+        for b in range(len(batch["x_len"])):
+            n, mm = int(batch["x_len"][b]), int(batch["y_len"][b])
+            pred_states = [s for _, _, s in dp_ops.traceback(aln[b, :n, :mm])]
+            true_states = list(np.asarray(batch["states"][b]))
+            pred_edges = filter_gaps(pred_states, states2edges(pred_states))
+            true_edges = filter_gaps(true_states, states2edges(true_states))
+            stats.append(roc_edges(true_edges, pred_edges))
+        return stats
+
+    def _dataset(self, path):
+        return TMAlignDataset(path, tokenizer=self.tokenizer,
+                              max_len=self.config.max_len)
+
+    def _batches(self, dataset, shuffle, seed):
+        return make_batches(dataset, self.config.batch_size, shuffle=shuffle,
+                            seed=seed, pad_multiple=self.config.pad_multiple)
+
+    def _consume_loss(self, pending, losses, logger):
+        loss, step = pending
+        v = float(loss)
+        if math.isnan(v):
+            raise FloatingPointError(f"NaN training loss at step {step}")
+        losses.append(v)
+        if logger:
+            logger.log_scalar("train_loss", v, step)
+
+    def fit(self, train_dataset=None, valid_dataset=None, callbacks=(),
+            logger=None, checkpointer=None):
+        """Train for ``config.epochs`` epochs; returns ``(state,
+        history)`` with one entry per epoch.  Resumes from ``self.state``
+        (:meth:`load_train_state`) when set.  With a validation set the
+        checkpointer saves when the validation loss improves, else every
+        epoch."""
+        c = self.config
+        train_dataset = train_dataset or self._dataset(c.train_pairs)
+        valid_dataset = valid_dataset or (
+            self._dataset(c.valid_pairs) if c.valid_pairs else None)
+        self._spe = max(1, len(train_dataset) // max(1, c.batch_size))
+        self._build_optimizer()
+        if self.state is not None and self.state.get("optimizer"):
+            self._opt.load_state_dict(self.state["optimizer"])
+            self._sched.load_state_dict(self.state["scheduler"])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(c.seed + 1)
+        history = []
+        best = math.inf
+        for epoch in range(c.epochs):
+            # the loss of step i is read back after step i+1 is issued, so
+            # the host prepares the next batch while the card works
+            losses = []
+            pending = None
+            for batch in self._batches(train_dataset, True, c.seed + epoch):
+                loss = self.train_step(batch, gen)
+                if pending is not None:
+                    self._consume_loss(pending, losses, logger)
+                pending = (loss, self.step)
+            if pending is not None:
+                self._consume_loss(pending, losses, logger)
+            entry = {"epoch": epoch, "train_loss": float(np.mean(losses))}
+            if valid_dataset is not None:
+                vlosses, vstats = [], []
+                for batch in self._batches(valid_dataset, False, 0):
+                    vloss, aln = self.validation_step(batch)
+                    vlosses.append(float(vloss))
+                    vstats += self.validation_stats(batch, aln)
+                entry["validation_loss"] = float(np.mean(vlosses))
+                means = np.mean(np.asarray(vstats, float), axis=0)
+                for col, v in zip(ROC_COLUMNS, means):
+                    entry[f"val_{col}"] = float(v)
+                    if logger:
+                        logger.log_scalar(f"val_{col}", v, self.step)
+                if logger:
+                    logger.log_scalar("validation_loss",
+                                      entry["validation_loss"], self.step)
+                if checkpointer and entry["validation_loss"] < best:
+                    best = entry["validation_loss"]
+                    checkpointer.save(self.train_state(), entry)
+            elif checkpointer:
+                checkpointer.save(self.train_state(), entry)
+            history.append(entry)
+            for cb in callbacks:
+                cb(self, entry)
+        self.state = self.train_state()
+        return self.state, history

@@ -4,11 +4,15 @@ These need a CUDA device (an H100: the kernels are built for sm_90a) and
 skip without one — a CUDA kernel has no CPU mode.  Run them on the card
 with ``python -m pytest tests/test_torch_cuda.py -q``.
 
-Tolerance: those of ``chip_smoke.check_kernels``, which these tests call
-so that the smoke and the tests hold the kernels to one check: skew
-exact; forward (Vt, Dx, Dm), score-only forward and backward (E) rtol
-1e-4 / atol 1e-5 (fp32; the kernels round each cell as the plain version
-does, so only transcendental ulps can differ); tracebacks identical.
+Tolerance: those of ``chip_smoke.check_kernels`` and
+``chip_smoke.check_autograd``, which these tests call so that the smoke
+and the tests hold the kernels to one check: skew and unskew exact;
+forward (Vt, Dx, Dm), score-only forward, backward (E, EA), adjoint
+forward (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) rtol 1e-4 / atol
+1e-5 (fp32; the kernels round each cell as the plain version does, so
+only transcendental ulps can differ); tracebacks identical; autograd
+through the kernels = through the plain passes on the card (same
+tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
 """
 
 import numpy as np
@@ -52,7 +56,26 @@ def test_kernels_match_plain(cuda, B, N, M, mode, operator):
     theta, A, ln, lm = _problem(B * N + M, B, N, M, cuda)
     errs = {}
     chip_smoke.check_kernels(theta, A, ln, lm, mode, operator, errs)
-    assert set(errs) == {"skew", "forward", "forward_score", "backward"}
+    assert set(errs) == set(chip_smoke.KERNELS)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_autograd_through_kernels(cuda, mode, operator):
+    theta, A, ln, lm = _problem(11, 3, 40, 29, cuda)
+    errs = {}
+    chip_smoke.check_autograd(theta, A, ln, lm, mode, operator, errs)
+    assert errs["autograd"] == 0.0
+
+
+def test_kernels_past_48kb_of_shared_memory(cuda):
+    """S = 701 slots: the backward (10 rows, 28 KB) stays under 48 KB of
+    shared memory, the adjoint backward (20 rows, 56 KB) needs the
+    opt-in."""
+    theta, A, ln, lm = _problem(5, 2, 700, 90, cuda)
+    errs = {}
+    chip_smoke.check_kernels(theta, A, ln, lm, "nw", "softmax", errs)
+    assert set(errs) == set(chip_smoke.KERNELS)
 
 
 def test_dispatcher_launches_kernels(cuda):
@@ -74,6 +97,16 @@ def test_dispatcher_launches_kernels(cuda):
                                dp_ops.expected_alignment_stream(*args),
                                rtol=RTOL, atol=ATOL)
 
+    # the training step: skew of theta, A and the cotangent; forward,
+    # backward, unskew; the two adjoints and two unskews
+    t = theta.clone().requires_grad_()
+    before = dict(dp_cuda.LAUNCHES)
+    aln = dp_ops.expected_alignment(t, A, (ln, lm))
+    (aln * aln).sum().backward()
+    want = {"skew": 3, "forward": 1, "backward": 1, "unskew": 3,
+            "adjoint_forward": 1, "adjoint_backward": 1, "forward_score": 0}
+    assert {k: dp_cuda.LAUNCHES[k] - before[k] for k in want} == want
+
 
 def test_wrappers_check_inputs(cuda):
     x = torch.zeros((2, 5, 4), device=cuda)
@@ -85,3 +118,10 @@ def test_wrappers_check_inputs(cuda):
     n = torch.full((2,), 5, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         dp_cuda.forward(s, s, n, n)
+    with pytest.raises(ValueError, match="does not hold"):
+        dp_cuda.unskew(s, 4, 4)
+    n = n.to(torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        dp_cuda.adjoint_forward(s, s, s[:1], None, n, n)
+    with pytest.raises(TypeError, match="float32"):
+        dp_cuda.adjoint_backward(s, s, s, s, s.double(), n, n)

@@ -1,0 +1,286 @@
+"""The port's training slice on the CPU against the JAX package: losses,
+schedules, datasets and batching, state and ROC helpers, the trainer's
+trajectory from the same init on the same data; the checkpointer,
+``cli.train`` -> ``load_model`` -> ``align``, and the flags the port
+rejects.
+
+Tolerances: losses atol 1e-12 (fp64, the same reductions); schedules
+rtol 1e-6 (triangular: the JAX version computes in float32); datasets
+and batches exact; the trajectory rtol 1e-4 (fp32, two libraries' exp,
+log and AdamW arithmetic over 6 steps).
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepblast_torch.cli import train as ttrain
+from deepblast_torch.data import dataset as tds
+from deepblast_torch.data import state_utils as tsu
+from deepblast_torch.eval import score as tscore
+from deepblast_torch.models.convert import params_from_jax
+from deepblast_torch.models.heads import StackedCNN
+from deepblast_torch.train import losses as tlosses
+from deepblast_torch.train import trainer as ttrainer
+from deepblast_torch.train.checkpoint import Checkpointer, load_model
+from deepblast_torch.train.schedules import make_schedule as tsched
+from deepblast_tpu.data import dataset as jds
+from deepblast_tpu.data import state_utils as jsu
+from deepblast_tpu.eval import score as jscore
+from deepblast_tpu.train import losses as jlosses
+from deepblast_tpu.train import trainer as jtrainer
+from deepblast_tpu.train.schedules import make_schedule as jsched
+from test_train import fixture_frame
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+# tests/test_train.py's tiny config with dropout 0, the cosine schedule,
+# a clip of 1, and a learning rate of 5e-3: at its 5e-2 the loss doubles
+# every step and Adam's sign of near-zero gradients makes fp32 runs of two
+# libraries part after three steps
+TINY = dict(embedding_dim=16, hidden_dim=16, layers=2, k_size=5,
+            vocab_size=32, lm_type="embed", batch_size=4,
+            learning_rate=5e-3, epochs=2, scheduler="cosine", max_len=64,
+            pad_multiple=8, mask_gaps=True, dropout=0.0, grad_clip=1.0)
+
+
+def _rows(frame):
+    return frame.values.tolist()
+
+
+@pytest.mark.parametrize("name", ["cross_entropy", "sse", "path"])
+def test_losses_match_jax(name):
+    rng = np.random.default_rng(0)
+    B, N, M = 3, 6, 5
+    Yt = (rng.random((B, N, M)) < 0.3).astype(np.float64)
+    Yp = rng.random((B, N, M))
+    G = rng.random((B, N, M)) < 0.8
+    xl, yl = np.array([6, 4, 5]), np.array([5, 3, 2])
+    want = jlosses.get_loss(name)(jnp.asarray(Yt), jnp.asarray(Yp),
+                                  jnp.asarray(xl), jnp.asarray(yl),
+                                  jnp.asarray(G))
+    got = tlosses.get_loss(name)(torch.tensor(Yt), torch.tensor(Yp),
+                                 torch.tensor(xl), torch.tensor(yl),
+                                 torch.tensor(G))
+    np.testing.assert_allclose(got.item(), float(want), rtol=0, atol=1e-12)
+    with pytest.raises(ValueError):
+        tlosses.get_loss("bogus")
+
+
+@pytest.mark.parametrize("name", ["none", "cosine", "cosine_restarts",
+                                  "triangular", "steplr"])
+def test_schedules_match_optax(name):
+    for epochs, spe in ((8, 10), (3, 7)):
+        want = jsched(name, 1e-3, epochs, steps_per_epoch=spe)
+        got = tsched(name, 1e-3, epochs, steps_per_epoch=spe)
+        np.testing.assert_allclose([got(t) for t in range(50)],
+                                   [float(want(t)) for t in range(50)],
+                                   rtol=1e-6, atol=0)
+
+
+def _same_item(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], list):      # ragged: states
+            assert len(a[k]) == len(b[k])
+            for u, v in zip(a[k], b[k]):
+                np.testing.assert_array_equal(np.asarray(u), np.asarray(v),
+                                              err_msg=k)
+        else:
+            np.testing.assert_array_equal(np.asarray(a[k]),
+                                          np.asarray(b[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("source", ["fixture", "tab"])
+def test_dataset_and_batches_match_jax(source):
+    if source == "fixture":
+        jset = jds.TMAlignDataset(fixture_frame(n_rows=10, seed=4),
+                                  construct_paths=True)
+        tset = tds.TMAlignDataset(_rows(fixture_frame(n_rows=10, seed=4)),
+                                  construct_paths=True)
+    else:
+        path = os.path.join(DATA, "test_tm_align.tab")
+        jset = jds.TMAlignDataset(path, tm_threshold=0.3)
+        tset = tds.TMAlignDataset(path, tm_threshold=0.3)
+    assert len(tset) == len(jset) > 0
+    np.testing.assert_array_equal(tset.lengths(), jset.lengths())
+    for i in range(len(jset)):
+        _same_item(tset[i], jset[i])
+    for shuffle, seed in ((True, 3), (False, 0)):
+        jb = list(jds.make_batches(jset, 3, shuffle=shuffle, seed=seed,
+                                   pad_multiple=8))
+        tb = list(tds.make_batches(tset, 3, shuffle=shuffle, seed=seed,
+                                   pad_multiple=8))
+        assert len(tb) == len(jb)
+        for a, b in zip(tb, jb):
+            _same_item(a, b)
+
+
+@pytest.mark.parametrize("st", ["::1::2:", "11:::22:1", ":2:.:1:", "::::"])
+def test_state_and_roc_helpers_match_jax(st):
+    states = [tsu.tmstate_f(c) for c in st]
+    assert states == [jsu.tmstate_f(c) for c in st]
+    assert tsu.states2edges(states) == jsu.states2edges(states)
+    np.testing.assert_array_equal(tsu.states2matrix(states),
+                                  jsu.states2matrix(states))
+    np.testing.assert_array_equal(tsu.gap_mask(st), jsu.gap_mask(st))
+    np.testing.assert_array_equal(
+        tsu.path_distance_matrix(tsu.states2edges(states)),
+        jsu.path_distance_matrix(jsu.states2edges(states)))
+    pred = [tsu.m] * (len(states) - 1) + [tsu.x]
+    te = tscore.filter_gaps(states, tsu.states2edges(states))
+    pe = tscore.filter_gaps(pred, tsu.states2edges(pred))
+    assert te == jscore.filter_gaps(states, jsu.states2edges(states))
+    assert tscore.roc_edges(te, pe) == jscore.roc_edges(te, pe)
+    assert tscore.ROC_COLUMNS == jscore.ROC_COLUMNS
+
+
+class _Rec:
+    """A logger that records what the trainers log."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log_scalar(self, tag, value, step):
+        self.rows.append((tag, int(step), float(value)))
+
+    def log_figure(self, *a, **k):
+        pass
+
+    def log_text(self, *a, **k):
+        pass
+
+
+def test_fit_trajectory_matches_jax():
+    """The same init (the JAX init carried across) and the same batches:
+    each step's train loss, each epoch's validation loss and the
+    validation traceback stats agree."""
+    jmodel = jtrainer.DeepBLAST(jtrainer.DeepBLASTConfig(backend="scan",
+                                                         **TINY))
+    jmodel.state = jmodel.init()
+    tmodel = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(**TINY),
+                                device="cpu")
+    # copied before the JAX fit, which donates (deletes) its state
+    tmodel.lm.load_state_dict(params_from_jax(jmodel.state.lm_params))
+    tmodel.aligner.load_state_dict(
+        params_from_jax(jmodel.state.params["aligner"]))
+    jrec = _Rec()
+    _, jhist = jmodel.fit(jds.TMAlignDataset(fixture_frame()),
+                          jds.TMAlignDataset(fixture_frame()), logger=jrec)
+    trec = _Rec()
+    state, thist = tmodel.fit(tds.TMAlignDataset(_rows(fixture_frame())),
+                              tds.TMAlignDataset(_rows(fixture_frame())),
+                              logger=trec)
+    assert [r[:2] for r in trec.rows] == [r[:2] for r in jrec.rows]
+    assert sum(r[0] == "train_loss" for r in trec.rows) == 6
+    np.testing.assert_allclose([r[2] for r in trec.rows],
+                               [r[2] for r in jrec.rows], rtol=1e-4)
+    assert [h.keys() for h in thist] == [h.keys() for h in jhist]
+    for th, jh in zip(thist, jhist):
+        np.testing.assert_allclose(list(th.values()), list(jh.values()),
+                                   rtol=1e-4)
+    assert state["step"] == 6 and tmodel.step == 6
+
+
+def test_nan_loss_raises():
+    model = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(**TINY),
+                               device="cpu").init()
+    with pytest.raises(FloatingPointError, match="NaN training loss"):
+        model._consume_loss((torch.tensor(float("nan")), 3), [], None)
+
+
+def test_dropout_uses_the_callers_generator():
+    head = StackedCNN(8, 8, layers=2, dropout=0.5)
+    x = torch.randn((2, 7, 8), generator=torch.Generator().manual_seed(0))
+    head.train()
+    a = head(x, generator=torch.Generator().manual_seed(5))
+    b = head(x, generator=torch.Generator().manual_seed(5))
+    c = head(x, generator=torch.Generator().manual_seed(6))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    head.eval()
+    full = head(x)
+    kept = a != 0
+    torch.testing.assert_close(a[kept], 2 * full[kept])
+    assert torch.equal(head(x, generator=torch.Generator().manual_seed(5)),
+                       full)
+
+
+def _state(step, value):
+    return {"step": step, "aligner": {"w": torch.full((2,), float(value))},
+            "optimizer": None, "scheduler": None}
+
+
+def test_checkpointer_keeps_the_best(tmp_path):
+    ck = Checkpointer(str(tmp_path / "ck"), keep=3)
+    for step, v in zip(range(1, 6), (5.0, 3.0, 4.0, 1.0, 2.0)):
+        ck.save(_state(step, v), {"validation_loss": v, "epoch": step})
+    assert ck.steps() == [(1.0, 4), (2.0, 5), (3.0, 2)]
+    assert sorted(os.listdir(tmp_path / "ck")) == ["2", "4", "5"]
+    assert ck.restore()["aligner"]["w"][0] == 1.0
+    assert ck.restore(step=2)["step"] == 2
+    other = Checkpointer(str(tmp_path / "tl"), keep=1)
+    other.save(_state(1, 9.0), {"train_loss": 9.0})
+    other.save(_state(2, 7.0), {"train_loss": 7.0})
+    assert other.best_step() == 2
+
+
+def _write_tsv(path, frame):
+    with open(path, "w") as f:
+        for row in _rows(frame):
+            f.write("\t".join(str(v) for v in row) + "\n")
+
+
+def test_cli_train_then_load_model_aligns(tmp_path):
+    train, valid = tmp_path / "train.tsv", tmp_path / "valid.tsv"
+    _write_tsv(train, fixture_frame(n_rows=12, seed=1))
+    _write_tsv(valid, fixture_frame(n_rows=4, seed=2))
+    out = tmp_path / "out"
+    assert ttrain.main([
+        "--train-pairs", str(train), "--valid-pairs", str(valid),
+        "-o", str(out), "--embedding-dim", "16", "--hidden-dim", "16",
+        "--batch-size", "4", "--epochs", "3", "--max-len", "64",
+        "--learning-rate", "5e-3", "--device", "cpu"]) == 0
+    with open(out / "config.json") as f:
+        cfg = json.load(f)
+    assert cfg["epochs"] == 3 and cfg["dropout"] == 0.5
+    kept = Checkpointer(str(out / "checkpoints")).steps()
+    assert 1 <= len(kept) <= 3
+    model = load_model(str(out), device="cpu")
+    best = Checkpointer(str(out / "checkpoints")).restore()
+    assert model.step == best["step"]
+    for k, v in best["aligner"].items():
+        assert torch.equal(model.aligner.state_dict()[k], v)
+    for x, y in (("ACDEFGHIKL", "ACDFGHIKLM"), ("MKTAYIAK", "MKTAYK")):
+        s = model.align(x, y)
+        assert s.count(":") + s.count("1") == len(x)
+        assert s.count(":") + s.count("2") == len(y)
+    logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
+    with open(out / logs[0] / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert {"train_loss", "validation_loss", "val_ppv"} <= \
+        {r["tag"] for r in records}
+    walls = [r["wall_time"] for r in records]
+    assert walls == sorted(walls)
+
+
+@pytest.mark.parametrize("flag", [["--precision", "bf16"],
+                                  ["--finetune", "1"],
+                                  ["--steps-per-dispatch", "8"],
+                                  ["--layer-type", "rnn"],
+                                  ["--lm-type", "bilstm"],
+                                  ["--backend", "pallas_bm"]])
+def test_cli_train_rejects_unported_flags(tmp_path, flag):
+    with pytest.raises(ValueError, match="not ported.*ROADMAP.md"):
+        ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
+                     "-o", str(tmp_path), "--device", "cpu", *flag])
+
+
+def test_cli_train_needs_cuda_unless_told(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
+                     "-o", str(tmp_path)])
