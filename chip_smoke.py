@@ -46,7 +46,30 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              longest training batch (8, 992, 1024).  The whole run's
              time, the intervals between the ``train_loss`` records of
              its own ``metrics.jsonl``, and peak device memory.
-5. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
+5. long    — the long-sequence backend (``pallas_long``: the Q-stream
+             kernels).  Each Q kernel against its plain version at (16,
+             200, 150), nw and sw x softmax / sparsemax / hardmax, outputs
+             over NaN, and autograd through them (as phase 2).  Then
+             ``cli.train --backend pallas_long --max-len 4096`` at
+             ProtT5-XL + CNN-1024 on 6 synthetic TM-align pairs of
+             1,000-3,900 residues (batch 2, 2 epochs; the longest batch
+             pads past S = 2,905 slots, where the default kernels' adjoint
+             backward no longer fits in shared memory), ``load_model`` ->
+             ``align`` of the ~3,900-residue pair and ``score_pairs``, and
+             one ``expected_alignment`` + gradient with ``backend="pallas"``
+             (the same skew and unskew kernels).  Counters zeroed before,
+             read after: every Q kernel, the skew and the unskew must have
+             run.  Then, at the trained model's potentials of the longest
+             batch: the default backend refuses it with the shared-memory
+             limit error, and every Q kernel and autograd through them
+             equal their plain versions (and the CPU: the first-order
+             outputs to phase 2's tolerance; the second-order ones,
+             which two fp32 runs at this length do not share to 1e-4,
+             are reported).  Times at 8 x 4096 x
+             4096 (``scripts/bench_len4096.py``'s shape): each Q kernel and
+             the ``pallas_long`` expected alignment (alignments/s), and
+             peak device memory.
+6. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
              time (CUDA events), the plain version's time, alignments/s,
              and each kernel's bound (bytes over 3.35 TB/s, flops over
              67 TFLOP/s fp32; H100 SXM data sheet), counting the valid
@@ -54,7 +77,7 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              the unskew's library time is one strided ``clone``; then the
              training kernels at the same shape and one whole
              differentiable DP step (``expected_alignment`` + ``backward()``
-             of a cross entropy).
+             of a cross entropy); the Q kernels at the same shape.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,13 +101,19 @@ RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 SOURCE = "deepblast_torch/csrc/dp_kernels.cu"
 KERNELS = ("skew", "unskew", "forward", "forward_score", "backward",
            "adjoint_forward", "adjoint_backward")
+Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
+             "adjoint_backward_q")
+OPERATORS = ("softmax", "sparsemax", "hardmax")
+LONG_LEN = 4096
 SERVING_KERNELS = ("skew", "forward", "forward_score", "backward")
 TRAIN_KERNELS = ("skew", "unskew", "forward", "backward", "adjoint_forward",
                  "adjoint_backward")
 # every TPU pallas_call site each kernel stands for
 REPLACES = {
-    "skew": ["deepblast_tpu/ops/skew_bm.py:195"],
-    "unskew": ["deepblast_tpu/ops/skew_bm.py:321"],
+    "skew": ["deepblast_tpu/ops/skew_bm.py:195",
+             "deepblast_tpu/ops/skew_pallas.py:95"],
+    "unskew": ["deepblast_tpu/ops/skew_bm.py:321",
+               "deepblast_tpu/ops/skew_pallas.py:133"],
     "forward": ["deepblast_tpu/ops/dp_bm.py:1082",
                 "deepblast_tpu/ops/dp_bm.py:423",
                 "deepblast_tpu/ops/dp_bm_train.py:179"],
@@ -96,13 +125,19 @@ REPLACES = {
                         "deepblast_tpu/ops/dp_bm_train.py:442"],
     "adjoint_backward": ["deepblast_tpu/ops/dp_bm.py:827",
                          "deepblast_tpu/ops/dp_bm_train.py:595"],
+    "forward_q": ["deepblast_tpu/ops/dp_pallas.py:223"],
+    "backward_q": ["deepblast_tpu/ops/dp_pallas.py:328"],
+    "adjoint_forward_q": ["deepblast_tpu/ops/dp_pallas.py:423"],
+    "adjoint_backward_q": ["deepblast_tpu/ops/dp_pallas.py:548"],
 }
 # fp32 operations per cell of the slot loop (softmax; the other operators
 # are of the same order), for the operations side of each bound
 FLOPS_PER_CELL = {"skew": 0, "unskew": 0, "forward": 20,
                   "forward_score": 20, "backward": 24, "backward_gap": 27,
                   "adjoint_forward": 28, "adjoint_forward_za": 29,
-                  "adjoint_backward": 45}
+                  "adjoint_backward": 45, "forward_q": 22, "backward_q": 5,
+                  "backward_q_gap": 7, "adjoint_forward_q": 17,
+                  "adjoint_forward_q_za": 19, "adjoint_backward_q": 16}
 
 
 def log(msg):
@@ -270,20 +305,91 @@ def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     _close("adjoint_backward", EdA_k, EdA_p, errs)
 
 
-def check_autograd(theta, A, ln, lm, mode, operator, errs):
+def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
+    """Every Q-stream kernel against its plain version on the same inputs
+    (outputs over NaN-filled memory): the forward (Vt, Qx, Qm, Qy), the
+    backward with and without the gap output, the adjoint forward with and
+    without a Za stream (vtd, Qd), the adjoint backward (Ed, EdA); random
+    cotangents; tracebacks of E identical."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew
+    kw = dict(mode=mode, operator=operator)
+    th_s, A_s = skew(theta), skew(A)
+    vt_p, *qs = dp_ref.forward_q(th_s, A_s, ln, lm, **kw)
+    _poison(*qs)
+    vt_k, *qs_k = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
+    for got, want in zip((vt_k, *qs_k), (vt_p, *qs)):
+        _close("forward_q", got, want, errs)
+    del qs_k
+
+    Et = torch.ones_like(vt_p)
+    for gap in (False, True):
+        E_p, EA_p = dp_ref.backward_q(*qs, ln, lm, Et, mode=mode,
+                                      want_gap=gap)
+        _poison(E_p, *([EA_p] if gap else []))
+        E_k, EA_k = dp_cuda.backward_q(*qs, ln, lm, Et, mode=mode,
+                                       want_gap=gap)
+        _close("backward_q", E_k, E_p, errs)
+        if gap:
+            _close("backward_q", EA_k, EA_p, errs)
+    E_kh, E_ph = E_k.cpu().numpy(), E_p.cpu().numpy()
+    del E_k, EA_k, EA_p
+    for b, (n, m) in enumerate(zip(ln.tolist(), lm.tolist())):
+        if dp_ops.traceback_stream(E_kh, n, m, b) != \
+                dp_ops.traceback_stream(E_ph, n, m, b):
+            raise AssertionError(f"Q traceback of pair {b} differs")
+
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(theta.shape[1] + theta.shape[2])
+    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device))
+    za_s = skew(torch.randn(theta.shape, generator=g, device=theta.device))
+    for za in (za_s, None):
+        vtd_p, *qds = dp_ref.adjoint_forward_q(*qs, zt_s, za, ln, lm, **kw)
+        _poison(*qds)
+        vtd_k, *qds_k = dp_cuda.adjoint_forward_q(*qs, zt_s, za, ln, lm,
+                                                  **kw)
+        for got, want in zip((vtd_k, *qds_k), (vtd_p, *qds)):
+            _close("adjoint_forward_q", got, want, errs)
+        del qds_k
+    del zt_s, za_s
+
+    Ed_p, EdA_p = dp_ref.adjoint_backward_q(*qs, *qds, E_p, ln, lm,
+                                            mode=mode)
+    _poison(Ed_p, EdA_p)
+    Ed_k, EdA_k = dp_cuda.adjoint_backward_q(*qs, *qds, E_p, ln, lm,
+                                             mode=mode)
+    _close("adjoint_backward_q", Ed_k, Ed_p, errs)
+    _close("adjoint_backward_q", EdA_k, EdA_p, errs)
+
+
+# autograd outputs of check_autograd that only the forward and backward
+# passes compute: vt, the gradient of vt (theta, A) and E, EA
+FIRST_ORDER = (0, 1, 2, 5, 6)
+
+
+def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
+                   cpu_second_order=True):
     """``torch.autograd.grad`` through the dispatcher on the card (the
-    kernels) against the same calls with the plain passes, on the card and
-    on CPU copies: ``alignment_score`` to first and second order,
-    ``expected_alignment`` with and without the gap output.
+    kernels of ``backend``) against the same calls with the plain passes,
+    on the card and on CPU copies: ``alignment_score`` to first and second
+    order, ``expected_alignment`` with and without the gap output.
 
     Against the plain passes on the card: rtol 1e-4 / atol 1e-5 per
     element, as every kernel.  Against the CPU, where exp and log round
     differently, each output to atol 1e-5 + rtol 1e-4 of its largest
     magnitude: the DP differences V[r-1] - V[r-2] cancel, so a last-bit
-    change of V moves a small output by more than its own rtol."""
+    change of V moves a small output by more than its own rtol.
+
+    With ``cpu_second_order=False`` the outputs of the adjoint passes are
+    held to the plain passes on the card only, and their CPU deviation
+    (relative to scale) is recorded as ``autograd_cpu_second_order``: over
+    thousands of dependent diagonals two correct fp32 runs part by more
+    than 1e-4 of scale (fp32 against fp64 on the CPU, both backends:
+    ~3e-4 of scale at length 1,000, scripts/torch_dp_fp32_error.py)."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_ref
-    kw = dict(mode=mode, operator=operator)
+    kw = dict(mode=mode, operator=operator, backend=backend)
     g = torch.Generator(device=theta.device)
     g.manual_seed(1)
     Zt = torch.randn(theta.shape, generator=g, device=theta.device)
@@ -315,9 +421,11 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs):
         _close("autograd", k, p, errs)
         err = (k.cpu() - c).abs().max().item()
         scale = c.abs().max().item()
-        errs["autograd_cpu"] = max(errs.get("autograd_cpu", 0.0),
-                                   err / max(scale, 1.0))
-        if not torch.isfinite(k).all() or err > ATOL + RTOL * scale:
+        gated = cpu_second_order or i in FIRST_ORDER
+        key = "autograd_cpu" if gated else "autograd_cpu_second_order"
+        errs[key] = max(errs.get(key, 0.0), err / max(scale, 1.0))
+        if not torch.isfinite(k).all() or \
+                (gated and err > ATOL + RTOL * scale):
             raise AssertionError(f"autograd output {i}: card vs CPU max abs "
                                  f"diff {err} at scale {scale}")
 
@@ -490,9 +598,10 @@ def phase_serving(seed, card):
 # phase 4: training through the CLI at ProtT5-XL width
 # ---------------------------------------------------------------------------
 
-def homolog_row(rng, name, lo, hi):
+def homolog_row(rng, name, lo, hi, cap=1024):
     """A TM-align TSV row: a protein of length lo..hi, a homolog with
-    substitutions and short indels, and the alignment that made it."""
+    substitutions and short indels (both shorter than ``cap``), and the
+    alignment that made it."""
     while True:
         x = protein(rng, lo, hi)
         y, states = [], []
@@ -507,7 +616,7 @@ def homolog_row(rng, name, lo, hi):
                 ins = rng.integers(1, 4)
                 y.extend(rng.choice(list(RESIDUES), ins))
                 states.extend("2" * ins)
-        if max(len(x), len(y)) < 1024:
+        if max(len(x), len(y)) < cap:
             tm = rng.uniform(0.5, 0.9)
             return [f"{name}_a", f"{name}_b", f"{tm:.4f}", f"{tm:.4f}",
                     "1.0", x, "".join(y), "".join(states)]
@@ -636,7 +745,214 @@ def phase_train(seed, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: decode at the bench shape
+# phase 5: the long-sequence backend
+# ---------------------------------------------------------------------------
+
+def phase_long(seed, card):
+    from deepblast_torch.cli import train as cli_train
+    from deepblast_torch.data.state_utils import pad_sequences
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import load_model
+
+    errs = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    for mode in ("nw", "sw"):
+        for op in OPERATORS:
+            theta, A, ln, lm = dp_problem(g, 16, 200, 150)
+            check_q_kernels(theta, A, ln, lm, mode, op, errs)
+            check_autograd(theta, A, ln, lm, mode, op, errs,
+                           backend="pallas_long")
+    torch.cuda.synchronize()
+    log("phase long: Q kernels = plain at (16, 200, 150) nw/sw x "
+        "softmax/sparsemax/hardmax, tracebacks identical; autograd through "
+        f"them = plain and = CPU; max abs diff {json.dumps(errs)}")
+
+    rng = np.random.default_rng(seed + 2)
+    rows = [homolog_row(rng, f"s{i}", 1000, 1500, LONG_LEN) for i in range(2)]
+    rows += [homolog_row(rng, f"m{i}", 2000, 2800, LONG_LEN)
+             for i in range(2)]
+    rows += [homolog_row(rng, f"l{i}", 3600, 3900, LONG_LEN)
+             for i in range(2)]
+    valid = [homolog_row(rng, f"v{i}", 1000, 1200, LONG_LEN)
+             for i in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        out = os.path.join(tmp, "out")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        rc = cli_train.main([
+            "--train-pairs", paths[0], "--valid-pairs", paths[1],
+            "-o", out, "--lm-type", "prot_t5", "--batch-size", "2",
+            "--epochs", "2", "--max-len", str(LONG_LEN),
+            "--backend", "pallas_long", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+        peak_train = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"cli.train returned {rc}")
+        logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
+        with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [(m["tag"], m["value"]) for m in metrics
+                  if m["tag"] in ("train_loss", "validation_loss")]
+
+        # serving from the checkpoint: the longest pair, then a batch
+        model = load_model(out)
+        if model.config.backend != "pallas_long":
+            raise AssertionError("config.json lost the backend")
+        x, y = max((r[5:7] for r in rows), key=lambda p: len(p[0]))
+        t0 = time.time()
+        state = model.align(x, y)
+        t_align = time.time() - t0
+        tok = model.tokenizer
+        xt, xl = pad_sequences([tok(r[5])[0] for r in rows[-2:]])
+        yt, yl = pad_sequences([tok(r[6])[0] for r in rows[-2:]])
+        t0 = time.time()
+        scores = model.score_pairs(dict(x=xt, y=yt, x_len=xl, y_len=yl))
+        torch.cuda.synchronize()
+        t_score = time.time() - t0
+
+        # the "pallas" name: the same Q kernels behind the same skew and
+        # unskew kernels (TPU rows 19-20), at the longest batch
+        batches = list(model._batches(model._dataset(paths[0]), True, seed))
+        batch = max(batches, key=lambda b: b["x"].shape[1])
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+        before = dict(dp_cuda.LAUNCHES)
+        t = theta.clone().requires_grad_()
+        E = dp_ops.expected_alignment(t, A, lengths, backend="pallas")
+        (E * E).sum().backward()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(E).all() and torch.isfinite(t.grad).all()):
+            raise AssertionError('backend="pallas": non-finite output')
+        pallas = {k: v - before[k] for k, v in dp_cuda.LAUNCHES.items()}
+        launches = dict(dp_cuda.LAUNCHES)
+        del model, hx, hy, t, E
+
+    if any(launches[k] == 0 for k in ("skew", "unskew") + Q_KERNELS) or \
+            pallas["skew"] == 0 or pallas["unskew"] == 0:
+        raise AssertionError(f"a kernel did not run on the long path: "
+                             f"{launches}, pallas call {pallas}")
+    if any(launches[k] for k in ("forward", "backward", "adjoint_forward",
+                                 "adjoint_backward", "forward_score")):
+        raise AssertionError(f"the long path ran a default kernel: "
+                             f"{launches}")
+    # the most slots the default adjoint backward holds in shared memory
+    S = theta.shape[1] + 1
+    most = dp_cuda.max_smem(theta.device) // (
+        4 * dp_cuda.SMEM_ROWS["adjoint_backward"])
+    if S <= most:
+        raise AssertionError(f"the longest batch pads to S = {S} slots, "
+                             f"within the default kernels' {most}")
+    if len(losses) != 2 * (len(batches) + 1) or \
+            not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"training losses {losses}")
+    if state.count("1") + state.count(":") != len(x) or \
+            state.count("2") + state.count(":") != len(y):
+        raise AssertionError("align: states do not consume both strings")
+    if scores.shape != (2,) or not torch.isfinite(scores).all():
+        raise AssertionError("score_pairs: non-finite or misshapen scores")
+    shapes = [tuple(bt["x"].shape) + (bt["y"].shape[1],) for bt in batches]
+    log(f"phase long: cli.train --backend pallas_long --max-len {LONG_LEN} "
+        f"ProtT5-XL + CNN-1024, {len(rows)} train / {len(valid)} valid "
+        f"pairs, batch 2, 2 epochs: {t_train:.2f} s; batches (B, Lx, Ly) "
+        f"{shapes}; seconds between train_loss records "
+        f"{[round(v, 4) for v in step_intervals(metrics)]}; peak device "
+        f"memory {peak_train / 2**30:.2f} GiB; losses {losses}; align "
+        f"({len(x)}, {len(y)}) {t_align:.2f} s; score_pairs "
+        f"{tuple(xt.shape)} x {yt.shape[1]} {t_score:.2f} s [{card}]; "
+        f"launches {json.dumps(launches)}; of which the pallas call "
+        f"{json.dumps(pallas)}")
+
+    # the default backend refuses this batch, naming the limit
+    t = theta.clone().requires_grad_()
+    try:
+        (dp_ops.expected_alignment(t, A, lengths) ** 2).sum().backward()
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"the default backend trained S = {S}")
+    if 'backend="pallas_long"' not in refusal:
+        raise AssertionError(f"unclear refusal: {refusal}")
+    del t
+    torch.cuda.empty_cache()
+    check_q_kernels(theta, A, *lengths, "nw", "softmax", errs)
+    check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                   backend="pallas_long", cpu_second_order=False)
+    torch.cuda.synchronize()
+    log(f"phase long: the default backend refuses {tuple(theta.shape)}: "
+        f"{refusal}")
+    log(f"phase long: Q kernels = plain and autograd = plain and CPU at the "
+        f"longest training batch {tuple(theta.shape)}; max abs diff "
+        f"{json.dumps(errs)}")
+    del theta, A
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def long_times(seed, card):
+    """Each Q kernel and the ``pallas_long`` expected alignment at 8 x
+    4096 x 4096, nw, softmax, fp32 (CUDA events, 3 launches after one
+    warm-up), and the peak device memory of the decode."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    B, N = 8, LONG_LEN
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 3)
+    theta, A, ln, lm = dp_problem(g, B, N, N, ragged=False)
+    kw = dict(mode="nw", operator="softmax")
+    Et = torch.ones((B,), device="cuda")
+    th_s, A_s = dp_cuda.skew(theta), dp_cuda.skew(A)
+    _, *qs = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
+    E, _ = dp_cuda.backward_q(*qs, ln, lm, Et, mode="nw")
+    zt = dp_cuda.skew(torch.randn((B, N, N), generator=g, device="cuda"))
+    _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
+    kern = {
+        "forward_q": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm, **kw),
+        "backward_q": lambda: dp_cuda.backward_q(*qs, ln, lm, Et, mode="nw"),
+        "backward_q_gap": lambda: dp_cuda.backward_q(
+            *qs, ln, lm, Et, mode="nw", want_gap=True),
+        "adjoint_forward_q": lambda: dp_cuda.adjoint_forward_q(
+            *qs, zt, None, ln, lm, **kw),
+        "adjoint_backward_q": lambda: dp_cuda.adjoint_backward_q(
+            *qs, *qds, E, ln, lm, mode="nw"),
+    }
+    ms = {k: cuda_ms(fn, 3) for k, fn in kern.items()}
+    del th_s, A_s, qs, E, zt, qds
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        E = dp_ops.expected_alignment(theta, A, (ln, lm),
+                                      backend="pallas_long", **kw)
+        if E.shape != (B, N, N) or not torch.isfinite(E).all():
+            raise AssertionError("len-4096 expected alignment: non-finite "
+                                 "or misshapen")
+        del E
+        decode_ms = cuda_ms(lambda: dp_ops.expected_alignment(
+            theta, A, (ln, lm), backend="pallas_long", **kw), 3)
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in ms.items():
+        log(f"phase long: {k} at ({B}, {N}, {N}) {v:.4f} ms [{card}]")
+    log(f"phase long: expected_alignment pallas_long at ({B}, {N}, {N}) nw "
+        f"softmax fp32 (skew x2 + forward_q + backward_q + unskew): "
+        f"{decode_ms:.4f} ms = {B / decode_ms * 1e3:.2f} alignments/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    del theta, A
+    torch.cuda.empty_cache()
+    return dict(ms, decode=decode_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: decode at the bench shape
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps):
@@ -676,6 +992,8 @@ def phase_bench(seed, card):
     zt = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
     za = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
     _, dxd, dmd = dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm, **kw)
+    _, *qs = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
+    _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
 
     def decode():
         t, a = dp_cuda.skew(theta), dp_cuda.skew(A)
@@ -707,6 +1025,16 @@ def phase_bench(seed, card):
             dx, dm, zt, za, ln, lm, **kw),
         "adjoint_backward": lambda: dp_cuda.adjoint_backward(
             dx, dm, dxd, dmd, E, ln, lm, **kw),
+        "forward_q": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm, **kw),
+        "backward_q": lambda: dp_cuda.backward_q(*qs, ln, lm, Et, mode="nw"),
+        "backward_q_gap": lambda: dp_cuda.backward_q(
+            *qs, ln, lm, Et, mode="nw", want_gap=True),
+        "adjoint_forward_q": lambda: dp_cuda.adjoint_forward_q(
+            *qs, zt, None, ln, lm, **kw),
+        "adjoint_forward_q_za": lambda: dp_cuda.adjoint_forward_q(
+            *qs, zt, za, ln, lm, **kw),
+        "adjoint_backward_q": lambda: dp_cuda.adjoint_backward_q(
+            *qs, *qds, E, ln, lm, mode="nw"),
     }
     plain = {
         "skew": lambda: skew(theta),
@@ -723,6 +1051,16 @@ def phase_bench(seed, card):
             dx, dm, zt, za, ln, lm, **kw),
         "adjoint_backward": lambda: dp_ref.adjoint_backward(
             dx, dm, dxd, dmd, E, ln, lm, **kw),
+        "forward_q": lambda: dp_ref.forward_q(th_s, A_s, ln, lm, **kw),
+        "backward_q": lambda: dp_ref.backward_q(*qs, ln, lm, Et, mode="nw"),
+        "backward_q_gap": lambda: dp_ref.backward_q(
+            *qs, ln, lm, Et, mode="nw", want_gap=True),
+        "adjoint_forward_q": lambda: dp_ref.adjoint_forward_q(
+            *qs, zt, None, ln, lm, **kw),
+        "adjoint_forward_q_za": lambda: dp_ref.adjoint_forward_q(
+            *qs, zt, za, ln, lm, **kw),
+        "adjoint_backward_q": lambda: dp_ref.adjoint_backward_q(
+            *qs, *qds, E, ln, lm, mode="nw"),
     }
     # The least bytes each function must move: a DP pass reads and writes
     # only the valid band (ln x lm cells per pair) of each stream, plus the
@@ -733,7 +1071,10 @@ def phase_bench(seed, card):
     per_pair = 2 * f * B + f * B
     streams = {"forward": 4, "forward_score": 2, "backward": 3,
                "backward_gap": 4, "adjoint_forward": 5,
-               "adjoint_forward_za": 6, "adjoint_backward": 7}
+               "adjoint_forward_za": 6, "adjoint_backward": 7,
+               "forward_q": 5, "backward_q": 4, "backward_q_gap": 5,
+               "adjoint_forward_q": 7, "adjoint_forward_q_za": 8,
+               "adjoint_backward_q": 9}
     nbytes = {k: n * f * band + per_pair for k, n in streams.items()}
     nbytes["skew"] = f * B * N * M + f * B * K * S
     nbytes["unskew"] = 2 * f * B * N * M
@@ -784,14 +1125,19 @@ def main():
     errs = phase_kernels(seed)
     serving, path_errs = phase_serving(seed, card)
     training, train_errs = phase_train(seed, card)
+    long_, long_errs = phase_long(seed, card)
+    long_times(seed, card)
     bench = phase_bench(seed, card)
     kernels = []
-    for k in KERNELS:
+    for k in KERNELS + Q_KERNELS:
+        checked = [d[k] for d in (errs, path_errs, train_errs, long_errs)
+                   if k in d]
+        if not checked:
+            raise AssertionError(f"{k} was never held to its plain version")
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-            launches=serving[k] + training[k],
-            max_abs_err=max(errs[k], path_errs.get(k, 0.0),
-                            train_errs.get(k, 0.0)),
+            launches=serving[k] + training[k] + long_[k],
+            max_abs_err=max(checked),
             ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
             bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
             library_ms=bench[k]["library_ms"]))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 
+from deepblast_torch.ops.dp import BACKENDS
 from deepblast_torch.train.trainer import DeepBLASTConfig
 
 __all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
@@ -38,9 +39,8 @@ UNPORTED = {
     "dp_i16_streams": ((False,), "queue A item 3 (the storage-dtype menu)"),
     "dp_decode_menu": (("default",), "queue A item 3 (the storage-dtype "
                                      "menu)"),
-    "backend": ((None,), "queue A item 4 (the pallas and pallas_long "
-                         "backends; the port runs its CUDA kernels on the "
-                         "card and their plain versions on the CPU)"),
+    "backend": (tuple(BACKENDS), "queue A item 10 (the scan backend, "
+                                 "ops/dp_scan.py)"),
     "nodes": ((1,), "queue A item 5 (data parallel)"),
     "coordinator": ((None,), "queue A item 5 (data parallel)"),
     "process_id": ((None,), "queue A item 5 (data parallel)"),
@@ -83,8 +83,12 @@ def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--operator", type=str, default="softmax",
                         choices=["softmax", "sparsemax", "hardmax"])
     parser.add_argument("--backend", type=str, default=None,
-                        help="not ported: the DP runs the CUDA kernels on "
-                             "the card and their plain versions on the CPU")
+                        choices=[*filter(None, BACKENDS), "scan"],
+                        help="DP passes (default: pallas_bm's stored "
+                             "differences); pallas and pallas_long store the "
+                             "soft-argmax streams and train pairs past the "
+                             "default kernels' limit (on an H100: S ~ 2,900 "
+                             "slots; theirs ~9,600); scan is not ported"),
     parser.add_argument("--finetune", type=bool, default=False)
     parser.add_argument("--mask-gaps", type=bool, default=True)
     parser.add_argument("--scheduler", type=str, default="cosine")
@@ -140,6 +144,7 @@ def config_from_args(args) -> DeepBLASTConfig:
         layer_type=args.layer_type,
         alignment_mode=mode,
         operator=args.operator,
+        backend=args.backend,
         lm_type=args.lm_type,
         vocab_size=args.vocab_size,
         batch_size=args.batch_size,

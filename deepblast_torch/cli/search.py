@@ -8,8 +8,9 @@ Batch formation is a single accumulator: pairs flush in input order every
 ``--batch-size``, padded to the batch maximum rounded up to
 ``--pad-multiple``.  Each output line is ``qid  dbid  score  score/(n*m)``
 with the scores rounded to 4 decimals, as the JAX package writes them.
-Scoring runs on one device (``--device``, CUDA by default); data parallel
-search is a later slice.
+Scoring runs on one device (``--device``, CUDA by default), with the DP
+backend of the checkpoint's ``config.json``; data parallel search is a
+later slice.
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ three best states by validation loss to ``<out_dir>/checkpoints/``), and
 finally writes ``model.pt``, so that
 ``deepblast_torch.train.checkpoint.load_model(out_dir)`` serves ``align``
 and the search CLI from the best checkpoint.  It runs on one device
-(``--device``, CUDA by default).  Flags of options that are not ported yet
-raise (``cli/common.py``).
+(``--device``, CUDA by default).  ``--backend pallas_long`` (or
+``pallas``) trains through the Q-stream DP kernels, which take pairs past
+the default kernels' shared-memory limit (with ``--max-len 4096``); the
+backend is kept in ``config.json``.  Flags of options that are not ported
+yet raise (``cli/common.py``).
 """
 
 from __future__ import annotations

@@ -25,6 +25,17 @@
 //   adjoint_backward_kernel<- dp_bm.py:827 adjoint_backward_bm (:756);
 //                             dp_bm_train.py:595 adjoint_backward_bm_phased
 //                             (_abwd_train_kernel :512)
+// and the Q-stream kernels of the long-sequence backends (pallas,
+// pallas_long), whose skew and unskew (skew_pallas.py:95 skew_pallas,
+// :133 unskew_pallas) are skew_kernel and unskew_kernel in this layout:
+//   forward_q_kernel       <- dp_pallas.py:223 forward_pallas (_fwd_kernel)
+//   backward_q_kernel      <- dp_pallas.py:328 backward_pallas (_bwd_kernel),
+//                             with kWantGap also _backward_v2's E (Qx + Qy)
+//   adjoint_forward_q_kernel <- dp_pallas.py:423 adjoint_forward_pallas
+//                             (_adj_fwd_kernel)
+//   adjoint_backward_q_kernel<- dp_pallas.py:548 adjoint_backward_pallas
+//                             (_adj_bwd_kernel) with _adjoint_backward_v2's
+//                             EdA
 // One kernel stands for both the phased and the monolithic TPU entry: the
 // phase windows and the mod-Mp row fold there exist because Pallas block
 // shapes are static.  The plain PyTorch versions are
@@ -54,6 +65,17 @@
 // shared memory bound its length: the adjoint backward holds 20 rows of S
 // floats (80 S bytes), so one CTA holds a pair up to S ~ 2,900 slots in the
 // 227 KB an H100 block can use.
+//
+// The Q-stream kernels lift that bound by moving a stream more: the
+// forward stores the three soft-argmax streams Q (and the adjoint forward
+// the three Qd), and the reverse passes read Q[r+1], Q[r+2] straight from
+// device memory instead of carrying recomputed Q rows in shared memory.
+// Only the value-like rows stay there: 3 x S floats in the forward, the
+// backward and the adjoint forward, 6 x S (Ed and E) in the adjoint
+// backward, so one CTA holds a pair up to S ~ 9,600 slots.  Per cell they
+// move forward 2 in / 3 out, backward 3 in / 1 or 2 out, adjoint forward
+// 4-5 in / 3 out, adjoint backward 7 in / 2 out: the same byte bound
+// regime, with one more stream per pass than the default kernels.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
@@ -425,77 +447,226 @@ __global__ void adjoint_backward_kernel(const float *__restrict__ dx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Q-stream kernels (the pallas / pallas_long backends)
+// ---------------------------------------------------------------------------
+
+// One CTA per pair, diagonals ascending, V rows r-1, r-2, r in shared
+// memory (3 x S).  The direct form of _fwd_kernel (dp_pallas.py:197-217):
+// (val, Q) = max3(A + shr(V[r-1]), shr(V[r-2]), A + V[r-1]),
+// V[r] = theta + val, masked.  Q is written for every slot (unmasked, as
+// MASK_Q = False there; finite, since V is zero outside the band).
+template <int OP>
+__global__ void forward_q_kernel(const float *__restrict__ th,
+                                 const float *__restrict__ ad,
+                                 const int *__restrict__ ln,
+                                 const int *__restrict__ lm, int K, int S,
+                                 int lo, float *__restrict__ vt,
+                                 float *__restrict__ qxo,
+                                 float *__restrict__ qmo,
+                                 float *__restrict__ qyo) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = 0; r < K; ++r) {
+    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
+    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
+    float *vn = smem + (r % 3) * S;              // row r
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float a = ad[row + s];
+      float v1s = v1[s];
+      float v1l = s > 0 ? v1[s - 1] : 0.0f;
+      float v2l = s > 0 ? v2[s - 1] : 0.0f;
+      float px, pm, py;
+      float val = max3<OP>(a + v1l, v2l, a + v1s, px, pm, py);
+      qxo[row + s] = px;
+      qmo[row + s] = pm;
+      qyo[row + s] = py;
+      float v = th[row + s] + val;
+      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
+      if (s == n && k == n + m) vt[b] = v;
+      vn[s] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// One CTA per pair, rows descending, E rows r+2, r+1, r in shared memory
+// (3 x S); Qx[r+1], Qy[r+1] and Qm[r+2] are read from the forward's
+// streams (zero past the last row, as _bwd_kernel's zero carries,
+// dp_pallas.py:270-325).  With kWantGap it also writes
+// EA[r] = E[r] (Qx[r] + Qy[r]), _backward_v2's gap product (:595-600).
+template <bool kWantGap>
+__global__ void backward_q_kernel(const float *__restrict__ qx,
+                                  const float *__restrict__ qm,
+                                  const float *__restrict__ qy,
+                                  const int *__restrict__ ln,
+                                  const int *__restrict__ lm,
+                                  const float *__restrict__ et, int K, int S,
+                                  int lo, float *__restrict__ eo,
+                                  float *__restrict__ eao) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const float e_t = et[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = K - 1; r >= 0; --r) {
+    const float *e1 = smem + ((r + 1) % 3) * S;  // row r+1
+    const float *e2 = smem + ((r + 2) % 3) * S;  // row r+2
+    float *en = smem + (r % 3) * S;              // row r
+    const bool has1 = r + 1 < K, has2 = r + 2 < K;
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    const size_t row1 = row + S, row2 = row + 2 * (size_t)S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      bool in = s + 1 < S;
+      float qx1r = (has1 && in) ? qx[row1 + s + 1] : 0.0f;
+      float qm2r = (has2 && in) ? qm[row2 + s + 1] : 0.0f;
+      float qy1 = has1 ? qy[row1 + s] : 0.0f;
+      float e1s = e1[s];
+      float e1r = in ? e1[s + 1] : 0.0f;
+      float e2r = in ? e2[s + 1] : 0.0f;
+      float e = qx1r * e1r + qm2r * e2r + qy1 * e1s;
+      e = cell_valid(s, k, n, m, lo) ? e : 0.0f;
+      if (s == n && k == n + m) e = e + e_t;
+      eo[row + s] = e;
+      en[s] = e;
+      if (kWantGap) eao[row + s] = e * (qx[row + s] + qy[row + s]);
+    }
+    __syncthreads();
+  }
+}
+
+// Tangent of the Q forward: one CTA per pair, Vd rows r-1, r-2, r in shared
+// memory (3 x S), Q of row r read from the streams; _adj_fwd_kernel's order
+// (dp_pallas.py:392-417): xd = Za + shr(Vd[r-1]), md = shr(Vd[r-2]),
+// yd = Za + Vd[r-1], Vd[r] = Zt + Qx xd + Qm md + Qy yd (masked),
+// Qd = hessian3(Q, (xd, md, yd)) written for every slot.  Without kHasZa
+// there is no Za stream (a zero gap cotangent; 0 + x = x, so it equals the
+// TPU's zeros stream).
+template <int OP, bool kHasZa>
+__global__ void adjoint_forward_q_kernel(
+    const float *__restrict__ qx, const float *__restrict__ qm,
+    const float *__restrict__ qy, const float *__restrict__ zt,
+    const float *__restrict__ za, const int *__restrict__ ln,
+    const int *__restrict__ lm, int K, int S, int lo,
+    float *__restrict__ vtd, float *__restrict__ qdxo,
+    float *__restrict__ qdmo, float *__restrict__ qdyo) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = 0; r < K; ++r) {
+    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
+    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
+    float *vn = smem + (r % 3) * S;              // row r
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float px = qx[row + s], pm = qm[row + s], py = qy[row + s];
+      float v1s = v1[s];
+      float v1l = s > 0 ? v1[s - 1] : 0.0f;
+      float md = s > 0 ? v2[s - 1] : 0.0f;
+      float xd = v1l, yd = v1s;
+      if (kHasZa) {
+        float zas = za[row + s];
+        xd = zas + v1l;
+        yd = zas + v1s;
+      }
+      float v = zt[row + s] + px * xd + pm * md + py * yd;
+      float hx, hm, hy;
+      hessian3<OP>(px, pm, py, xd, md, yd, hx, hm, hy);
+      qdxo[row + s] = hx;
+      qdmo[row + s] = hm;
+      qdyo[row + s] = hy;
+      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
+      if (s == n && k == n + m) vtd[b] = v;
+      vn[s] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// Tangent of the Q backward: one CTA per pair, rows descending, Ed and E
+// rows r+2, r+1, r in shared memory (6 x S); Q and Qd of rows r+1 and r+2
+// read from the streams (zero past the last row).  _adj_bwd_kernel's order
+// (dp_pallas.py:510-533) and _adjoint_backward_v2's fused
+// EdA = Ed (Qx + Qy) + E (Qdx + Qdy) (:603-609).
+__global__ void adjoint_backward_q_kernel(
+    const float *__restrict__ qx, const float *__restrict__ qm,
+    const float *__restrict__ qy, const float *__restrict__ qdx,
+    const float *__restrict__ qdm, const float *__restrict__ qdy,
+    const float *__restrict__ E, const int *__restrict__ ln,
+    const int *__restrict__ lm, int K, int S, int lo,
+    float *__restrict__ edo, float *__restrict__ edao) {
+  extern __shared__ float smem[];
+  float *ED = smem;
+  float *EE = smem + 3 * S;
+  const int b = blockIdx.x;
+  const int n = ln[b], m = lm[b];
+  const size_t base = (size_t)b * K * S;
+  for (int s = threadIdx.x; s < 6 * S; s += blockDim.x) smem[s] = 0.0f;
+  __syncthreads();
+  for (int r = K - 1; r >= 0; --r) {
+    const int i1 = (r + 1) % 3, i2 = (r + 2) % 3, i0 = r % 3;
+    const float *ed1 = ED + i1 * S, *ed2 = ED + i2 * S;
+    const float *e1 = EE + i1 * S, *e2 = EE + i2 * S;
+    float *edn = ED + i0 * S, *en = EE + i0 * S;
+    const bool has1 = r + 1 < K, has2 = r + 2 < K;
+    const int k = r + 2;
+    const size_t row = base + (size_t)r * S;
+    const size_t row1 = row + S, row2 = row + 2 * (size_t)S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      float t1 = 0.0f, t2 = 0.0f, qdy1 = 0.0f, qy1 = 0.0f;
+      if (has1) {
+        if (s + 1 < S)
+          t1 = qdx[row1 + s + 1] * e1[s + 1] + qx[row1 + s + 1] * ed1[s + 1];
+        qdy1 = qdy[row1 + s];
+        qy1 = qy[row1 + s];
+      }
+      if (has2 && s + 1 < S)
+        t2 = qdm[row2 + s + 1] * e2[s + 1] + qm[row2 + s + 1] * ed2[s + 1];
+      float ed = t1 + t2 + qdy1 * e1[s] + qy1 * ed1[s];
+      ed = cell_valid(s, k, n, m, lo) ? ed : 0.0f;
+      edo[row + s] = ed;
+      edn[s] = ed;
+      float e = E[row + s];
+      en[s] = e;
+      edao[row + s] = ed * (qx[row + s] + qy[row + s]) +
+                      e * (qdx[row + s] + qdy[row + s]);
+    }
+    __syncthreads();
+  }
+}
+
 int threads_for(int S) {
   int t = ((S + 31) / 32) * 32;
   return t > 1024 ? 1024 : t;
 }
 
-// Opt in to more than the default 48 KB of dynamic shared memory when the
-// rows need it (S above ~1200 slots in the backward, ~600 in the adjoint
-// backward).
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int OP, bool kStoreResiduals>
-cudaError_t launch_forward(const float *th, const float *ad, const int *ln,
-                           const int *lm, int B, int K, int S, int lo,
-                           float *vt, float *dxo, float *dmo,
-                           cudaStream_t st) {
-  size_t smem = 3 * (size_t)S * sizeof(float);
-  auto kern = forward_kernel<OP, kStoreResiduals>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<B, threads_for(S), smem, st>>>(th, ad, ln, lm, K, S, lo, vt, dxo,
-                                        dmo);
-  return cudaGetLastError();
-}
-
-template <int OP, bool kWantGap>
-cudaError_t launch_backward(const float *dx, const float *dm, const int *ln,
-                            const int *lm, const float *et, int B, int K,
-                            int S, int lo, float *eo, float *eao,
-                            cudaStream_t st) {
-  size_t smem = 10 * (size_t)S * sizeof(float);
-  auto kern = backward_kernel<OP, kWantGap>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<B, threads_for(S), smem, st>>>(dx, dm, ln, lm, et, K, S, lo, eo,
-                                        eao);
-  return cudaGetLastError();
-}
-
-template <int OP, bool kHasZa>
-cudaError_t launch_adjoint_forward(const float *dx, const float *dm,
-                                   const float *zt, const float *za,
-                                   const int *ln, const int *lm, int B, int K,
-                                   int S, int lo, float *vtd, float *dxdo,
-                                   float *dmdo, cudaStream_t st) {
-  size_t smem = 3 * (size_t)S * sizeof(float);
-  auto kern = adjoint_forward_kernel<OP, kHasZa>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<B, threads_for(S), smem, st>>>(dx, dm, zt, za, ln, lm, K, S, lo,
-                                        vtd, dxdo, dmdo);
-  return cudaGetLastError();
-}
-
-template <int OP>
-cudaError_t launch_adjoint_backward(const float *dx, const float *dm,
-                                    const float *dxd, const float *dmd,
-                                    const float *E, const int *ln,
-                                    const int *lm, int B, int K, int S,
-                                    int lo, float *edo, float *edao,
-                                    cudaStream_t st) {
-  size_t smem = 20 * (size_t)S * sizeof(float);
-  auto kern = adjoint_backward_kernel<OP>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<B, threads_for(S), smem, st>>>(dx, dm, dxd, dmd, E, ln, lm, K, S,
-                                        lo, edo, edao);
+// One CTA per pair, threads along the slots, `rows` rolling rows of S floats
+// in dynamic shared memory; opts in to more than the default 48 KB when the
+// rows need it.  ops/dp_cuda.py SMEM_ROWS holds the same row counts and
+// refuses, before the launch, a pair whose rows exceed the device's limit.
+template <typename Kern, typename... A>
+cudaError_t launch_rows(Kern kern, int rows, int B, int S, cudaStream_t st,
+                        A... args) {
+  size_t smem = (size_t)rows * S * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<B, threads_for(S), smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -506,6 +677,26 @@ int grid_for(size_t total) {
 }
 
 }  // namespace
+
+// Each operator-templated entry switches over op and returns
+// cudaErrorInvalidValue for an unknown one.
+#define DP_SWITCH_OP(...)                          \
+  switch (op) {                                    \
+    case OP_SOFTMAX: {                             \
+      constexpr int OP = OP_SOFTMAX;               \
+      return (int)(__VA_ARGS__);                   \
+    }                                              \
+    case OP_SPARSEMAX: {                           \
+      constexpr int OP = OP_SPARSEMAX;             \
+      return (int)(__VA_ARGS__);                   \
+    }                                              \
+    case OP_HARDMAX: {                             \
+      constexpr int OP = OP_HARDMAX;               \
+      return (int)(__VA_ARGS__);                   \
+    }                                              \
+    default:                                       \
+      return (int)cudaErrorInvalidValue;           \
+  }
 
 extern "C" {
 
@@ -523,22 +714,16 @@ int dp_unskew(const float *s, int B, int K, int S, int N, int M, float *out,
   return (int)cudaGetLastError();
 }
 
+// store == 0: the score-only forward (no residual stores).
 int dp_forward(const float *th, const float *ad, const int *ln, const int *lm,
                int B, int K, int S, int lo, int op, int store, float *vt,
                float *dxo, float *dmo, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DP_FWD(OP)                                                         \
-  (store ? launch_forward<OP, true>(th, ad, ln, lm, B, K, S, lo, vt, dxo,  \
-                                    dmo, st)                               \
-         : launch_forward<OP, false>(th, ad, ln, lm, B, K, S, lo, vt,      \
-                                     nullptr, nullptr, st))
-  switch (op) {
-    case OP_SOFTMAX: return (int)DP_FWD(OP_SOFTMAX);
-    case OP_SPARSEMAX: return (int)DP_FWD(OP_SPARSEMAX);
-    case OP_HARDMAX: return (int)DP_FWD(OP_HARDMAX);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DP_FWD
+  DP_SWITCH_OP(store ? launch_rows(forward_kernel<OP, true>, 3, B, S, st, th,
+                                   ad, ln, lm, K, S, lo, vt, dxo, dmo)
+                     : launch_rows(forward_kernel<OP, false>, 3, B, S, st,
+                                   th, ad, ln, lm, K, S, lo, vt,
+                                   (float *)nullptr, (float *)nullptr))
 }
 
 // eao == nullptr: E only (the decode path); else also EA = E (Qx + Qy).
@@ -546,18 +731,11 @@ int dp_backward(const float *dx, const float *dm, const int *ln,
                 const int *lm, const float *et, int B, int K, int S, int lo,
                 int op, float *eo, float *eao, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DP_BWD(OP)                                                          \
-  (eao ? launch_backward<OP, true>(dx, dm, ln, lm, et, B, K, S, lo, eo,     \
-                                   eao, st)                                 \
-       : launch_backward<OP, false>(dx, dm, ln, lm, et, B, K, S, lo, eo,    \
-                                    nullptr, st))
-  switch (op) {
-    case OP_SOFTMAX: return (int)DP_BWD(OP_SOFTMAX);
-    case OP_SPARSEMAX: return (int)DP_BWD(OP_SPARSEMAX);
-    case OP_HARDMAX: return (int)DP_BWD(OP_HARDMAX);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DP_BWD
+  DP_SWITCH_OP(eao ? launch_rows(backward_kernel<OP, true>, 10, B, S, st, dx,
+                                 dm, ln, lm, et, K, S, lo, eo, eao)
+                   : launch_rows(backward_kernel<OP, false>, 10, B, S, st,
+                                 dx, dm, ln, lm, et, K, S, lo, eo,
+                                 (float *)nullptr))
 }
 
 // za == nullptr: no gap cotangent, the kernel without a Za stream.
@@ -566,18 +744,12 @@ int dp_adjoint_forward(const float *dx, const float *dm, const float *zt,
                        int K, int S, int lo, int op, float *vtd, float *dxdo,
                        float *dmdo, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DP_AFWD(OP)                                                          \
-  (za ? launch_adjoint_forward<OP, true>(dx, dm, zt, za, ln, lm, B, K, S,    \
-                                         lo, vtd, dxdo, dmdo, st)            \
-      : launch_adjoint_forward<OP, false>(dx, dm, zt, nullptr, ln, lm, B, K, \
-                                          S, lo, vtd, dxdo, dmdo, st))
-  switch (op) {
-    case OP_SOFTMAX: return (int)DP_AFWD(OP_SOFTMAX);
-    case OP_SPARSEMAX: return (int)DP_AFWD(OP_SPARSEMAX);
-    case OP_HARDMAX: return (int)DP_AFWD(OP_HARDMAX);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DP_AFWD
+  DP_SWITCH_OP(za ? launch_rows(adjoint_forward_kernel<OP, true>, 3, B, S,
+                                st, dx, dm, zt, za, ln, lm, K, S, lo, vtd,
+                                dxdo, dmdo)
+                  : launch_rows(adjoint_forward_kernel<OP, false>, 3, B, S,
+                                st, dx, dm, zt, (const float *)nullptr, ln,
+                                lm, K, S, lo, vtd, dxdo, dmdo))
 }
 
 int dp_adjoint_backward(const float *dx, const float *dm, const float *dxd,
@@ -585,19 +757,64 @@ int dp_adjoint_backward(const float *dx, const float *dm, const float *dxd,
                         const int *lm, int B, int K, int S, int lo, int op,
                         float *edo, float *edao, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (op) {
-    case OP_SOFTMAX:
-      return (int)launch_adjoint_backward<OP_SOFTMAX>(
-          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
-    case OP_SPARSEMAX:
-      return (int)launch_adjoint_backward<OP_SPARSEMAX>(
-          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
-    case OP_HARDMAX:
-      return (int)launch_adjoint_backward<OP_HARDMAX>(
-          dx, dm, dxd, dmd, E, ln, lm, B, K, S, lo, edo, edao, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  DP_SWITCH_OP(launch_rows(adjoint_backward_kernel<OP>, 20, B, S, st, dx, dm,
+                           dxd, dmd, E, ln, lm, K, S, lo, edo, edao))
+}
+
+int dp_forward_q(const float *th, const float *ad, const int *ln,
+                 const int *lm, int B, int K, int S, int lo, int op,
+                 float *vt, float *qxo, float *qmo, float *qyo,
+                 void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  DP_SWITCH_OP(launch_rows(forward_q_kernel<OP>, 3, B, S, st, th, ad, ln, lm,
+                           K, S, lo, vt, qxo, qmo, qyo))
+}
+
+// eao == nullptr: E only; else also EA = E (Qx + Qy).
+int dp_backward_q(const float *qx, const float *qm, const float *qy,
+                  const int *ln, const int *lm, const float *et, int B, int K,
+                  int S, int lo, float *eo, float *eao, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(eao ? launch_rows(backward_q_kernel<true>, 3, B, S, st, qx, qm,
+                                 qy, ln, lm, et, K, S, lo, eo, eao)
+                   : launch_rows(backward_q_kernel<false>, 3, B, S, st, qx,
+                                 qm, qy, ln, lm, et, K, S, lo, eo,
+                                 (float *)nullptr));
+}
+
+// za == nullptr: no gap cotangent, the kernel without a Za stream.
+int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
+                         const float *zt, const float *za, const int *ln,
+                         const int *lm, int B, int K, int S, int lo, int op,
+                         float *vtd, float *qdxo, float *qdmo, float *qdyo,
+                         void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  DP_SWITCH_OP(za ? launch_rows(adjoint_forward_q_kernel<OP, true>, 3, B, S,
+                                st, qx, qm, qy, zt, za, ln, lm, K, S, lo, vtd,
+                                qdxo, qdmo, qdyo)
+                  : launch_rows(adjoint_forward_q_kernel<OP, false>, 3, B, S,
+                                st, qx, qm, qy, zt, (const float *)nullptr,
+                                ln, lm, K, S, lo, vtd, qdxo, qdmo, qdyo))
+}
+
+int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,
+                          const float *qdx, const float *qdm,
+                          const float *qdy, const float *E, const int *ln,
+                          const int *lm, int B, int K, int S, int lo,
+                          float *edo, float *edao, void *stream) {
+  return (int)launch_rows(adjoint_backward_q_kernel, 6, B, S,
+                          (cudaStream_t)stream, qx, qm, qy, qdx, qdm, qdy, E,
+                          ln, lm, K, S, lo, edo, edao);
+}
+
+// The most dynamic shared memory a block of `device` may opt in to, in
+// bytes, or -1 if the query fails.
+int dp_max_smem(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
 }
 
 }  // extern "C"

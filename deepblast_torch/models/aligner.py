@@ -11,7 +11,11 @@ into DP potentials and serves them:
   training path;
 * :meth:`score` — terminal alignment scores (``aligner.py:113-119``);
 * :meth:`decode_stream` — the expected alignment as a ``(B, K, S)`` stream
-  for the traceback (``DeepBLAST.align``'s decode).
+  for the traceback (``DeepBLAST.align``'s decode; the default backend
+  only).
+
+``backend`` names the DP passes of every call (``ops/dp.py``;
+``aligner.py:51,110,119``).
 
 ``softplus`` is ``logaddexp(x, 0)``, not ``torch.nn.functional.softplus``,
 which returns ``x`` itself above its threshold where ``jax.nn.softplus``
@@ -44,10 +48,12 @@ class NeuralAligner(nn.Module):
     def __init__(self, embedding_dim=1024, hidden_dim=1024, layers=2,
                  k_size=5, dropout=0.0, layer_type="cnn",
                  alignment_mode="needleman-wunsch", operator="softmax",
-                 device=None, dtype=None):
+                 backend=None, device=None, dtype=None):
         super().__init__()
         self.mode = _MODE_ALIASES[alignment_mode]
         self.operator = operator
+        self.backend = backend
+        dp_ops.get_backend(backend)     # an unknown name fails here
         kw = dict(embedding_dim=embedding_dim, hidden_dim=hidden_dim,
                   layers=layers, k_size=k_size, dropout=dropout,
                   device=device, dtype=dtype)
@@ -77,18 +83,21 @@ class NeuralAligner(nn.Module):
         differentiable in the heads' parameters, and the potentials."""
         theta, A = self.potentials(hx, hy, lengths, generator)
         aln = dp_ops.expected_alignment(theta, A, lengths, mode=self.mode,
-                                        operator=self.operator)
+                                        operator=self.operator,
+                                        backend=self.backend)
         return aln, theta, A
 
     def score(self, hx, hy, lengths=None):
         """Terminal alignment scores ``(B,)``."""
         theta, A = self.potentials(hx, hy, lengths)
         return dp_ops.alignment_score(theta, A, lengths, mode=self.mode,
-                                      operator=self.operator)
+                                      operator=self.operator,
+                                      backend=self.backend)
 
     def decode_stream(self, hx, hy, lengths=None):
         """Expected alignment stream ``(B, K, S)`` for
         :func:`deepblast_torch.ops.dp.traceback_stream`."""
         theta, A = self.potentials(hx, hy, lengths)
         return dp_ops.expected_alignment_stream(
-            theta, A, lengths, mode=self.mode, operator=self.operator)
+            theta, A, lengths, mode=self.mode, operator=self.operator,
+            backend=self.backend)

@@ -24,6 +24,23 @@ so ``create_graph=True`` gives the second order).  ``_Expected``'s own
 backward is ``once_differentiable``: like the JAX package, the DP goes no
 deeper than second order.
 
+The ``backend=`` keyword picks the passes, as the JAX package's backend
+registry does (``dp.py:61-166``; each backend's forward returns an opaque
+residual that only its own reverse passes read):
+
+* ``None`` or ``"pallas_bm"`` (:class:`_Residuals`): the forward stores the
+  differences Dx, Dm and the reverse passes recompute the soft argmax
+  from them; a score-only forward; a stream accessor for the traceback;
+* ``"pallas"`` or ``"pallas_long"`` (:class:`_QStreams`): the forward
+  stores the three soft-argmax streams Q and the reverse passes read them,
+  which keeps fewer rows per pair on chip, so pairs longer than the
+  default kernels take (S up to ~9,600 slots on an H100, where the default
+  adjoint backward stops at ~2,900) still run; no score-only forward
+  (:func:`alignment_score` runs the Q forward and keeps ``vt``) and no
+  stream accessor (:func:`expected_alignment_stream` raises, as
+  ``dp.py:371-373``).  The TPU's two names differ only in their
+  relayout kernels; here both use the one skew and unskew.
+
 For CUDA tensors every pass launches a kernel of ``ops/dp_cuda.py``; for
 CPU tensors it runs the plain version in ``ops/dp_ref.py``.  Any other
 device raises.
@@ -39,6 +56,8 @@ from deepblast_torch import native
 from deepblast_torch.ops import dp_cuda, dp_ref
 
 __all__ = [
+    "BACKENDS",
+    "get_backend",
     "alignment_score",
     "expected_alignment",
     "expected_alignment_stream",
@@ -55,6 +74,83 @@ def _passes(t):
     if t.device.type == "cpu":
         return dp_ref
     raise ValueError(f"no DP implementation for device {t.device}")
+
+
+class _Residuals:
+    """The default passes: residuals Dx, Dm (``ops/dp_bm.py``'s kernels)."""
+
+    stream = True
+
+    @staticmethod
+    def forward(ops, th_s, A_s, ln, lm, kw):
+        vt, dx, dm = ops.forward(th_s, A_s, ln, lm, **kw)
+        return vt, (dx, dm)
+
+    @staticmethod
+    def score(ops, th_s, A_s, ln, lm, kw):
+        return ops.forward_score(th_s, A_s, ln, lm, **kw)
+
+    @staticmethod
+    def backward(ops, aux, ln, lm, Et, kw, want_gap):
+        return ops.backward(*aux, ln, lm, Et, want_gap=want_gap, **kw)
+
+    @staticmethod
+    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw):
+        vtd, dxd, dmd = ops.adjoint_forward(*aux, zt_s, za_s, ln, lm, **kw)
+        return vtd, (dxd, dmd)
+
+    @staticmethod
+    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw):
+        return ops.adjoint_backward(*aux, *adj, E_s, ln, lm, **kw)
+
+
+class _QStreams:
+    """The long-sequence passes: stored soft-argmax streams Q and Qd
+    (``ops/dp_pallas.py``'s kernels)."""
+
+    stream = False
+
+    @staticmethod
+    def forward(ops, th_s, A_s, ln, lm, kw):
+        vt, qx, qm, qy = ops.forward_q(th_s, A_s, ln, lm, **kw)
+        return vt, (qx, qm, qy)
+
+    @staticmethod
+    def score(ops, th_s, A_s, ln, lm, kw):
+        return ops.forward_q(th_s, A_s, ln, lm, **kw)[0]
+
+    @staticmethod
+    def backward(ops, aux, ln, lm, Et, kw, want_gap):
+        return ops.backward_q(*aux, ln, lm, Et, mode=kw["mode"],
+                              want_gap=want_gap)
+
+    @staticmethod
+    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw):
+        vtd, *qd = ops.adjoint_forward_q(*aux, zt_s, za_s, ln, lm, **kw)
+        return vtd, tuple(qd)
+
+    @staticmethod
+    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw):
+        return ops.adjoint_backward_q(*aux, *adj, E_s, ln, lm,
+                                      mode=kw["mode"])
+
+
+#: the backend names the port takes, as the JAX package's ``--backend``
+BACKENDS = {None: _Residuals, "pallas_bm": _Residuals, "pallas": _QStreams,
+            "pallas_long": _QStreams}
+
+
+def get_backend(name=None):
+    """The passes of backend ``name``; raises ``ValueError`` for a name the
+    port does not have."""
+    if name in BACKENDS:
+        return BACKENDS[name]
+    if name == "scan":
+        raise ValueError('DP backend "scan" (the lax.scan oracle, '
+                         "deepblast_tpu/ops/dp_scan.py) is not ported to "
+                         "deepblast_torch yet: ROADMAP.md queue A item 10")
+    raise ValueError(f"unknown DP backend {name!r}; the port has "
+                     f"{sorted(k for k in BACKENDS if k)} and None")
 
 
 def _lengths(theta, lengths):
@@ -86,15 +182,15 @@ class _Expected(torch.autograd.Function):
     """``(theta, A, Et) -> E`` (and ``E_A`` with ``return_gap``)."""
 
     @staticmethod
-    def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap):
+    def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap, be):
         ops = _passes(theta)
         B, N, M = theta.shape
         kw = dict(mode=mode, operator=operator)
-        _, dx, dm = ops.forward(ops.skew(theta), ops.skew(A), ln, lm, **kw)
-        E_s, EA_s = ops.backward(dx, dm, ln, lm, Et, want_gap=return_gap,
-                                 **kw)
-        ctx.save_for_backward(dx, dm, E_s, ln, lm)
-        ctx.cfg = (mode, operator, return_gap)
+        _, aux = be.forward(ops, ops.skew(theta), ops.skew(A), ln, lm, kw)
+        E_s, EA_s = be.backward(ops, aux, ln, lm, Et, kw, return_gap)
+        # the backend's own residual, opaque here (the JAX "aux")
+        ctx.save_for_backward(E_s, ln, lm, *aux)
+        ctx.cfg = (mode, operator, return_gap, be)
         ctx.set_materialize_grads(False)
         E = ops.unskew(E_s, N, M)
         return (E, ops.unskew(EA_s, N, M)) if return_gap else E
@@ -102,89 +198,97 @@ class _Expected(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, Zt, Za=None):
-        dx, dm, E_s, ln, lm = ctx.saved_tensors
-        mode, operator, return_gap = ctx.cfg
-        ops = _passes(dx)
-        B, K, S = dx.shape
+        E_s, ln, lm, *aux = ctx.saved_tensors
+        mode, operator, return_gap, be = ctx.cfg
+        ops = _passes(E_s)
+        B, K, S = E_s.shape
         N, M = S - 1, K - S + 2
         # cotangents are unbounded: they go through the float skew
         if Zt is None:
-            zt_s = dx.new_zeros((B, K, S))
+            zt_s = E_s.new_zeros((B, K, S))
         else:
-            zt_s = ops.skew(Zt.to(dx.dtype).contiguous())
+            zt_s = ops.skew(Zt.to(E_s.dtype).contiguous())
         # no gap cotangent (the training decode path): the adjoint forward
         # drops the Za stream instead of streaming zeros
         za_s = None if (not return_gap or Za is None) else \
-            ops.skew(Za.to(dx.dtype).contiguous())
+            ops.skew(Za.to(E_s.dtype).contiguous())
         kw = dict(mode=mode, operator=operator)
-        vtd, dxd, dmd = ops.adjoint_forward(dx, dm, zt_s, za_s, ln, lm, **kw)
-        Ed_s, EdA_s = ops.adjoint_backward(dx, dm, dxd, dmd, E_s, ln, lm,
-                                           **kw)
+        vtd, adj = be.adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw)
+        Ed_s, EdA_s = be.adjoint_backward(ops, aux, adj, E_s, ln, lm, kw)
         # E is linear in Et, so d<cts, E>/dEt = <cts, E>/Et = vtd (the
         # adjoint forward's terminal tangent does not involve Et)
         return (ops.unskew(Ed_s, N, M), ops.unskew(EdA_s, N, M), vtd,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _Score(torch.autograd.Function):
     """``(theta, A) -> Vt``; the gradient is :class:`_Expected` itself."""
 
     @staticmethod
-    def forward(ctx, theta, A, ln, lm, mode, operator):
+    def forward(ctx, theta, A, ln, lm, mode, operator, be):
         ops = _passes(theta)
         ctx.save_for_backward(theta, A, ln, lm)
-        ctx.cfg = (mode, operator)
-        return ops.forward_score(ops.skew(theta), ops.skew(A), ln, lm,
-                                 mode=mode, operator=operator)
+        ctx.cfg = (mode, operator, be)
+        return be.score(ops, ops.skew(theta), ops.skew(A), ln, lm,
+                        dict(mode=mode, operator=operator))
 
     @staticmethod
     def backward(ctx, gVt):
         theta, A, ln, lm = ctx.saved_tensors
-        mode, operator = ctx.cfg
+        mode, operator, be = ctx.cfg
         g_theta, g_A = _Expected.apply(theta, A, gVt.contiguous(), ln, lm,
-                                       mode, operator, True)
-        return g_theta, g_A, None, None, None, None
+                                       mode, operator, True, be)
+        return g_theta, g_A, None, None, None, None, None
 
 
 def alignment_score(theta, A, lengths=None, *, mode="nw",
-                    operator="softmax"):
+                    operator="softmax", backend=None):
     """Terminal smoothed alignment score ``Vt (B,)`` of a padded batch,
     differentiable twice in ``theta`` and ``A``.
 
     ``theta``/``A``: ``(B, N, M)`` match and per-cell gap potentials;
-    ``lengths``: optional ``(ln, lm)`` true lengths (default: full)."""
+    ``lengths``: optional ``(ln, lm)`` true lengths (default: full);
+    ``backend``: see the module docstring."""
+    be = get_backend(backend)
     theta, A = _check(theta, A)
     ln, lm = _lengths(theta, lengths)
-    return _Score.apply(theta, A, ln, lm, mode, operator)
+    return _Score.apply(theta, A, ln, lm, mode, operator, be)
 
 
 def expected_alignment(theta, A, lengths=None, Et=None, *, mode="nw",
-                       operator="softmax", return_gap=False):
+                       operator="softmax", return_gap=False, backend=None):
     """Expected (posterior marginal) alignment ``E (B, N, M)`` — the
     gradient of :func:`alignment_score` scaled by ``Et`` (default ones) —
     differentiable in ``theta``, ``A`` and ``Et``.  With ``return_gap``
     also the expected gap-potential usage ``E_A = dVt/dA``: returns
     ``(E, E_A)``."""
+    be = get_backend(backend)
     theta, A = _check(theta, A)
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
     return _Expected.apply(theta, A, Et, ln, lm, mode, operator,
-                           bool(return_gap))
+                           bool(return_gap), be)
 
 
 def expected_alignment_stream(theta, A, lengths=None, Et=None, *, mode="nw",
-                              operator="softmax"):
+                              operator="softmax", backend=None):
     """Expected alignment (posterior marginals) as a ``(B, K, S)`` stream:
     skew, forward with residuals, backward.  Inference only.  Cell
     ``(i, j)`` of pair ``b`` is :func:`stream_cell` ``(E, b, i, j)``;
-    :func:`traceback_stream` walks it without a relayout."""
+    :func:`traceback_stream` walks it without a relayout.  Only the
+    default backend has it; the others raise (use
+    :func:`expected_alignment`)."""
+    be = get_backend(backend)
+    if not be.stream:
+        raise ValueError(f"backend {backend!r} has no stream-layout "
+                         "accessor; use expected_alignment")
     theta, A = _check(theta, A)
     ops = _passes(theta)
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
-    _, dx, dm = ops.forward(ops.skew(theta), ops.skew(A), ln, lm,
-                            mode=mode, operator=operator)
-    return ops.backward(dx, dm, ln, lm, Et, mode=mode, operator=operator)[0]
+    kw = dict(mode=mode, operator=operator)
+    _, aux = be.forward(ops, ops.skew(theta), ops.skew(A), ln, lm, kw)
+    return be.backward(ops, aux, ln, lm, Et, kw, False)[0]
 
 
 def stream_cell(stream, b, i, j):

@@ -16,7 +16,19 @@ TPU functions replaced (``deepblast_tpu/ops/``):
 * :func:`adjoint_forward` <- ``dp_bm.py:709`` ``adjoint_forward_bm``;
   ``dp_bm_train.py:442`` ``adjoint_forward_bm_phased`` (``za=None`` form);
 * :func:`adjoint_backward` <- ``dp_bm.py:827`` ``adjoint_backward_bm``;
-  ``dp_bm_train.py:595`` ``adjoint_backward_bm_phased``.
+  ``dp_bm_train.py:595`` ``adjoint_backward_bm_phased``;
+
+and the Q-stream passes of the long-sequence backends (``pallas``,
+``pallas_long``), whose relayouts ``skew_pallas.py:95`` ``skew_pallas`` and
+``:133`` ``unskew_pallas`` are :func:`skew` and :func:`unskew`:
+
+* :func:`forward_q` <- ``dp_pallas.py:223`` ``forward_pallas``;
+* :func:`backward_q` <- ``dp_pallas.py:328`` ``backward_pallas`` (with
+  ``want_gap`` also ``_backward_v2``'s ``E (Qx + Qy)``);
+* :func:`adjoint_forward_q` <- ``dp_pallas.py:423``
+  ``adjoint_forward_pallas``;
+* :func:`adjoint_backward_q` <- ``dp_pallas.py:548``
+  ``adjoint_backward_pallas`` (with ``_adjoint_backward_v2``'s ``EdA``).
 
 The source is compiled by ``nvcc`` for ``sm_90a`` at first use into
 ``deepblast_torch/_build/`` (keyed by the hash of source and flags), as a
@@ -26,9 +38,11 @@ Nothing here is imported or built when the module is imported.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
 launches on PyTorch's current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`LAUNCHES`.  The plain versions
-with the same signatures are in ``ops/dp_ref.py``; the wrappers never fall
-back to them.
+error, and adds one to its entry in :data:`LAUNCHES`.  A DP kernel keeps
+:data:`SMEM_ROWS` rows of S floats of one pair in shared memory; a pair
+padded past what the device allows raises a ``ValueError`` naming the
+limit before anything is launched.  The plain versions with the same
+signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
 """
 
 from __future__ import annotations
@@ -44,9 +58,10 @@ import torch
 
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "skew", "unskew",
-           "forward", "forward_score", "backward", "adjoint_forward",
-           "adjoint_backward"]
+__all__ = ["LAUNCHES", "SMEM_ROWS", "reset_launches", "build", "max_smem",
+           "skew", "unskew", "forward", "forward_score", "backward",
+           "adjoint_forward", "adjoint_backward", "forward_q", "backward_q",
+           "adjoint_forward_q", "adjoint_backward_q"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -60,10 +75,21 @@ _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 #: launches of each kernel since the last :func:`reset_launches`
 #: (``backward`` counts its launches with and without the gap output)
 LAUNCHES = {"skew": 0, "unskew": 0, "forward": 0, "forward_score": 0,
-            "backward": 0, "adjoint_forward": 0, "adjoint_backward": 0}
+            "backward": 0, "adjoint_forward": 0, "adjoint_backward": 0,
+            "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
+            "adjoint_backward_q": 0}
+
+#: rows of S floats each DP kernel keeps in shared memory (the ``rows`` of
+#: its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
+SMEM_ROWS = {"forward": 3, "forward_score": 3, "backward": 10,
+             "adjoint_forward": 3, "adjoint_backward": 20, "forward_q": 3,
+             "backward_q": 3, "adjoint_forward_q": 3, "adjoint_backward_q": 6}
+_Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
+              "adjoint_backward_q")
 
 _LIB = None
 _LOCK = threading.Lock()
+_MAX_SMEM = {}
 
 
 def reset_launches():
@@ -118,9 +144,20 @@ def _lib():
                                                i, i, p, p, p, p]
             lib.dp_adjoint_backward.argtypes = [p, p, p, p, p, p, p, i, i,
                                                 i, i, i, p, p, p]
+            lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p,
+                                         p, p]
+            lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
+                                          p]
+            lib.dp_adjoint_forward_q.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                 i, i, i, p, p, p, p, p]
+            lib.dp_adjoint_backward_q.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                  i, i, i, i, p, p, p]
+            lib.dp_max_smem.argtypes = [i]
             for fn in (lib.dp_skew, lib.dp_unskew, lib.dp_forward,
                        lib.dp_backward, lib.dp_adjoint_forward,
-                       lib.dp_adjoint_backward):
+                       lib.dp_adjoint_backward, lib.dp_forward_q,
+                       lib.dp_backward_q, lib.dp_adjoint_forward_q,
+                       lib.dp_adjoint_backward_q, lib.dp_max_smem):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -143,6 +180,59 @@ def _check_len(name, t, B, device):
             or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous int32 ({B},) tensor "
                          f"on {device}")
+
+
+def max_smem(device):
+    """The most shared memory a block may opt in to on ``device``, in
+    bytes (232,448 on an H100)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _MAX_SMEM:
+        v = _lib().dp_max_smem(index)
+        if v <= 0:
+            raise RuntimeError(f"cannot read the shared-memory limit of "
+                               f"cuda:{index}")
+        _MAX_SMEM[index] = v
+    return _MAX_SMEM[index]
+
+
+def _check_smem(name, S, device):
+    """Raise a ``ValueError`` naming the limit when one pair's rows of
+    ``name`` do not fit in a block's shared memory."""
+    limit = max_smem(device)
+    need = SMEM_ROWS[name] * S * 4
+    if need <= limit:
+        return
+    most = limit // (SMEM_ROWS[name] * 4)
+    if name in _Q_KERNELS:
+        hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
+                "queue A item 4)")
+    else:
+        q_most = limit // (max(SMEM_ROWS[k] for k in _Q_KERNELS) * 4)
+        hint = (f'backend="pallas_long" keeps fewer rows and holds pairs up '
+                f"to S = {q_most} slots")
+    raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots needs "
+                     f"{need} bytes of shared memory per block, and this "
+                     f"device allows {limit} (S <= {most} slots for this "
+                     f"kernel); {hint}")
+
+
+def _check_streams(names, streams):
+    """Each stream float32, contiguous, on the card, of the first's shape;
+    returns that shape."""
+    _check_f32(names[0], streams[0])
+    for name, t in zip(names[1:], streams[1:]):
+        _check_f32(name, t, streams[0].shape)
+    return streams[0].shape
+
+
+def _check_pass(name, shape, ln, lm, device):
+    """The lengths of a DP pass, and its rows against the device's shared
+    memory."""
+    B, K, S = shape
+    _check_len("ln", ln, B, device)
+    _check_len("lm", lm, B, device)
+    _check_smem(name, S, device)
 
 
 def _raise_on(rc, what):
@@ -188,11 +278,10 @@ def unskew(s, N, M):
 
 
 def _forward(th_s, A_s, ln, lm, mode, operator, store):
-    _check_f32("th_s", th_s)
-    _check_f32("A_s", A_s, th_s.shape)
-    B, K, S = th_s.shape
-    _check_len("ln", ln, B, th_s.device)
-    _check_len("lm", lm, B, th_s.device)
+    name = "forward" if store else "forward_score"
+    shape = _check_streams(("th_s", "A_s"), (th_s, A_s))
+    _check_pass(name, shape, ln, lm, th_s.device)
+    B, K, S = shape
     vt = torch.zeros((B,), dtype=torch.float32, device=th_s.device)
     if store:
         dx = torch.empty_like(th_s)
@@ -203,7 +292,6 @@ def _forward(th_s, A_s, ln, lm, mode, operator, store):
             MODE_BOUNDS[mode][0], _OPS[operator], int(store), _ptr(vt),
             _ptr(dx) if store else None, _ptr(dm) if store else None,
             _stream(th_s.device))
-    name = "forward" if store else "forward_score"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return (vt, dx, dm) if store else vt
@@ -225,12 +313,10 @@ def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
     """``(E, EA)``: the expected alignment stream ``E (B, K, S)`` seeded
     with ``Et``, and with ``want_gap`` the gap expectation
     ``EA = E (Qx + Qy)`` (else None)."""
-    _check_f32("Dx", dxs)
-    _check_f32("Dm", dms, dxs.shape)
-    B, K, S = dxs.shape
-    _check_f32("Et", Et, (B,))
-    _check_len("ln", ln, B, dxs.device)
-    _check_len("lm", lm, B, dxs.device)
+    shape = _check_streams(("Dx", "Dm"), (dxs, dms))
+    _check_f32("Et", Et, shape[:1])
+    _check_pass("backward", shape, ln, lm, dxs.device)
+    B, K, S = shape
     E = torch.empty_like(dxs)
     EA = torch.empty_like(dxs) if want_gap else None
     with torch.cuda.device(dxs.device):
@@ -248,14 +334,12 @@ def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
     """``(vtd (B,), Dxd, Dmd (B, K, S))``: the tangent of the forward along
     the skewed cotangents; ``za_s=None`` launches the kernel without a Za
     stream (a zero gap cotangent)."""
-    _check_f32("Dx", dxs)
-    _check_f32("Dm", dms, dxs.shape)
-    _check_f32("Zt", zt_s, dxs.shape)
+    names, streams = ("Dx", "Dm", "Zt"), (dxs, dms, zt_s)
     if za_s is not None:
-        _check_f32("Za", za_s, dxs.shape)
-    B, K, S = dxs.shape
-    _check_len("ln", ln, B, dxs.device)
-    _check_len("lm", lm, B, dxs.device)
+        names, streams = names + ("Za",), streams + (za_s,)
+    shape = _check_streams(names, streams)
+    _check_pass("adjoint_forward", shape, ln, lm, dxs.device)
+    B, K, S = shape
     vtd = torch.zeros((B,), dtype=torch.float32, device=dxs.device)
     dxd = torch.empty_like(dxs)
     dmd = torch.empty_like(dxs)
@@ -274,12 +358,10 @@ def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
                      operator="softmax"):
     """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the backward and
     the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``."""
-    _check_f32("Dx", dxs)
-    for name, t in (("Dm", dms), ("Dxd", dxds), ("Dmd", dmds), ("E", E)):
-        _check_f32(name, t, dxs.shape)
-    B, K, S = dxs.shape
-    _check_len("ln", ln, B, dxs.device)
-    _check_len("lm", lm, B, dxs.device)
+    shape = _check_streams(("Dx", "Dm", "Dxd", "Dmd", "E"),
+                           (dxs, dms, dxds, dmds, E))
+    _check_pass("adjoint_backward", shape, ln, lm, dxs.device)
+    B, K, S = shape
     Ed = torch.empty_like(dxs)
     EdA = torch.empty_like(dxs)
     with torch.cuda.device(dxs.device):
@@ -289,4 +371,85 @@ def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
             _ptr(Ed), _ptr(EdA), _stream(dxs.device))
     _raise_on(rc, "adjoint_backward")
     LAUNCHES["adjoint_backward"] += 1
+    return Ed, EdA
+
+
+def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+    """``(vt (B,), Qx, Qm, Qy (B, K, S))``: the forward storing the three
+    soft-argmax streams, Q written for every slot."""
+    shape = _check_streams(("th_s", "A_s"), (th_s, A_s))
+    _check_pass("forward_q", shape, ln, lm, th_s.device)
+    B, K, S = shape
+    vt = torch.zeros((B,), dtype=torch.float32, device=th_s.device)
+    qx, qm, qy = (torch.empty_like(th_s) for _ in range(3))
+    with torch.cuda.device(th_s.device):
+        rc = _lib().dp_forward_q(
+            _ptr(th_s), _ptr(A_s), _ptr(ln), _ptr(lm), B, K, S,
+            MODE_BOUNDS[mode][0], _OPS[operator], _ptr(vt), _ptr(qx),
+            _ptr(qm), _ptr(qy), _stream(th_s.device))
+    _raise_on(rc, "forward_q")
+    LAUNCHES["forward_q"] += 1
+    return vt, qx, qm, qy
+
+
+def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
+    """``(E, EA)``: the expected alignment stream read from the stored Q
+    streams, seeded with ``Et``, and with ``want_gap`` ``EA = E (Qx + Qy)``
+    (else None)."""
+    shape = _check_streams(("Qx", "Qm", "Qy"), (qx, qm, qy))
+    _check_f32("Et", Et, shape[:1])
+    _check_pass("backward_q", shape, ln, lm, qx.device)
+    B, K, S = shape
+    E = torch.empty_like(qx)
+    EA = torch.empty_like(qx) if want_gap else None
+    with torch.cuda.device(qx.device):
+        rc = _lib().dp_backward_q(
+            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(ln), _ptr(lm), _ptr(Et), B,
+            K, S, MODE_BOUNDS[mode][1], _ptr(E),
+            _ptr(EA) if want_gap else None, _stream(qx.device))
+    _raise_on(rc, "backward_q")
+    LAUNCHES["backward_q"] += 1
+    return E, EA
+
+
+def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
+                      operator="softmax"):
+    """``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``: the tangent of the Q
+    forward along the skewed cotangents; ``za_s=None`` launches the kernel
+    without a Za stream (a zero gap cotangent)."""
+    names, streams = ("Qx", "Qm", "Qy", "Zt"), (qx, qm, qy, zt_s)
+    if za_s is not None:
+        names, streams = names + ("Za",), streams + (za_s,)
+    shape = _check_streams(names, streams)
+    _check_pass("adjoint_forward_q", shape, ln, lm, qx.device)
+    B, K, S = shape
+    vtd = torch.zeros((B,), dtype=torch.float32, device=qx.device)
+    qdx, qdm, qdy = (torch.empty_like(qx) for _ in range(3))
+    with torch.cuda.device(qx.device):
+        rc = _lib().dp_adjoint_forward_q(
+            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(zt_s),
+            None if za_s is None else _ptr(za_s), _ptr(ln), _ptr(lm), B, K,
+            S, MODE_BOUNDS[mode][2], _OPS[operator], _ptr(vtd), _ptr(qdx),
+            _ptr(qdm), _ptr(qdy), _stream(qx.device))
+    _raise_on(rc, "adjoint_forward_q")
+    LAUNCHES["adjoint_forward_q"] += 1
+    return vtd, qdx, qdm, qdy
+
+
+def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
+    """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the Q backward and
+    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``."""
+    shape = _check_streams(("Qx", "Qm", "Qy", "Qdx", "Qdm", "Qdy", "E"),
+                           (qx, qm, qy, qdx, qdm, qdy, E))
+    _check_pass("adjoint_backward_q", shape, ln, lm, qx.device)
+    B, K, S = shape
+    Ed = torch.empty_like(qx)
+    EdA = torch.empty_like(qx)
+    with torch.cuda.device(qx.device):
+        rc = _lib().dp_adjoint_backward_q(
+            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(qdx), _ptr(qdm), _ptr(qdy),
+            _ptr(E), _ptr(ln), _ptr(lm), B, K, S, MODE_BOUNDS[mode][3],
+            _ptr(Ed), _ptr(EdA), _stream(qx.device))
+    _raise_on(rc, "adjoint_backward_q")
+    LAUNCHES["adjoint_backward_q"] += 1
     return Ed, EdA

@@ -54,6 +54,26 @@ backward, rows descending, with ``Qd[r] = hessian3(Q[r], (Dxd, Dmd, 0))``::
 The terminal seed has zero tangent, so ``Ed`` has no seed.  Dxd and Dmd are
 written for every slot, so the unmasked ``Qd`` stays finite and, like
 ``Q``, only ever multiplies a zero ``E``/``Ed`` outside the band.
+
+The Q-stream passes (``forward_q``, ``backward_q``, ``adjoint_forward_q``,
+``adjoint_backward_q``) are those of the long-sequence backends
+``pallas`` / ``pallas_long``: ``deepblast_tpu/ops/dp_pallas.py``
+``forward_pallas`` (``_fwd_kernel`` ``:197-217``), ``backward_pallas``
+(``_bwd_kernel`` ``:301-318``, with ``_backward_v2``'s gap product
+``:595-600``), ``adjoint_forward_pallas`` (``_adj_fwd_kernel``
+``:392-417``) and ``adjoint_backward_pallas`` (``_adj_bwd_kernel``
+``:510-533``, with ``_adjoint_backward_v2``'s ``EdA`` ``:603-609``), in
+their operation order.  The forward stores the three soft-argmax streams
+``Q`` instead of the differences, in the direct form::
+
+    (val, Q[r]) = max3(A[r] + shr(V[r-1]), shr(V[r-2]), A[r] + V[r-1])
+    V[r] = theta[r] + val                                      masked
+
+the backward reads ``Q`` back instead of recomputing it, the adjoint
+forward stores ``Qd = hessian3(Q, args_d)`` along the tangent arguments
+``(Za + shr(Vd[r-1]), shr(Vd[r-2]), Za + Vd[r-1])`` with
+``Vd[r] = Zt[r] + Qx xd + Qm md + Qy yd``, and the adjoint backward reads
+both.  Rows past ``K - 1`` read as zero (the TPU kernels' zero carries).
 """
 
 from __future__ import annotations
@@ -65,7 +85,8 @@ from deepblast_torch.ops import smooth
 from deepblast_torch.ops.skew import skew, unskew
 
 __all__ = ["MODE_BOUNDS", "skew", "unskew", "forward", "forward_score",
-           "backward", "adjoint_forward", "adjoint_backward"]
+           "backward", "adjoint_forward", "adjoint_backward", "forward_q",
+           "backward_q", "adjoint_forward_q", "adjoint_backward_q"]
 
 # Lower loop bounds per pass (forward, backward, adjoint_fwd, adjoint_bwd),
 # as deepblast_tpu/ops/dp_scan.py:55-58.
@@ -229,4 +250,124 @@ def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
         e2, e1 = e1, e
         qm2, qdm2 = qm1, qdm1
         (qx1, qm1, qy1), (qdx1, qdm1, qdy1) = q, qd
+    return Ed, EdA
+
+
+# ---------------------------------------------------------------------------
+# Q-stream passes (the pallas / pallas_long backends)
+# ---------------------------------------------------------------------------
+
+def _row(x, r, z):
+    """Row ``r`` of a ``(B, K, S)`` stream; zeros past its last row."""
+    return x[:, r] if r < x.shape[1] else z
+
+
+def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+    """Forward storing the soft-argmax streams: ``(vt (B,), Qx, Qm, Qy
+    (B, K, S))``, Q written for every slot.  Plain version of the
+    ``forward_q`` kernel."""
+    B, K, S = th_s.shape
+    lo = MODE_BOUNDS[mode][0]
+    slots = torch.arange(S, device=th_s.device)
+    zero = th_s.new_zeros(())
+    v1 = th_s.new_zeros((B, S))
+    v2 = v1
+    vt = th_s.new_zeros((B,))
+    qx, qm, qy = (torch.empty_like(th_s) for _ in range(3))
+    for r in range(K):
+        a = A_s[:, r]
+        val, (px, pm, py) = smooth.max3(operator, a + _shr(v1), _shr(v2),
+                                        a + v1)
+        qx[:, r], qm[:, r], qy[:, r] = px, pm, py
+        v = th_s[:, r] + val
+        valid, term = _masks(slots, r + 2, ln, lm, lo)
+        v = torch.where(valid, v, zero)
+        vt = vt + torch.where(term, v, zero).sum(1)
+        v2, v1 = v1, v
+    return vt, qx, qm, qy
+
+
+def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
+    """Expected alignment ``E (B, K, S)`` from the stored Q streams, seeded
+    with ``Et (B,)``, and with ``want_gap`` ``EA = E (Qx + Qy)`` (else
+    None).  Returns ``(E, EA)``.  Plain version of the ``backward_q``
+    kernel."""
+    B, K, S = qx.shape
+    lo = MODE_BOUNDS[mode][1]
+    slots = torch.arange(S, device=qx.device)
+    zero = qx.new_zeros(())
+    Et = Et.to(qx.dtype)[:, None]
+    z = qx.new_zeros((B, S))
+    e1 = e2 = z
+    E = torch.empty_like(qx)
+    EA = torch.empty_like(qx) if want_gap else None
+    for r in reversed(range(K)):
+        e = (_shl(_row(qx, r + 1, z) * e1) + _shl(_row(qm, r + 2, z) * e2)
+             + _row(qy, r + 1, z) * e1)
+        valid, term = _masks(slots, r + 2, ln, lm, lo)
+        e = torch.where(valid, e, zero)
+        e = e + torch.where(term, Et, zero)
+        E[:, r] = e
+        if want_gap:
+            EA[:, r] = e * (qx[:, r] + qy[:, r])
+        e2, e1 = e1, e
+    return E, EA
+
+
+def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
+                      operator="softmax"):
+    """Tangent of the Q forward along the skewed cotangents ``zt_s`` and
+    ``za_s`` (``None``: a zero gap cotangent, no Za term).  Returns
+    ``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``.  Plain version of the
+    ``adjoint_forward_q`` kernel."""
+    B, K, S = qx.shape
+    lo = MODE_BOUNDS[mode][2]
+    slots = torch.arange(S, device=qx.device)
+    zero = qx.new_zeros(())
+    vd1 = qx.new_zeros((B, S))
+    vd2 = vd1
+    vtd = qx.new_zeros((B,))
+    qdx, qdm, qdy = (torch.empty_like(qx) for _ in range(3))
+    for r in range(K):
+        q = (qx[:, r], qm[:, r], qy[:, r])
+        if za_s is None:
+            xd, yd = _shr(vd1), vd1
+        else:
+            za = za_s[:, r]
+            xd, yd = za + _shr(vd1), za + vd1
+        md = _shr(vd2)
+        vd = zt_s[:, r] + q[0] * xd + q[1] * md + q[2] * yd
+        qdx[:, r], qdm[:, r], qdy[:, r] = smooth.hessian3(operator, q,
+                                                          (xd, md, yd))
+        valid, term = _masks(slots, r + 2, ln, lm, lo)
+        vd = torch.where(valid, vd, zero)
+        vtd = vtd + torch.where(term, vd, zero).sum(1)
+        vd2, vd1 = vd1, vd
+    return vtd, qdx, qdm, qdy
+
+
+def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
+    """Tangent of the Q backward: ``(Ed, EdA)``, both ``(B, K, S)``, from
+    the Q and Qd streams and the backward's ``E``, with
+    ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``.  Plain version of the
+    ``adjoint_backward_q`` kernel."""
+    B, K, S = qx.shape
+    lo = MODE_BOUNDS[mode][3]
+    slots = torch.arange(S, device=qx.device)
+    zero = qx.new_zeros(())
+    z = qx.new_zeros((B, S))
+    ed1 = ed2 = e1 = e2 = z
+    Ed = torch.empty_like(qx)
+    EdA = torch.empty_like(qx)
+    for r in reversed(range(K)):
+        ed = (_shl(_row(qdx, r + 1, z) * e1 + _row(qx, r + 1, z) * ed1)
+              + _shl(_row(qdm, r + 2, z) * e2 + _row(qm, r + 2, z) * ed2)
+              + _row(qdy, r + 1, z) * e1 + _row(qy, r + 1, z) * ed1)
+        valid, _ = _masks(slots, r + 2, ln, lm, lo)
+        ed = torch.where(valid, ed, zero)
+        Ed[:, r] = ed
+        e = E[:, r]
+        EdA[:, r] = ed * (qx[:, r] + qy[:, r]) + e * (qdx[:, r] + qdy[:, r])
+        ed2, ed1 = ed1, ed
+        e2, e1 = e1, e
     return Ed, EdA

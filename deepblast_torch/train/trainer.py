@@ -12,7 +12,8 @@ serves the entry points of the JAX package:
   checkpoints (``trainer.py:485-629``);
 * :meth:`DeepBLAST.align` — one pair of strings -> alignment state string
   (``trainer.py:704-736``: potentials -> expected-alignment stream ->
-  traceback walk on the stream);
+  traceback walk on the stream; for a backend without a stream accessor,
+  the natural expected alignment -> traceback);
 * :meth:`DeepBLAST.score_pairs` — a padded batch -> alignment scores
   (``trainer.py:738-749``), the search path.
 
@@ -68,6 +69,7 @@ class DeepBLASTConfig:
     layer_type: str = "cnn"
     alignment_mode: str = "needleman-wunsch"
     operator: str = "softmax"
+    backend: Optional[str] = None   # DP passes: None/pallas_bm, pallas(_long)
     lm_type: str = "embed"          # embed | prot_t5
     vocab_size: int = 32
     # optimisation
@@ -153,6 +155,7 @@ class DeepBLAST:
             layer_type=config.layer_type,
             alignment_mode=config.alignment_mode,
             operator=config.operator,
+            backend=config.backend,
             device=self.device,
         ).eval()
         self.loss_fn = get_loss(config.loss)
@@ -207,7 +210,9 @@ class DeepBLAST:
     @torch.no_grad()
     def align(self, x: str, y: str) -> str:
         """Alignment of two residue strings as a TM-align state string
-        (``1`` gap in y, ``:`` match, ``2`` gap in x)."""
+        (``1`` gap in y, ``:`` match, ``2`` gap in x), with the aligner in
+        eval mode (no dropout), as the JAX package's deterministic apply."""
+        self.aligner.eval()
         x_tok, _ = self.tokenizer(x)
         y_tok, _ = self.tokenizer(y)
         batch = self._as_batch(dict(
@@ -215,15 +220,21 @@ class DeepBLAST:
             x_len=np.asarray([len(x_tok)], np.int32),
             y_len=np.asarray([len(y_tok)], np.int32)))
         hx, hy = self._embeddings(batch)
-        E = self.aligner.decode_stream(hx, hy,
-                                       (batch["x_len"], batch["y_len"]))
-        states = dp_ops.traceback_stream(E, len(x_tok), len(y_tok), 0)
+        lengths = (batch["x_len"], batch["y_len"])
+        if dp_ops.get_backend(self.config.backend).stream:
+            E = self.aligner.decode_stream(hx, hy, lengths)
+            states = dp_ops.traceback_stream(E, len(x_tok), len(y_tok), 0)
+        else:
+            aln, _, _ = self.aligner(hx, hy, lengths)
+            states = dp_ops.traceback(aln[0])
         return "".join(revstate_f(s) for _, _, s in states)
 
     @torch.no_grad()
     def score_pairs(self, batch):
         """Alignment scores ``(B,)`` float32 of a padded batch with keys
-        ``x``, ``y`` (token ids) and ``x_len``, ``y_len``."""
+        ``x``, ``y`` (token ids) and ``x_len``, ``y_len``; the aligner in
+        eval mode."""
+        self.aligner.eval()
         batch = self._as_batch(batch)
         hx, hy = self._embeddings(batch)
         return self.aligner.score(hx, hy, (batch["x_len"], batch["y_len"]))

@@ -13,6 +13,10 @@ forward (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) rtol 1e-4 / atol
 only transcendental ulps can differ); tracebacks identical; autograd
 through the kernels = through the plain passes on the card (same
 tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
+The Q-stream kernels of the ``pallas_long`` backend are held to the same
+checks (``chip_smoke.check_q_kernels``), also past the default kernels'
+shared-memory limit, where the default backend must refuse with an error
+that names the limit.
 """
 
 import numpy as np
@@ -125,3 +129,76 @@ def test_wrappers_check_inputs(cuda):
         dp_cuda.adjoint_forward(s, s, s[:1], None, n, n)
     with pytest.raises(TypeError, match="float32"):
         dp_cuda.adjoint_backward(s, s, s, s, s.double(), n, n)
+
+
+@pytest.mark.parametrize("B,N,M", [(3, 24, 17), (5, 130, 70)])
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_q_kernels_match_plain(cuda, B, N, M, mode, operator):
+    """chip_smoke's Q kernel check (outputs over NaN-filled memory, every
+    Q kernel against its plain version, tracebacks) at these shapes."""
+    theta, A, ln, lm = _problem(B * N + M + 1, B, N, M, cuda)
+    errs = {}
+    chip_smoke.check_q_kernels(theta, A, ln, lm, mode, operator, errs)
+    assert set(errs) == set(chip_smoke.Q_KERNELS)
+
+
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+def test_autograd_through_q_kernels(cuda, mode):
+    theta, A, ln, lm = _problem(13, 3, 40, 29, cuda)
+    errs = {}
+    chip_smoke.check_autograd(theta, A, ln, lm, mode, "softmax", errs,
+                              backend="pallas_long")
+    assert errs["autograd"] == 0.0
+
+
+def test_q_kernels_past_the_default_limit(cuda):
+    """S = 3,001 slots: the Q kernels (at most 6 rows, 72 KB) run and equal
+    their plain versions; the default adjoint backward (20 rows, 240 KB)
+    exceeds an H100 block's 227 KB, and training through the default
+    backend raises the limit error naming backend="pallas_long"."""
+    theta, A, ln, lm = _problem(17, 2, 3000, 40, cuda)
+    errs = {}
+    chip_smoke.check_q_kernels(theta, A, ln, lm, "nw", "softmax", errs)
+    assert set(errs) == set(chip_smoke.Q_KERNELS)
+    t = theta.clone().requires_grad_()
+    with pytest.raises(ValueError, match=r'S = 3001 .*S <= 2905 .*'
+                                         r'backend="pallas_long"'):
+        dp_ops.expected_alignment(t, A, (ln, lm)).sum().backward()
+    t = theta.clone().requires_grad_()
+    E = dp_ops.expected_alignment(t, A, (ln, lm), backend="pallas_long")
+    E.sum().backward()
+    assert torch.isfinite(t.grad).all()
+
+
+def test_q_kernels_refuse_past_their_limit(cuda):
+    """S = 9,801 slots: more than the adjoint backward's 6 rows fit; every
+    Q kernel checks before launching, and the error names the limit and
+    the ROADMAP item."""
+    x = torch.zeros((1, 9800, 2), device=cuda)
+    s = dp_cuda.skew(x)
+    n = torch.tensor([9800], dtype=torch.int32, device=cuda)
+    m = torch.tensor([2], dtype=torch.int32, device=cuda)
+    _, *qs = dp_cuda.forward_q(s, s, n, m)
+    with pytest.raises(ValueError, match=r"adjoint_backward_q.*S = 9801 "
+                                         r".*S <= 968\d .*ROADMAP"):
+        dp_cuda.adjoint_backward_q(*qs, *qs, s, n, m)
+
+
+def test_q_wrappers_check_inputs(cuda):
+    x = torch.zeros((2, 5, 4), device=cuda)
+    s = dp_cuda.skew(x)
+    n = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        dp_cuda.forward_q(s, s[:1], n, n)
+    with pytest.raises(ValueError, match="int32"):
+        dp_cuda.backward_q(s, s, s, n.long(), n, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        dp_cuda.backward_q(s, s, s, n, n, torch.ones(3, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        dp_cuda.adjoint_forward_q(s, s, s, s, s.double(), n, n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dp_cuda.adjoint_backward_q(s, s, s, s, s, s, s.cpu(), n, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_cuda.forward_q(s.transpose(1, 2).contiguous().transpose(1, 2),
+                          s, n, n)

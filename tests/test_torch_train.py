@@ -1,8 +1,10 @@
 """The port's training slice on the CPU against the JAX package: losses,
 schedules, datasets and batching, state and ROC helpers, the trainer's
 trajectory from the same init on the same data; the checkpointer,
-``cli.train`` -> ``load_model`` -> ``align``, and the flags the port
-rejects.
+``cli.train`` -> ``load_model`` -> ``align`` (default and
+``--backend pallas_long``), ``config.json`` round trips of the backend
+(the port's own and the JAX package's), the aligner's eval mode after
+``fit``, and the flags the port rejects.
 
 Tolerances: losses atol 1e-12 (fp64, the same reductions); schedules
 rtol 1e-6 (triangular: the JAX version computes in float32); datasets
@@ -24,9 +26,11 @@ from deepblast_torch.data import state_utils as tsu
 from deepblast_torch.eval import score as tscore
 from deepblast_torch.models.convert import params_from_jax
 from deepblast_torch.models.heads import StackedCNN
+from deepblast_torch.ops import dp_ref
 from deepblast_torch.train import losses as tlosses
 from deepblast_torch.train import trainer as ttrainer
-from deepblast_torch.train.checkpoint import Checkpointer, load_model
+from deepblast_torch.train.checkpoint import (Checkpointer, load_model,
+                                              save_config)
 from deepblast_torch.train.schedules import make_schedule as tsched
 from deepblast_tpu.data import dataset as jds
 from deepblast_tpu.data import state_utils as jsu
@@ -272,7 +276,7 @@ def test_cli_train_then_load_model_aligns(tmp_path):
                                   ["--steps-per-dispatch", "8"],
                                   ["--layer-type", "rnn"],
                                   ["--lm-type", "bilstm"],
-                                  ["--backend", "pallas_bm"]])
+                                  ["--backend", "scan"]])
 def test_cli_train_rejects_unported_flags(tmp_path, flag):
     with pytest.raises(ValueError, match="not ported.*ROADMAP.md"):
         ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
@@ -284,3 +288,88 @@ def test_cli_train_needs_cuda_unless_told(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
                      "-o", str(tmp_path)])
+
+
+def _count_calls(monkeypatch, module, name):
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*a, **k):
+        calls.append(name)
+        return fn(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_cli_train_pallas_long_then_load_model_aligns(tmp_path, monkeypatch):
+    """``--backend pallas_long`` trains through the Q passes, lands in
+    config.json, and the loaded model aligns and scores through them."""
+    train, valid = tmp_path / "train.tsv", tmp_path / "valid.tsv"
+    _write_tsv(train, fixture_frame(n_rows=8, seed=1))
+    _write_tsv(valid, fixture_frame(n_rows=4, seed=2))
+    out = tmp_path / "out"
+    calls = _count_calls(monkeypatch, dp_ref, "adjoint_backward_q")
+    assert ttrain.main([
+        "--train-pairs", str(train), "--valid-pairs", str(valid),
+        "-o", str(out), "--embedding-dim", "16", "--hidden-dim", "16",
+        "--batch-size", "4", "--epochs", "2", "--max-len", "64",
+        "--learning-rate", "5e-3", "--device", "cpu",
+        "--backend", "pallas_long"]) == 0
+    assert len(calls) == 4      # 2 steps x 2 epochs, each one Q gradient
+    with open(out / "config.json") as f:
+        assert json.load(f)["backend"] == "pallas_long"
+    model = load_model(str(out), device="cpu")
+    assert model.aligner.backend == "pallas_long"
+    fwd = _count_calls(monkeypatch, dp_ref, "forward_q")
+    for x, y in (("ACDEFGHIKL", "ACDFGHIKLM"), ("MKTAYIAK", "MKTAYK")):
+        s = model.align(x, y)
+        assert s.count(":") + s.count("1") == len(x)
+        assert s.count(":") + s.count("2") == len(y)
+    tok = [model.tokenizer(q)[0] for q in ("ACDEFG", "MKTAY")]
+    batch = dict(x=np.stack([np.pad(tok[0], (0, 2)), np.pad(tok[1], (0, 3))]),
+                 y=np.stack([np.pad(tok[1], (0, 3)), np.pad(tok[0], (0, 2))]),
+                 x_len=np.array([6, 5]), y_len=np.array([5, 6]))
+    assert torch.isfinite(model.score_pairs(batch)).all()
+    assert len(fwd) == 3
+
+
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_config_json_carries_the_backend(tmp_path, monkeypatch, source):
+    """The backend round-trips through config.json, and a JAX package's
+    config.json with ``"backend": "pallas_long"`` loads into the port and
+    selects the Q passes."""
+    if source == "port":
+        save_config(ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(
+            backend="pallas_long", **TINY), device="cpu"), str(tmp_path))
+    else:
+        os.makedirs(tmp_path, exist_ok=True)
+        with open(tmp_path / "config.json", "w") as f:
+            f.write(jtrainer.DeepBLASTConfig(backend="pallas_long",
+                                             **TINY).to_json())
+    model = load_model(str(tmp_path), device="cpu")
+    assert model.config.backend == model.aligner.backend == "pallas_long"
+    calls = _count_calls(monkeypatch, dp_ref, "backward_q")
+    model.align("ACDEFGHIKL", "ACDFGHIKLM")
+    assert calls == ["backward_q"]
+
+
+def test_align_and_score_pairs_run_in_eval_mode():
+    """After ``fit`` without a validation set the aligner was left in
+    train mode, so ``align`` and ``score_pairs`` drew dropout masks; the
+    JAX package applies the aligner deterministically there."""
+    model = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(
+        **dict(TINY, dropout=0.5, epochs=1)), device="cpu").init()
+    model.fit(tds.TMAlignDataset(_rows(fixture_frame(n_rows=4, seed=1))))
+    assert model.aligner.training
+    tok = model.tokenizer("ACDEFGHIKLMNPQ")[0]
+    batch = dict(x=tok[None], y=tok[None], x_len=np.array([len(tok)]),
+                 y_len=np.array([len(tok)]))
+    first = model.score_pairs(batch)
+    assert not model.aligner.training
+    model.aligner.train()
+    assert torch.equal(model.score_pairs(batch), first)
+    model.aligner.train()
+    x, y = "ACDEFGHIKLMNPQ", "ACDFGHIKLMNPQR"
+    assert model.align(x, y) == model.align(x, y)
+    assert not model.aligner.training
