@@ -22,15 +22,23 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              ``alignment_score`` (two orders) and ``expected_alignment``
              through the kernels = through the plain passes on the card
              (same tolerance) and = on the CPU (each output to 1e-4 of its
-             largest magnitude, see ``check_autograd``).
+             largest magnitude, see ``check_autograd``).  Then every
+             storage form (``MENUS``: bf16 and int16 inputs, bf16
+             residuals, bf16 and int16 expectations, bf16 cotangents) of
+             every default kernel, and the pair skew, against the plain
+             passes under the same menu (``check_menu_kernels``: the
+             relayouts exactly, the pair = two single skews, stored values
+             as float32 to the same tolerance).
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
              of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
              ``save_model`` and the search CLI on an 8 x 4 FASTA.  Kernel
              launch counters are zeroed just before and read just after;
-             every kernel of the path must have run.  Then every kernel is
-             held against its plain version again at the potentials this
-             path produced.
+             every kernel of the path must have run.  The default config
+             runs bf16 residuals (``dp_bf16_residuals="auto"``).  Then
+             every kernel is held against its plain version again at the
+             potentials this path produced, in float32 and under the
+             path's menu.
 4. train   — ``python -m deepblast_torch.cli.train`` in-process, ProtT5-XL
              + CNN-1024 (the ``deepblast-train`` defaults: dropout 0.5, NW,
              softmax, cross entropy, cosine schedule, clip 10, lr 5e-5) on
@@ -43,7 +51,10 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              3 checkpoints, ``load_model`` serves ``align``.  Then every
              kernel, and autograd through them, is held against its plain
              version (and the CPU) at the trained model's potentials of the
-             longest training batch (8, 992, 1024).  The whole run's
+             longest training batch (8, 992, 1024), in float32 and under
+             the run's menu (bf16 residuals: the default flags resolve
+             ``--dp-bf16-residuals auto`` to on, as deepblast-train does;
+             checked).  The whole run's
              time, the intervals between the ``train_loss`` records of
              its own ``metrics.jsonl``, and peak device memory.
 5. long    — the long-sequence backend (``pallas_long``: the Q-stream
@@ -69,7 +80,23 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              4096 (``scripts/bench_len4096.py``'s shape): each Q kernel and
              the ``pallas_long`` expected alignment (alignments/s), and
              peak device memory.
-6. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
+6. menu    — the storage menu's own path:
+             ``cli.train --dp-i16-streams --dp-decode-menu fast`` at
+             ProtT5-XL + CNN-1024, 32 + 8 pairs, batch 16, 1 epoch, then
+             ``load_model`` -> ``align`` x2 and ``score_pairs``: launch
+             counts show theta/A through ``skew_pair`` only (the single
+             skew runs for the training cotangent alone), the menus are
+             (int16 / bf16 / int16) and (-, bf16, int16); every kernel
+             instance of both menus, and autograd, = plain at a training
+             batch (and autograd = CPU to ``MENU_CPU_RTOL`` of scale).  Then the decode under bf16 residuals and under the
+             fast menu against float32 storage on the card, on the JAX
+             package's own data and at its own gates (``menu_accuracy``:
+             tests/test_bf16_streams.py at (4, 48, 40), E error < 5e-3 and
+             every pair's traceback agreement >= 0.97;
+             scripts/bench_check.py on 16 pairs of (256, 512, 512), E
+             error < 1e-2 and mean agreement > 0.97; the fast stream walk
+             against the natural one, mean >= 0.995).
+7. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
              time (CUDA events), the plain version's time, alignments/s,
              and each kernel's bound (bytes over 3.35 TB/s, flops over
              67 TFLOP/s fp32; H100 SXM data sheet), counting the valid
@@ -77,7 +104,12 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              the unskew's library time is one strided ``clone``; then the
              training kernels at the same shape and one whole
              differentiable DP step (``expected_alignment`` + ``backward()``
-             of a cross entropy); the Q kernels at the same shape.
+             of a cross entropy); the Q kernels at the same shape.  Then
+             every kernel's storage forms (time, plain time, and the bound
+             from the bytes each form's streams move: 2 bytes a bf16 or
+             int16 value), and in turns the decode in float32 / bf16
+             residuals / the fast menu, the DP step in float32 / bf16
+             residuals, and the pair skew against two single skews.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,19 +131,27 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 SOURCE = "deepblast_torch/csrc/dp_kernels.cu"
-KERNELS = ("skew", "unskew", "forward", "forward_score", "backward",
-           "adjoint_forward", "adjoint_backward")
+KERNELS = ("skew", "skew_pair", "unskew", "forward", "forward_score",
+           "backward", "adjoint_forward", "adjoint_backward")
 Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
              "adjoint_backward_q")
 OPERATORS = ("softmax", "sparsemax", "hardmax")
 LONG_LEN = 4096
-SERVING_KERNELS = ("skew", "forward", "forward_score", "backward")
-TRAIN_KERNELS = ("skew", "unskew", "forward", "backward", "adjoint_forward",
-                 "adjoint_backward")
+SERVING_KERNELS = ("skew_pair", "forward", "forward_score", "backward")
+TRAIN_KERNELS = ("skew", "skew_pair", "unskew", "forward", "backward",
+                 "adjoint_forward", "adjoint_backward")
+# card-vs-CPU limit (of each output's largest magnitude) under a storage
+# menu that rounds: the card and the CPU round float32 values that can
+# differ in the last bit, and now and then one to the neighbouring bf16
+# value (2^-8 apart); 4.5e-7 and 1.9e-4 of scale were read on an H100
+# under bf16 residuals and int16 inputs, and a lost menu or a wrong pass
+# moves an output by more than 1e-2 of scale
+MENU_CPU_RTOL = 2e-3
 # every TPU pallas_call site each kernel stands for
 REPLACES = {
     "skew": ["deepblast_tpu/ops/skew_bm.py:195",
              "deepblast_tpu/ops/skew_pallas.py:95"],
+    "skew_pair": ["deepblast_tpu/ops/skew_bm.py:243"],
     "unskew": ["deepblast_tpu/ops/skew_bm.py:321",
                "deepblast_tpu/ops/skew_pallas.py:133"],
     "forward": ["deepblast_tpu/ops/dp_bm.py:1082",
@@ -132,12 +172,26 @@ REPLACES = {
 }
 # fp32 operations per cell of the slot loop (softmax; the other operators
 # are of the same order), for the operations side of each bound
-FLOPS_PER_CELL = {"skew": 0, "unskew": 0, "forward": 20,
+FLOPS_PER_CELL = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 20,
                   "forward_score": 20, "backward": 24, "backward_gap": 27,
                   "adjoint_forward": 28, "adjoint_forward_za": 29,
                   "adjoint_backward": 45, "forward_q": 22, "backward_q": 5,
                   "backward_q_gap": 7, "adjoint_forward_q": 17,
                   "adjoint_forward_q_za": 19, "adjoint_backward_q": 16}
+
+
+# Storage menus (deepblast_torch/ops/menu.py) whose kernel instances the
+# smoke holds against the plain passes: between them every storage form
+# the kernels take (inputs float32/bf16/int16, residuals float32/bf16,
+# E float32/bf16 and the decode's int16, cotangents float32/bf16).
+MENUS = {
+    "d_bf16": dict(d="bfloat16"),                    # the training default
+    "fast": dict(d="bfloat16", e="int16"),           # --dp-decode-menu fast
+    "i16": dict(stream="int16", e="int16"),          # --dp-i16-streams
+    "i16_d_bf16": dict(stream="int16", d="bfloat16", e="int16"),
+    "bf16": dict(stream="bfloat16", d="bfloat16", e="bfloat16"),
+    "bf16_in_e": dict(stream="bfloat16", e="bfloat16"),
+}
 
 
 def log(msg):
@@ -210,8 +264,11 @@ def phase_build():
 
 def _poison(*tensors):
     """Fill freed allocator blocks of the outputs' sizes with NaN, so a
-    kernel output allocated with torch.empty starts as NaN garbage."""
-    junk = [torch.full_like(t, float("nan")) for t in tensors]
+    kernel output allocated with torch.empty starts as NaN garbage (an
+    int16 output as bf16 NaN bits, 32704)."""
+    junk = [torch.full_like(t, float("nan"), dtype=t.dtype
+                            if t.is_floating_point() else torch.bfloat16)
+            for t in tensors]
     del junk
 
 
@@ -238,7 +295,12 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
         raise AssertionError("skew: kernel differs from the plain relayout")
     if not torch.equal(dp_cuda.skew(A), A_s):
         raise AssertionError("skew: kernel differs from the plain relayout")
+    pair = dp_cuda.skew_pair(theta, A)
+    if not (torch.equal(pair[0], th_s) and torch.equal(pair[1], A_s)):
+        raise AssertionError("skew_pair: kernel differs from two skews")
     errs.setdefault("skew", 0.0)
+    errs.setdefault("skew_pair", 0.0)
+    del pair
 
     vt_p, dx_p, dm_p = dp_ref.forward(th_s, A_s, ln, lm, **kw)
     _poison(dx_p, dm_p)
@@ -305,6 +367,111 @@ def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     _close("adjoint_backward", EdA_k, EdA_p, errs)
 
 
+def _wide(t):
+    """A stored stream as float32 values: bf16 widened, int16 E
+    dequantized (the unskew's and the traceback's reading)."""
+    if t.dtype == torch.int16:
+        return t.float() / 32767.0
+    return t.float()
+
+
+def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
+    """Every kernel instance of one storage menu against its plain version
+    on the same inputs, outputs over NaN-filled memory: the skew and the
+    pair skew to the menu's stream type (exactly, and the pair = two
+    singles), the forward (Vt, Dx, Dm) and the score-only forward, the
+    backward with the gap output (training E) and without it (the decode's
+    E, int16 under an int16 ``e``), the unskew of each E (exactly), the
+    adjoint forward with and without Za on cotangents of the menu's
+    cotangent type, the adjoint backward; tracebacks of the decode's E
+    identical.  Stored values compared as float32 (int16 E in units of
+    1/32767), to RTOL / ATOL."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew, unskew
+    B, N, M = theta.shape
+    kw = dict(mode=mode, operator=operator, dtypes=menu)
+    sdt, scale = menu.stream_dtype, menu.stream_scale
+    th_s, A_s = skew(theta, sdt, scale), skew(A, sdt, scale)
+    _poison(th_s, A_s)
+    th_k, A_k = dp_cuda.skew(theta, sdt, scale), dp_cuda.skew(A, sdt, scale)
+    pair = dp_cuda.skew_pair(theta, A, sdt, scale)
+    for got, want in ((th_k, th_s), (A_k, A_s), (pair[0], th_k),
+                      (pair[1], A_k)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"skew / skew_pair ({sdt}): kernel differs "
+                                 "from the plain relayout")
+    errs.setdefault("skew", 0.0)
+    errs.setdefault("skew_pair", 0.0)
+    del th_k, A_k, pair
+
+    vt_p, dx_p, dm_p = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    _poison(dx_p, dm_p)
+    vt_k, dx_k, dm_k = dp_cuda.forward(th_s, A_s, ln, lm, **kw)
+    for got, want in ((vt_k, vt_p), (dx_k, dx_p), (dm_k, dm_p)):
+        if got.dtype != want.dtype:
+            raise AssertionError(f"forward stores {got.dtype}, the plain "
+                                 f"version {want.dtype}")
+        _close("forward", _wide(got), _wide(want), errs)
+    del dx_k, dm_k
+    _close("forward_score", dp_cuda.forward_score(th_s, A_s, ln, lm, **kw),
+           dp_ref.forward_score(th_s, A_s, ln, lm, **kw), errs)
+
+    Et = torch.ones_like(vt_p)
+    for decode in (False, True):
+        E_p, EA_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et,
+                                    want_gap=not decode, decode=decode, **kw)
+        _poison(E_p, *([] if decode else [EA_p]))
+        E_k, EA_k = dp_cuda.backward(dx_p, dm_p, ln, lm, Et,
+                                     want_gap=not decode, decode=decode,
+                                     **kw)
+        if E_k.dtype != E_p.dtype:
+            raise AssertionError(f"backward stores {E_k.dtype}, the plain "
+                                 f"version {E_p.dtype}")
+        _close("backward", _wide(E_k), _wide(E_p), errs)
+        if not decode:
+            _close("backward", _wide(EA_k), _wide(EA_p), errs)
+            E_train = E_p
+        u_p = unskew(E_p, N, M)
+        _poison(u_p)
+        if not torch.equal(dp_cuda.unskew(E_p, N, M), u_p):
+            raise AssertionError(f"unskew of a {E_p.dtype} stream differs "
+                                 "from the plain relayout")
+        errs.setdefault("unskew", 0.0)
+    E_kh, E_ph = E_k.cpu(), E_p.cpu()
+    del E_k, EA_k, EA_p
+    for b, (n, m) in enumerate(zip(ln.tolist(), lm.tolist())):
+        if dp_ops.traceback_stream(E_kh, n, m, b) != \
+                dp_ops.traceback_stream(E_ph, n, m, b):
+            raise AssertionError(f"traceback of pair {b} differs")
+
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(B * N + M)
+    cdt = menu.cotangent_dtype
+    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
+                cdt)
+    za_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
+                cdt)
+    for za in (None, za_s):
+        vtd_p, dxd_p, dmd_p = dp_ref.adjoint_forward(dx_p, dm_p, zt_s, za, ln,
+                                                     lm, **kw)
+        _poison(dxd_p, dmd_p)
+        out_k = dp_cuda.adjoint_forward(dx_p, dm_p, zt_s, za, ln, lm, **kw)
+        for got, want in zip(out_k, (vtd_p, dxd_p, dmd_p)):
+            _close("adjoint_forward", _wide(got), _wide(want), errs)
+        del out_k
+    Ed_p, EdA_p = dp_ref.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E_train,
+                                          ln, lm, **kw)
+    _poison(Ed_p, EdA_p)
+    Ed_k, EdA_k = dp_cuda.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E_train,
+                                           ln, lm, **kw)
+    if Ed_k.dtype != Ed_p.dtype:
+        raise AssertionError(f"adjoint backward stores {Ed_k.dtype}, the "
+                             f"plain version {Ed_p.dtype}")
+    _close("adjoint_backward", _wide(Ed_k), _wide(Ed_p), errs)
+    _close("adjoint_backward", _wide(EdA_k), _wide(EdA_p), errs)
+
+
 def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
     """Every Q-stream kernel against its plain version on the same inputs
     (outputs over NaN-filled memory): the forward (Vt, Qx, Qm, Qy), the
@@ -369,7 +536,7 @@ FIRST_ORDER = (0, 1, 2, 5, 6)
 
 
 def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
-                   cpu_second_order=True):
+                   cpu_second_order=True, dtypes=None):
     """``torch.autograd.grad`` through the dispatcher on the card (the
     kernels of ``backend``) against the same calls with the plain passes,
     on the card and on CPU copies: ``alignment_score`` to first and second
@@ -386,10 +553,17 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
     (relative to scale) is recorded as ``autograd_cpu_second_order``: over
     thousands of dependent diagonals two correct fp32 runs part by more
     than 1e-4 of scale (fp32 against fp64 on the CPU, both backends:
-    ~3e-4 of scale at length 1,000, scripts/torch_dp_fp32_error.py)."""
+    ~3e-4 of scale at length 1,000, scripts/torch_dp_fp32_error.py).
+
+    Under a storage menu (``dtypes``) that rounds the residuals or the
+    inputs, the card and the CPU round float32 values that differ in the
+    last bit, and now and then one of them to the neighbouring bf16 value
+    (2^-8 apart): the CPU deviation is then recorded as
+    ``autograd_cpu_menu`` and held to ``MENU_CPU_RTOL`` of scale; the card
+    = the plain passes on the card is held as without a menu."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_ref
-    kw = dict(mode=mode, operator=operator, backend=backend)
+    kw = dict(mode=mode, operator=operator, backend=backend, dtypes=dtypes)
     g = torch.Generator(device=theta.device)
     g.manual_seed(1)
     Zt = torch.randn(theta.shape, generator=g, device=theta.device)
@@ -421,11 +595,15 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
         _close("autograd", k, p, errs)
         err = (k.cpu() - c).abs().max().item()
         scale = c.abs().max().item()
-        gated = cpu_second_order or i in FIRST_ORDER
-        key = "autograd_cpu" if gated else "autograd_cpu_second_order"
+        if dtypes is not None:
+            key, rtol = "autograd_cpu_menu", MENU_CPU_RTOL
+        elif cpu_second_order or i in FIRST_ORDER:
+            key, rtol = "autograd_cpu", RTOL
+        else:
+            key, rtol = "autograd_cpu_second_order", None
         errs[key] = max(errs.get(key, 0.0), err / max(scale, 1.0))
         if not torch.isfinite(k).all() or \
-                (gated and err > ATOL + RTOL * scale):
+                (rtol is not None and err > ATOL + rtol * scale):
             raise AssertionError(f"autograd output {i}: card vs CPU max abs "
                                  f"diff {err} at scale {scale}")
 
@@ -450,6 +628,7 @@ def loop_score(theta, A, n, m, operator):
 
 def phase_kernels(seed):
     from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops.menu import DTypeMenu
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     errs = {}
@@ -467,11 +646,15 @@ def phase_kernels(seed):
             theta, A, ln, lm = dp_problem(g, 16, 200, 150)
             check_kernels(theta, A, ln, lm, mode, op, errs)
             check_autograd(theta, A, ln, lm, mode, op, errs)
+            for kw in MENUS.values():
+                check_menu_kernels(theta, A, ln, lm, mode, op,
+                                   DTypeMenu.make(**kw), errs)
     torch.cuda.synchronize()
     log("phase kernels: nw scores = float64 cell loop at (4, 9, 7); kernels "
-        "= plain at (16, 200, 150) nw/sw x softmax/sparsemax/hardmax, "
-        "tracebacks identical; autograd on the card = on the CPU; max abs "
-        f"diff {json.dumps(errs)}")
+        "= plain at (16, 200, 150) nw/sw x softmax/sparsemax/hardmax, in "
+        f"float32 and under the storage menus {sorted(MENUS)}, tracebacks "
+        "identical; autograd on the card = on the CPU; max abs diff "
+        f"{json.dumps(errs)}")
     return errs
 
 
@@ -577,6 +760,8 @@ def phase_serving(seed, card):
         lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
         theta, A = model.aligner.potentials(hx, hy, lengths)
         check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+        check_menu_kernels(theta, A, *lengths, "nw", "softmax",
+                           model.dp_dtypes, errs)
         x, y = pairs[0]
         b = model._as_batch(dict(
             x=tok(x)[0][None], y=tok(y)[0][None],
@@ -586,7 +771,11 @@ def phase_serving(seed, card):
         lengths = (b["x_len"], b["y_len"])
         theta, A = model.aligner.potentials(hx, hy, lengths)
         check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+        check_menu_kernels(theta, A, *lengths, "nw", "softmax",
+                           model.dp_dtypes, errs)
     torch.cuda.synchronize()
+    log(f"phase serving: the default config's storage menu "
+        f"{model.dp_dtypes}")
     log(f"phase serving: kernels = plain at the path's shapes (32, 512, 512)"
         f" and (1, {len(x)}, {len(y)}); max abs diff {json.dumps(errs)}")
     del model
@@ -707,15 +896,23 @@ def phase_train(seed, card):
             lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
             theta, A = model.aligner.potentials(hx, hy, lengths)
             check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+            check_menu_kernels(theta, A, *lengths, "nw", "softmax",
+                               model.dp_dtypes, errs)
         check_autograd(theta, A, *lengths, "nw", "softmax", errs)
+        check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                       dtypes=model.dp_dtypes)
         torch.cuda.synchronize()
         checked = tuple(theta.shape)
+        menu = model.dp_dtypes
         del model, hx, hy, theta, A
         torch.cuda.empty_cache()
 
     if any(launches[k] == 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel did not run on the training path: "
                              f"{launches}")
+    if menu is None or menu.d != "bfloat16":
+        raise AssertionError(f"cli.train with default flags trained with "
+                             f"the storage menu {menu}, not bf16 residuals")
     n_train = sum(t == "train_loss" for t, _ in losses)
     if n_train != 2 * len(batches) or \
             not all(np.isfinite(v) for _, v in losses):
@@ -737,7 +934,7 @@ def phase_train(seed, card):
         f"{[round(t, 4) for t in step_intervals(metrics)]}; peak device "
         f"memory {peak / 2**30:.2f} GiB; losses {losses}; checkpoints "
         f"{sorted(kept)}; load_model + align x2 {t_load:.2f} s [{card}]; "
-        f"launches {json.dumps(launches)}")
+        f"storage menu {menu}; launches {json.dumps(launches)}")
     log(f"phase train: kernels = plain and autograd = plain and CPU at the "
         f"longest training batch {checked}; max abs diff "
         f"{json.dumps(errs)}")
@@ -952,7 +1149,193 @@ def long_times(seed, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: decode at the bench shape
+# phase 6: the storage menu (int16 streams, the fast decode, the pair skew)
+# ---------------------------------------------------------------------------
+
+def _agreement(s1, s2):
+    return sum(a == b for a, b in zip(s1, s2)) / max(len(s1), len(s2))
+
+
+def menu_accuracy(card):
+    """The decode under bf16 residuals and under the fast menu against
+    float32 storage on the card, on the JAX package's own data and at its
+    own gates: ``tests/test_bf16_streams.py::
+    test_bench_config_d_only_agreement`` ((4, 48, 40), numpy seed 2: max E
+    error < 5e-3, every pair's traceback agreement >= 0.97) and
+    ``scripts/bench_check.py`` (the first 16 pairs of (256, 512, 512),
+    numpy seed 0: max E error < 1e-2, mean agreement > 0.97); in both,
+    the fast menu's stream walk (int16 E) against the natural walk under
+    bf16 residuals, mean agreement >= 0.995 (bench_check's stream gate),
+    and the fast decode's E error against float32 storage under the same
+    E gate (its agreement with the float32 stream walk reported).
+    Random potentials at length 512 make near-tie posteriors, where a
+    walk that parts once parts for good: the agreement of one pair can
+    fall far while the E error stays ~4e-3."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops.menu import DTypeMenu
+    bf16, fast = (DTypeMenu.make(**MENUS[k]) for k in ("d_bf16", "fast"))
+    out = {}
+    for seed, B, N, M, keep, err_gate in ((2, 4, 48, 40, 4, 5e-3),
+                                          (0, 256, 512, 512, 16, 1e-2)):
+        rng = np.random.default_rng(seed)
+        theta = torch.tensor(rng.standard_normal((B, N, M))[:keep],
+                             dtype=torch.float32, device="cuda")
+        A = torch.tensor(rng.standard_normal((B, N, M))[:keep] - 1.0,
+                         dtype=torch.float32, device="cuda")
+        lens = (torch.full((keep,), N, dtype=torch.int32, device="cuda"),
+                torch.full((keep,), M, dtype=torch.int32, device="cuda"))
+        E32 = dp_ops.expected_alignment(theta, A, lens).cpu()
+        E16 = dp_ops.expected_alignment(theta, A, lens, dtypes=bf16).cpu()
+        Es = dp_ops.expected_alignment_stream(theta, A, lens,
+                                              dtypes=fast).cpu()
+        E32s = dp_ops.expected_alignment_stream(theta, A, lens).cpu()
+        walks = [dp_ops.traceback(E16[b]) for b in range(keep)]
+        agree = [_agreement(dp_ops.traceback(E32[b]), w)
+                 for b, w in enumerate(walks)]
+        stream = [_agreement(dp_ops.traceback_stream(Es, N, M, b), w)
+                  for b, w in enumerate(walks)]
+        fast_agree = [_agreement(dp_ops.traceback_stream(Es, N, M, b),
+                                 dp_ops.traceback_stream(E32s, N, M, b))
+                      for b in range(keep)]
+        a = dict(max_E_err=float((E16 - E32).abs().max()),
+                 mean_agreement=float(np.mean(agree)),
+                 min_agreement=float(np.min(agree)),
+                 stream_vs_natural=float(np.mean(stream)),
+                 fast_max_E_err=float(np.abs(dp_ops._host(Es)
+                                             - E32s.numpy()).max()),
+                 fast_mean_agreement=float(np.mean(fast_agree)))
+        out[f"({keep}, {N}, {M})"] = a
+        log(f"phase menu: decode under bf16 residuals against float32 "
+            f"storage, numpy seed {seed}, {keep} pairs of ({N}, {M}) nw "
+            f"softmax: {json.dumps(a)} [{card}]")
+        per_pair = keep == B
+        if max(a["max_E_err"], a["fast_max_E_err"]) >= err_gate or \
+                a["stream_vs_natural"] < 0.995 or \
+                (a["min_agreement"] < 0.97 if per_pair
+                 else a["mean_agreement"] <= 0.97):
+            raise AssertionError(f"bf16-residual decode against float32 at "
+                                 f"({keep}, {N}, {M}): {a}")
+    return out
+
+
+def phase_menu(seed, card):
+    """The slice's own path: ``cli.train`` with ``--dp-i16-streams
+    --dp-decode-menu fast`` at ProtT5-XL + CNN-1024 (1 epoch), then
+    ``load_model`` -> ``align`` and ``score_pairs``, the launch counts of
+    each, every kernel instance of the two menus against its plain
+    version at the potentials of a training batch, and the menus' decode
+    accuracy against float32 storage."""
+    from deepblast_torch.cli import train as cli_train
+    from deepblast_torch.data.state_utils import pad_sequences
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import load_model
+
+    rng = np.random.default_rng(seed + 4)
+    rows = [homolog_row(rng, f"s{i}", 100, 400) for i in range(32)]
+    valid = [homolog_row(rng, f"v{i}", 100, 400) for i in range(8)]
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        run = os.path.join(tmp, "out")
+        torch.cuda.reset_peak_memory_stats()
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        rc = cli_train.main([
+            "--train-pairs", paths[0], "--valid-pairs", paths[1],
+            "-o", run, "--lm-type", "prot_t5", "--batch-size", "16",
+            "--epochs", "1", "--seed", str(seed), "--dp-i16-streams",
+            "--dp-decode-menu", "fast"])
+        torch.cuda.synchronize()
+        t_train = time.time() - t0
+        tr = dict(dp_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if rc != 0:
+            raise AssertionError(f"cli.train returned {rc}")
+        logs = [d for d in os.listdir(run) if d.startswith("logdir_")]
+        with open(os.path.join(run, logs[0], "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [(m["tag"], m["value"]) for m in metrics
+                  if m["tag"] in ("train_loss", "validation_loss")]
+
+        model = load_model(run)
+        menus = [str(model.dp_dtypes), str(model.dp_decode_dtypes)]
+        pairs = [rows[0][5:7], rows[1][5:7]]
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        states = [model.align(x, y) for x, y in pairs]
+        t_align = time.time() - t0
+        al = dict(dp_cuda.LAUNCHES)
+        tok = model.tokenizer
+        xt, xl = pad_sequences([tok(r[5])[0] for r in rows[:16]])
+        yt, yl = pad_sequences([tok(r[6])[0] for r in rows[:16]])
+        dp_cuda.reset_launches()
+        scores = model.score_pairs(dict(x=xt, y=yt, x_len=xl, y_len=yl))
+        torch.cuda.synchronize()
+        sc = dict(dp_cuda.LAUNCHES)
+        steps, vbatches = (len(list(model._batches(model._dataset(p), False,
+                                                   0))) for p in paths)
+
+        # the two menus' kernel instances at a training batch's potentials
+        batch = next(iter(model._batches(model._dataset(paths[0]), True,
+                                         seed)))
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            for menu in (model.dp_dtypes, model.dp_decode_dtypes):
+                check_menu_kernels(theta, A, *lengths, "nw", "softmax", menu,
+                                   errs)
+        check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                       dtypes=model.dp_dtypes)
+        torch.cuda.synchronize()
+        checked = tuple(theta.shape)
+        del model, hx, hy, theta, A
+        torch.cuda.empty_cache()
+
+    # training: theta/A through the pair skew, only the cotangent Zt (no
+    # Za on the training path) through the single skew; align and
+    # score_pairs: the pair skew only
+    if tr["skew_pair"] != steps + vbatches or tr["skew"] != steps:
+        raise AssertionError(f"training launches {tr} for {steps} steps and "
+                             f"{vbatches} validation batches")
+    if al["skew_pair"] != len(states) or al["skew"] != 0 or \
+            al["forward"] == 0 or al["backward"] == 0:
+        raise AssertionError(f"align launches {al}")
+    if sc["skew_pair"] != 1 or sc["skew"] != 0 or sc["forward_score"] != 1:
+        raise AssertionError(f"score_pairs launches {sc}")
+    if menus != ["DTypeMenu(stream='int16', d='bfloat16', e='int16', "
+                 "stream_range=16.0)",
+                 "DTypeMenu(stream=None, d='bfloat16', e='int16', "
+                 "stream_range=16.0)"]:
+        raise AssertionError(f"menus {menus}")
+    if not torch.isfinite(scores).all() or \
+            not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"losses {losses}")
+    for (x, y), st in zip(pairs, states):
+        if st.count("1") + st.count(":") != len(x) or \
+                st.count("2") + st.count(":") != len(y):
+            raise AssertionError("align: states do not consume both strings")
+    launches = {k: tr[k] + al[k] + sc[k] for k in tr}
+    log(f"phase menu: cli.train --dp-i16-streams --dp-decode-menu fast, "
+        f"ProtT5-XL + CNN-1024, 32 train / 8 valid pairs, batch 16, 1 epoch: "
+        f"{t_train:.2f} s; seconds between train_loss records "
+        f"{[round(v, 4) for v in step_intervals(metrics)]}; peak device "
+        f"memory {peak:.2f} GiB; losses {losses}; menus (training, decode) "
+        f"{menus}; align x2 {t_align:.2f} s [{card}]")
+    log(f"phase menu: launches training {json.dumps(tr)}; align "
+        f"{json.dumps(al)}; score_pairs {json.dumps(sc)}")
+    log(f"phase menu: kernels of both menus = plain and autograd = plain at "
+        f"a training batch {checked}; max abs diff {json.dumps(errs)}")
+
+    menu_accuracy(card)
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: decode at the bench shape
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps):
@@ -977,7 +1360,8 @@ def bound(nbytes, flops):
 def phase_bench(seed, card):
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
-    from deepblast_torch.ops.skew import skew, unskew
+    from deepblast_torch.ops.menu import DTypeMenu
+    from deepblast_torch.ops.skew import skew, skew_pair, unskew
     from deepblast_torch.train.losses import matrix_cross_entropy
     B, N, M = 256, 512, 512
     K, S = N + M - 1, N + 1
@@ -996,7 +1380,7 @@ def phase_bench(seed, card):
     _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
 
     def decode():
-        t, a = dp_cuda.skew(theta), dp_cuda.skew(A)
+        t, a = dp_cuda.skew_pair(theta, A)
         _, x, m = dp_cuda.forward(t, a, ln, lm, **kw)
         return dp_cuda.backward(x, m, ln, lm, Et, **kw)
 
@@ -1012,6 +1396,7 @@ def phase_bench(seed, card):
 
     kern = {
         "skew": lambda: dp_cuda.skew(theta),
+        "skew_pair": lambda: dp_cuda.skew_pair(theta, A),
         "unskew": lambda: dp_cuda.unskew(E, N, M),
         "forward": lambda: dp_cuda.forward(th_s, A_s, ln, lm, **kw),
         "forward_score": lambda: dp_cuda.forward_score(th_s, A_s, ln, lm,
@@ -1038,6 +1423,7 @@ def phase_bench(seed, card):
     }
     plain = {
         "skew": lambda: skew(theta),
+        "skew_pair": lambda: skew_pair(theta, A),
         "unskew": lambda: unskew(E, N, M),
         "forward": lambda: dp_ref.forward(th_s, A_s, ln, lm, **kw),
         "forward_score": lambda: dp_ref.forward_score(th_s, A_s, ln, lm,
@@ -1077,6 +1463,7 @@ def phase_bench(seed, card):
                "adjoint_backward_q": 9}
     nbytes = {k: n * f * band + per_pair for k, n in streams.items()}
     nbytes["skew"] = f * B * N * M + f * B * K * S
+    nbytes["skew_pair"] = 2 * nbytes["skew"]
     nbytes["unskew"] = 2 * f * B * N * M
     # One PyTorch call that computes the same function, where there is
     # one: the unskew is a strided copy, since cell (i, j) of pair b sits at
@@ -1093,6 +1480,7 @@ def phase_bench(seed, card):
     library_ms = {k: cuda_ms(fn, 10) for k, fn in library.items()}
     decode_ms = cuda_ms(decode, 10)
     step_ms = cuda_ms(dp_step, 5)
+    menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card)
     out = {}
     for k in kern:
         b_ms, by = bound(nbytes[k], FLOPS_PER_CELL[k] * band)
@@ -1102,41 +1490,188 @@ def phase_bench(seed, card):
         log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms"
             f"{lib}, bound {b_ms:.4f} ms by {by}, {nbytes[k]} bytes) "
             f"[{card}]")
-    log(f"phase bench: decode skew x2 + forward + backward at (256, 512, "
+    log(f"phase bench: decode skew_pair + forward + backward at (256, 512, "
         f"512) nw softmax fp32: {decode_ms:.4f} ms = "
         f"{B / decode_ms * 1e3:.1f} alignments/s; score-only forward "
         f"{ms['forward_score']:.4f} ms [{card}]")
     log(f"phase bench: differentiable DP step (expected_alignment + "
         f"backward() of a cross entropy) at (256, 512, 512) nw softmax "
         f"fp32: {step_ms:.4f} ms = {B / step_ms * 1e3:.1f} pairs/s [{card}]")
+
+    # the decode and the DP step under the storage menus, and the pair
+    # skew against two skews, each form timed in turn with float32
+    menus = {k: DTypeMenu.make(**MENUS[k]) for k in ("d_bf16", "fast")}
+
+    def decode_menu(menu):
+        t, a = dp_cuda.skew_pair(theta, A, menu.stream_dtype,
+                                 menu.stream_scale)
+        _, x, m = dp_cuda.forward(t, a, ln, lm, dtypes=menu, **kw)
+        return dp_cuda.backward(x, m, ln, lm, Et, dtypes=menu, decode=True,
+                                **kw)
+
+    def dp_step_menu(menu):
+        aln = dp_ops.expected_alignment(t_req, a_req, (ln, lm), dtypes=menu,
+                                        **kw)
+        matrix_cross_entropy(target, aln, ln, lm, gmask).backward()
+
+    pair_forms = {"two skews": lambda: (dp_cuda.skew(theta),
+                                        dp_cuda.skew(A)),
+                  "skew_pair": lambda: dp_cuda.skew_pair(theta, A)}
+    turns = {}
+    for _ in range(2):
+        for name, fn in [("decode f32", decode),
+                         ("decode d_bf16", lambda: decode_menu(
+                             menus["d_bf16"])),
+                         ("decode fast", lambda: decode_menu(menus["fast"])),
+                         ("dp_step f32", dp_step),
+                         ("dp_step d_bf16", lambda: dp_step_menu(
+                             menus["d_bf16"])),
+                         *pair_forms.items()]:
+            turns.setdefault(name, []).append(
+                cuda_ms(fn, 5 if name.startswith("dp_step") else 10))
+    for name, v in turns.items():
+        per = "pairs/s" if name.startswith("dp_step") else "alignments/s"
+        log(f"phase bench: {name} at (256, 512, 512) nw softmax: "
+            f"{min(v):.4f} ms (turns {[round(x, 4) for x in v]}) = "
+            f"{B / min(v) * 1e3:.1f} {per} [{card}]")
     return out
 
 
-def main():
+def menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card):
+    """Each kernel's storage forms at the bench shape: time (CUDA events),
+    the plain version's time, and the bound from the bytes each form's
+    streams really move (a bf16 or int16 stream moves 2 bytes a value)."""
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.menu import DTypeMenu
+    from deepblast_torch.ops.skew import skew, skew_pair, unskew
+    B, N, M = theta.shape
+    K, S = N + M - 1, N + 1
+    kw = dict(mode="nw", operator="softmax")
+    bf, fast, i16, i16b = (DTypeMenu.make(**MENUS[k])
+                           for k in ("d_bf16", "fast", "i16", "i16_d_bf16"))
+    sc = i16.stream_scale
+    Et = torch.ones((B,), device="cuda")
+    th_i, A_i = dp_cuda.skew(theta, torch.int16, sc), dp_cuda.skew(
+        A, torch.int16, sc)
+    th_s, A_s = dp_cuda.skew(theta), dp_cuda.skew(A)
+    _, dx, dm = dp_cuda.forward(th_s, A_s, ln, lm, dtypes=bf, **kw)
+    _, dxd, dmd = dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm,
+                                          dtypes=bf, **kw)
+    E_b = dp_cuda.skew(dp_cuda.unskew(E, N, M), torch.bfloat16)
+    E_q = dp_cuda.skew(dp_cuda.unskew(E, N, M), torch.int16, 32767.0)
+    nat, strm = B * N * M, B * K * S
+    # name: (kernel, plain, bytes)
+    forms = {
+        "skew bf16": (lambda: dp_cuda.skew(theta, torch.bfloat16),
+                      lambda: skew(theta, torch.bfloat16), 4 * nat + 2 * strm),
+        "skew int16": (lambda: dp_cuda.skew(theta, torch.int16, sc),
+                       lambda: skew(theta, torch.int16, sc),
+                       4 * nat + 2 * strm),
+        "skew_pair bf16": (lambda: dp_cuda.skew_pair(theta, A, torch.bfloat16),
+                           lambda: skew_pair(theta, A, torch.bfloat16),
+                           2 * (4 * nat + 2 * strm)),
+        "skew_pair int16": (lambda: dp_cuda.skew_pair(theta, A, torch.int16,
+                                                      sc),
+                            lambda: skew_pair(theta, A, torch.int16, sc),
+                            2 * (4 * nat + 2 * strm)),
+        "unskew bf16": (lambda: dp_cuda.unskew(E_b, N, M),
+                        lambda: unskew(E_b, N, M), 6 * nat),
+        "unskew int16": (lambda: dp_cuda.unskew(E_q, N, M),
+                         lambda: unskew(E_q, N, M), 6 * nat),
+        "forward D bf16": (
+            lambda: dp_cuda.forward(th_s, A_s, ln, lm, dtypes=bf, **kw),
+            lambda: dp_ref.forward(th_s, A_s, ln, lm, dtypes=bf, **kw),
+            12 * band + per_pair),
+        "forward in int16": (
+            lambda: dp_cuda.forward(th_i, A_i, ln, lm, dtypes=i16, **kw),
+            lambda: dp_ref.forward(th_i, A_i, ln, lm, dtypes=i16, **kw),
+            12 * band + per_pair),
+        "forward in int16 D bf16": (
+            lambda: dp_cuda.forward(th_i, A_i, ln, lm, dtypes=i16b, **kw),
+            lambda: dp_ref.forward(th_i, A_i, ln, lm, dtypes=i16b, **kw),
+            8 * band + per_pair),
+        "forward_score in int16": (
+            lambda: dp_cuda.forward_score(th_i, A_i, ln, lm, dtypes=i16,
+                                          **kw),
+            lambda: dp_ref.forward_score(th_i, A_i, ln, lm, dtypes=i16, **kw),
+            4 * band + per_pair),
+        "backward D bf16": (
+            lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=bf, **kw),
+            lambda: dp_ref.backward(dx, dm, ln, lm, Et, dtypes=bf, **kw),
+            8 * band + per_pair),
+        "backward D bf16 gap": (
+            lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=bf,
+                                     want_gap=True, **kw),
+            lambda: dp_ref.backward(dx, dm, ln, lm, Et, dtypes=bf,
+                                    want_gap=True, **kw),
+            12 * band + per_pair),
+        "backward D bf16 E int16 (fast decode)": (
+            lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=fast,
+                                     decode=True, **kw),
+            lambda: dp_ref.backward(dx, dm, ln, lm, Et, dtypes=fast,
+                                    decode=True, **kw),
+            6 * band + per_pair),
+        "adjoint_forward D bf16": (
+            lambda: dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm,
+                                            dtypes=bf, **kw),
+            lambda: dp_ref.adjoint_forward(dx, dm, zt, None, ln, lm,
+                                           dtypes=bf, **kw),
+            12 * band + per_pair),
+        "adjoint_forward D bf16 Za": (
+            lambda: dp_cuda.adjoint_forward(dx, dm, zt, za, ln, lm,
+                                            dtypes=bf, **kw),
+            lambda: dp_ref.adjoint_forward(dx, dm, zt, za, ln, lm,
+                                           dtypes=bf, **kw),
+            16 * band + per_pair),
+        "adjoint_backward D bf16": (
+            lambda: dp_cuda.adjoint_backward(dx, dm, dxd, dmd, E, ln, lm,
+                                             dtypes=bf, **kw),
+            lambda: dp_ref.adjoint_backward(dx, dm, dxd, dmd, E, ln, lm,
+                                            dtypes=bf, **kw),
+            20 * band + per_pair),
+    }
+    for name, (kern, plain, nbytes) in forms.items():
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 1)
+        b_ms, by = bound(nbytes, FLOPS_PER_CELL[name.split()[0]] * band)
+        log(f"phase bench: {name} {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+            f"bound {b_ms:.4f} ms by {by}, {nbytes} bytes) [{card}]")
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import deepblast_torch  # noqa: F401  (fails outside a checkout)
     card = card_line()
     log(card)
-    import deepblast_torch  # noqa: F401  (fails outside a checkout)
 
     seed = 0
-    phase_build()
-    errs = phase_kernels(seed)
-    serving, path_errs = phase_serving(seed, card)
-    training, train_errs = phase_train(seed, card)
-    long_, long_errs = phase_long(seed, card)
-    long_times(seed, card)
-    bench = phase_bench(seed, card)
+    seconds, t0 = {}, time.time()
+
+    def timed(name, fn, *args):
+        out = fn(*args)
+        seconds[name] = round(time.time() - t0 - sum(seconds.values()), 1)
+        return out
+
+    timed("build", phase_build)
+    errs = timed("kernels", phase_kernels, seed)
+    serving, path_errs = timed("serving", phase_serving, seed, card)
+    training, train_errs = timed("train", phase_train, seed, card)
+    long_, long_errs = timed("long", phase_long, seed, card)
+    timed("long_times", long_times, seed, card)
+    menu, menu_errs = timed("menu", phase_menu, seed, card)
+    bench = timed("bench", phase_bench, seed, card)
+    log(f"seconds per phase {json.dumps(seconds)}")
     kernels = []
     for k in KERNELS + Q_KERNELS:
-        checked = [d[k] for d in (errs, path_errs, train_errs, long_errs)
-                   if k in d]
+        checked = [d[k] for d in (errs, path_errs, train_errs, long_errs,
+                                  menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-            launches=serving[k] + training[k] + long_[k],
+            launches=serving[k] + training[k] + long_[k] + menu[k],
             max_abs_err=max(checked),
             ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
             bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
@@ -1150,4 +1685,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,6 +14,7 @@ import argparse
 
 from deepblast_torch.ops.dp import BACKENDS
 from deepblast_torch.train.trainer import DeepBLASTConfig
+from deepblast_torch.unported import UNPORTED, check_ported
 
 __all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
            "config_from_args"]
@@ -23,33 +24,6 @@ MODE_ALIASES = {
     "needleman-wunsch": "needleman-wunsch",
     "smith-waterman": "smith-waterman",
 }
-
-#: flag destination -> (the values the port takes, ROADMAP.md item)
-UNPORTED = {
-    "finetune": ((False,), "queue A item 1 (trainer options: finetune)"),
-    "precision": (("32",), "queue A item 1 (trainer options: precision "
-                           "bf16/16)"),
-    "grad_accum": ((1,), "queue A item 1 (trainer options: grad_accum)"),
-    "steps_per_dispatch": ((1,), "queue A item 1 (trainer options: "
-                                 "steps_per_dispatch)"),
-    "lm_type": (("embed", "prot_t5"), "queue A item 2 (BiLM)"),
-    "layer_type": (("cnn",), "queue A item 2 (the RNN head)"),
-    "dp_bf16_residuals": ((None,), "queue A item 3 (the storage-dtype "
-                                   "menu)"),
-    "dp_i16_streams": ((False,), "queue A item 3 (the storage-dtype menu)"),
-    "dp_decode_menu": (("default",), "queue A item 3 (the storage-dtype "
-                                     "menu)"),
-    "backend": (tuple(BACKENDS), "queue A item 10 (the scan backend, "
-                                 "ops/dp_scan.py)"),
-    "nodes": ((1,), "queue A item 5 (data parallel)"),
-    "coordinator": ((None,), "queue A item 5 (data parallel)"),
-    "process_id": ((None,), "queue A item 5 (data parallel)"),
-    "tp": ((1,), "queue A item 5 (data parallel)"),
-    "visualization_fraction": ((0.0,), "queue A item 7 (visualisations "
-                                       "and TensorBoard)"),
-    "pretrain_path": ((None,), "queue A item 8 (HF ProtT5 weights)"),
-}
-
 
 def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--train-pairs", required=True,
@@ -116,10 +90,30 @@ def add_infra_args(parser: argparse.ArgumentParser):
     parser.add_argument("--precision", type=str, default="32",
                         choices=("32", "bf16", "16"))
     parser.add_argument("--dp-bf16-residuals",
-                        action=argparse.BooleanOptionalAction, default=None)
-    parser.add_argument("--dp-i16-streams", action="store_true")
+                        action=argparse.BooleanOptionalAction,
+                        default="auto",
+                        help="store the DP kernels' difference-residual "
+                        "streams (Dx, Dm, Dxd, Dmd) in bf16: half their "
+                        "bytes, ~0.4%% soft-argmax perturbation in the "
+                        "reverse passes, the recurrences fp32.  Default "
+                        "auto: on for the pallas backends (pallas_bm, the "
+                        "default; pallas and pallas_long ignore the menu), "
+                        "as deepblast-train; --no-dp-bf16-residuals forces "
+                        "fp32 streams")
+    parser.add_argument("--dp-i16-streams", action="store_true",
+                        help="store the DP input streams (and the decode "
+                        "path's expectation stream) in int16 fixed point "
+                        "(saturating at +-16; <2e-3 E perturbation).  The "
+                        "training VJP keeps cotangent and expectation "
+                        "streams in float (unbounded), so only the input "
+                        "quantization touches gradients")
     parser.add_argument("--dp-decode-menu", choices=["default", "fast"],
-                        default="default")
+                        default="default",
+                        help="storage menu of the align() decode: 'fast' = "
+                        "bf16 difference residuals + int16 fixed-point "
+                        "expectation stream; 'default' inherits the "
+                        "training menu.  Decode-only; training and scoring "
+                        "are untouched")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda, or cpu)")
     return parser
@@ -128,12 +122,9 @@ def add_infra_args(parser: argparse.ArgumentParser):
 def config_from_args(args) -> DeepBLASTConfig:
     """The config of a parsed command line; raises ``ValueError`` naming
     the ROADMAP.md item for a flag the port does not have yet."""
-    for dest, (ported, item) in UNPORTED.items():
-        value = getattr(args, dest, ported[0])
-        if value not in ported:
-            flag = "--" + dest.replace("_", "-")
-            raise ValueError(f"{flag} {value} is not ported to "
-                             f"deepblast_torch yet: ROADMAP.md {item}")
+    for dest, (ported, _) in UNPORTED.items():
+        check_ported(dest, getattr(args, dest, ported[0]),
+                     "--" + dest.replace("_", "-"))
     mode = MODE_ALIASES.get(args.alignment_mode, args.alignment_mode)
     return DeepBLASTConfig(
         embedding_dim=args.embedding_dim,
@@ -155,6 +146,9 @@ def config_from_args(args) -> DeepBLASTConfig:
         grad_clip=getattr(args, "grad_clip", None),
         mask_gaps=bool(args.mask_gaps),
         seed=getattr(args, "seed", 0),
+        dp_bf16_residuals=getattr(args, "dp_bf16_residuals", "auto"),
+        dp_i16_streams=getattr(args, "dp_i16_streams", False),
+        dp_decode_menu=getattr(args, "dp_decode_menu", "default"),
         train_pairs=args.train_pairs,
         valid_pairs=args.valid_pairs,
         test_pairs=args.test_pairs,

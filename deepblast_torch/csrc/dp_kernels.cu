@@ -7,6 +7,9 @@
 //
 // TPU kernels replaced (deepblast_tpu/ops/):
 //   skew_kernel            <- skew_bm.py:195 skew_bm (_skew_kernel :152)
+//   skew_pair_kernel       <- skew_bm.py:243 skew_bm_pair
+//                             (_skew_pair_kernel :164): both operands of a
+//                             pair (theta and A, or Zt and Za) in one launch
 //   unskew_kernel          <- skew_bm.py:321 unskew_bm (_unskew_kernel :290)
 //   forward_kernel<.,true> <- dp_bm.py:1025 decode_stream_bm, forward phases
 //                             (_fwd_phase_kernel :932); dp_bm.py:423
@@ -77,18 +80,63 @@
 // 4-5 in / 3 out, adjoint backward 7 in / 2 out: the same byte bound
 // regime, with one more stream per pass than the default kernels.
 //
+// Storage menu (deepblast_torch/ops/menu.py; deepblast_tpu/ops/dp_bm.py
+// DTypeMenu): the streams of the default kernels and the relayouts are
+// templated on their storage type -- float, __nv_bfloat16 (stores round to
+// nearest even, __float2bfloat16_rn) or int16_t fixed point (stores
+// floor(clip(v * scale, +-32767) + 0.5), loads (float)q * inv, with the
+// scale and its inverse passed as float arguments).  Every register and
+// every shared-memory row stays float, so the shared-memory rows and the
+// limit check do not change; only the loads and stores convert.  Inputs
+// theta and A may be float, bf16 or int16; the differences Dx, Dm, Dxd,
+// Dmd float or bf16; E, EA float, bf16 or (the decode only) int16; Ed,
+// EdA and the cotangents Zt, Za float or bf16.  A bf16 difference stream
+// halves the bytes of the stream it replaces; the value recurrences use
+// the unrounded differences, the reverse passes the rounded ones, as the
+// TPU kernels.  The Q-stream kernels stay float (the JAX package gives
+// its Q backends no menu).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC
 // No fast math (the traceback compares E values exactly), and no FMA
 // contraction, so each cell rounds as the plain PyTorch version does.
 // Each C entry returns cudaGetLastError() of its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 enum { OP_SOFTMAX = 0, OP_SPARSEMAX = 1, OP_HARDMAX = 2 };
+// storage codes of ops/dp_cuda.py _DTYPE_CODES
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I16 = 2 };
+
+typedef __nv_bfloat16 bf16;
+
+// Typed loads and stores of a stream value; compute is float.  `inv`
+// dequantizes an int16 load, `scale` quantizes an int16 store (unused by
+// the float types).
+__device__ __forceinline__ float ld(const float *p, size_t i, float) {
+  return p[i];
+}
+__device__ __forceinline__ float ld(const bf16 *p, size_t i, float) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float ld(const int16_t *p, size_t i, float inv) {
+  return (float)p[i] * inv;
+}
+__device__ __forceinline__ void st(float *p, size_t i, float v, float) {
+  p[i] = v;
+}
+__device__ __forceinline__ void st(bf16 *p, size_t i, float v, float) {
+  p[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void st(int16_t *p, size_t i, float v,
+                                   float scale) {
+  p[i] = (int16_t)floorf(fminf(fmaxf(v * scale, -32767.0f), 32767.0f) +
+                         0.5f);
+}
 
 // Smoothed max of (ax, am, ay) and its argmax (deepblast_torch/ops/smooth.py).
 template <int OP>
@@ -174,9 +222,12 @@ __device__ __forceinline__ bool cell_valid(int s, int k, int n, int m, int lo) {
   return s >= lo && j >= lo && s <= n && j <= m;
 }
 
-// out[b, r, s] = x[b, s-1, r-s+1] where that cell exists, else 0.
-__global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
-                            int K, int S, float *__restrict__ out) {
+// out[b, r, s] = x[b, s-1, r-s+1] where that cell exists, else 0, stored
+// as TO (int16: quantized at `scale`); grid-stride over the stream.
+template <typename TO>
+__device__ __forceinline__ void skew_body(const float *__restrict__ x, int B,
+                                          int N, int M, int K, int S,
+                                          TO *__restrict__ out, float scale) {
   const size_t total = (size_t)B * K * S;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (size_t)gridDim.x * blockDim.x) {
@@ -188,17 +239,43 @@ __global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
     float v = 0.0f;
     if (s >= 1 && j >= 0 && j < M)
       v = x[((size_t)b * N + (s - 1)) * M + j];
-    out[idx] = v;
+    st(out, idx, v, scale);
   }
+}
+
+template <typename TO>
+__global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
+                            int K, int S, TO *__restrict__ out, float scale) {
+  skew_body(x, B, N, M, K, S, out, scale);
+}
+
+// Both operands of a pair in one launch: blockIdx.y picks the operand, and
+// each half of the grid runs skew_kernel's loop over its own stream, so the
+// outputs are bit-identical to two skew_kernel launches.  The TPU fused its
+// two skews to overlap their DMA within one pallas_call
+// (skew_bm.py:167-180); here one launch puts both streams' blocks in flight
+// at once and saves a launch.
+template <typename TO>
+__global__ void skew_pair_kernel(const float *__restrict__ x,
+                                 const float *__restrict__ y, int B, int N,
+                                 int M, int K, int S, TO *__restrict__ ox,
+                                 TO *__restrict__ oy, float scale) {
+  if (blockIdx.y == 0)
+    skew_body(x, B, N, M, K, S, ox, scale);
+  else
+    skew_body(y, B, N, M, K, S, oy, scale);
 }
 
 // out[b, r, c] = s[b, r+c, r+1]: every natural cell is written.  Threads
 // run along c, so the writes are coalesced and the reads have stride S in
 // the stream (uncoalesced: one 32-byte sector per 4-byte value).  Tiling
 // through shared memory (read a band of diagonals coalesced, write rows
-// coalesced) is the later fix.
-__global__ void unskew_kernel(const float *__restrict__ s, int B, int K,
-                              int S, int N, int M, float *__restrict__ out) {
+// coalesced) is the later fix.  A bf16 stream is widened, an int16 one
+// dequantized by `inv` (1 / 32767); the output is always float.
+template <typename TI>
+__global__ void unskew_kernel(const TI *__restrict__ s, int B, int K, int S,
+                              int N, int M, float inv,
+                              float *__restrict__ out) {
   const size_t total = (size_t)B * N * M;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (size_t)gridDim.x * blockDim.x) {
@@ -206,19 +283,20 @@ __global__ void unskew_kernel(const float *__restrict__ s, int B, int K,
     size_t t = idx / M;
     int r = (int)(t % N);
     int b = (int)(t / N);
-    out[idx] = s[((size_t)b * K + (r + c)) * S + (r + 1)];
+    out[idx] = ld(s, ((size_t)b * K + (r + c)) * S + (r + 1), inv);
   }
 }
 
 // One CTA per pair.  Shared memory: three rolling V rows (r-1, r-2, r).
-template <int OP, bool kStoreResiduals>
-__global__ void forward_kernel(const float *__restrict__ th,
-                               const float *__restrict__ ad,
+// Inputs of TI (int16 dequantized by `inv`), residuals stored as TD; the
+// value recurrence uses the unrounded differences.
+template <int OP, bool kStoreResiduals, typename TI, typename TD>
+__global__ void forward_kernel(const TI *__restrict__ th,
+                               const TI *__restrict__ ad, float inv,
                                const int *__restrict__ ln,
                                const int *__restrict__ lm, int K, int S,
                                int lo, float *__restrict__ vt,
-                               float *__restrict__ dxo,
-                               float *__restrict__ dmo) {
+                               TD *__restrict__ dxo, TD *__restrict__ dmo) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
@@ -235,16 +313,16 @@ __global__ void forward_kernel(const float *__restrict__ th,
     const int k = r + 2;
     const size_t row = base + (size_t)r * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float a = ad[row + s];
-      float t = th[row + s];
+      float a = ld(ad, row + s, inv);
+      float t = ld(th, row + s, inv);
       float v1s = v1[s];
       float v1l = s > 0 ? v1[s - 1] : 0.0f;
       float v2l = s > 0 ? v2[s - 1] : 0.0f;
       float dx = v1l - v1s;
       float dm = v2l - a - v1s;
       if (kStoreResiduals) {
-        dxo[row + s] = dx;
-        dmo[row + s] = dm;
+        st(dxo, row + s, dx, 0.0f);
+        st(dmo, row + s, dm, 0.0f);
       }
       float px, pm, py;
       float rel = max3<OP>(dx, dm, 0.0f, px, pm, py);
@@ -261,14 +339,16 @@ __global__ void forward_kernel(const float *__restrict__ th,
 // (3 x S), Qx and Qy rows r+1, r (2 x S each), Qm rows r+2, r+1, r (3 x S).
 // With kWantGap it also writes EA[r] = E[r] (Qx[r] + Qy[r]), Q of the same
 // row recomputed from Dx/Dm (as _bwd_train_kernel, dp_bm_train.py:290-292).
-template <int OP, bool kWantGap>
-__global__ void backward_kernel(const float *__restrict__ dx,
-                                const float *__restrict__ dm,
+// Dx, Dm of TD; E and EA stored as TE (int16, the decode's E: quantized
+// at `escale`); the recurrence carries the unrounded E.
+template <int OP, bool kWantGap, typename TD, typename TE>
+__global__ void backward_kernel(const TD *__restrict__ dx,
+                                const TD *__restrict__ dm,
                                 const int *__restrict__ ln,
                                 const int *__restrict__ lm,
                                 const float *__restrict__ et, int K, int S,
-                                int lo, float *__restrict__ eo,
-                                float *__restrict__ eao) {
+                                int lo, float escale, TE *__restrict__ eo,
+                                TE *__restrict__ eao) {
   extern __shared__ float smem[];
   float *E = smem;
   float *QX = smem + 3 * S;
@@ -293,8 +373,8 @@ __global__ void backward_kernel(const float *__restrict__ dx,
     const int k = r + 2;
     const size_t row = base + (size_t)r * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float dxs = dx[row + s];
-      float dms = dm[row + s];
+      float dxs = ld(dx, row + s, 0.0f);
+      float dms = ld(dm, row + s, 0.0f);
       bool in = s + 1 < S;
       float e1s = e1[s];
       float e1r = in ? e1[s + 1] : 0.0f;
@@ -304,11 +384,11 @@ __global__ void backward_kernel(const float *__restrict__ dx,
       float e = qx1r * e1r + qm2r * e2r + qy1[s] * e1s;
       e = cell_valid(s, k, n, m, lo) ? e : 0.0f;
       if (s == n && k == n + m) e = e + e_t;
-      eo[row + s] = e;
+      st(eo, row + s, e, escale);
       en[s] = e;
       float px, pm, py;
       max3<OP>(dxs, dms, 0.0f, px, pm, py);
-      if (kWantGap) eao[row + s] = e * (px + py);
+      if (kWantGap) st(eao, row + s, e * (px + py), escale);
       qxn[s] = px;
       qmn[s] = pm;
       qyn[s] = py;
@@ -322,18 +402,20 @@ __global__ void backward_kernel(const float *__restrict__ dx,
 // from Dx/Dm; the term order is _afwd_train_kernel's (dp_bm_train.py:
 // 425-430).  Without kHasZa there is no Za stream at all (a zero gap
 // cotangent, the training decode path).  Dxd and Dmd are written for every
-// slot; Vd is zero outside the band, so they stay finite there.
-template <int OP, bool kHasZa>
-__global__ void adjoint_forward_kernel(const float *__restrict__ dx,
-                                       const float *__restrict__ dm,
-                                       const float *__restrict__ zt,
-                                       const float *__restrict__ za,
+// slot; Vd is zero outside the band, so they stay finite there.  Dx, Dm
+// read and Dxd, Dmd stored as TD; the cotangents Zt, Za of TZ (never
+// int16: they are unbounded).
+template <int OP, bool kHasZa, typename TD, typename TZ>
+__global__ void adjoint_forward_kernel(const TD *__restrict__ dx,
+                                       const TD *__restrict__ dm,
+                                       const TZ *__restrict__ zt,
+                                       const TZ *__restrict__ za,
                                        const int *__restrict__ ln,
                                        const int *__restrict__ lm, int K,
                                        int S, int lo,
                                        float *__restrict__ vtd,
-                                       float *__restrict__ dxdo,
-                                       float *__restrict__ dmdo) {
+                                       TD *__restrict__ dxdo,
+                                       TD *__restrict__ dmdo) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
@@ -348,23 +430,25 @@ __global__ void adjoint_forward_kernel(const float *__restrict__ dx,
     const size_t row = base + (size_t)r * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
       float px, pm, py;
-      max3<OP>(dx[row + s], dm[row + s], 0.0f, px, pm, py);
+      max3<OP>(ld(dx, row + s, 0.0f), ld(dm, row + s, 0.0f), 0.0f, px, pm,
+               py);
       float v1s = v1[s];
       float v1l = s > 0 ? v1[s - 1] : 0.0f;
       float v2l = s > 0 ? v2[s - 1] : 0.0f;
       float dxd = v1l - v1s;
+      float zts = ld(zt, row + s, 0.0f);
       float v;
       if (kHasZa) {
-        float zas = za[row + s];
+        float zas = ld(za, row + s, 0.0f);
         float dmd = v2l - zas - v1s;
-        dmdo[row + s] = dmd;
-        v = zt[row + s] + zas + v1s + px * dxd + pm * dmd;
+        st(dmdo, row + s, dmd, 0.0f);
+        v = zts + zas + v1s + px * dxd + pm * dmd;
       } else {
         float dmd = v2l - v1s;
-        dmdo[row + s] = dmd;
-        v = zt[row + s] + v1s + px * dxd + pm * dmd;
+        st(dmdo, row + s, dmd, 0.0f);
+        v = zts + v1s + px * dxd + pm * dmd;
       }
-      dxdo[row + s] = dxd;
+      st(dxdo, row + s, dxd, 0.0f);
       v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
       if (s == n && k == n + m) vtd[b] = v;
       vn[s] = v;
@@ -380,18 +464,19 @@ __global__ void adjoint_forward_kernel(const float *__restrict__ dx,
 // r+1, r (3 x S each).  E comes from the backward's stream.  It writes Ed
 // (masked; the terminal seed has zero tangent) and the fused gap adjoint
 // EdA = Ed (Qx + Qy) + E (Qdx + Qdy), as _abwd_train_kernel
-// (dp_bm_train.py:567-576).
-template <int OP>
-__global__ void adjoint_backward_kernel(const float *__restrict__ dx,
-                                        const float *__restrict__ dm,
-                                        const float *__restrict__ dxd,
-                                        const float *__restrict__ dmd,
-                                        const float *__restrict__ E,
+// (dp_bm_train.py:567-576).  Dx, Dm, Dxd, Dmd of TD; E read and Ed, EdA
+// stored as TE (float or bf16: the training expectations are unbounded).
+template <int OP, typename TD, typename TE>
+__global__ void adjoint_backward_kernel(const TD *__restrict__ dx,
+                                        const TD *__restrict__ dm,
+                                        const TD *__restrict__ dxd,
+                                        const TD *__restrict__ dmd,
+                                        const TE *__restrict__ E,
                                         const int *__restrict__ ln,
                                         const int *__restrict__ lm, int K,
                                         int S, int lo,
-                                        float *__restrict__ edo,
-                                        float *__restrict__ edao) {
+                                        TE *__restrict__ edo,
+                                        TE *__restrict__ edao) {
   extern __shared__ float smem[];
   float *ED = smem;
   float *EE = smem + 3 * S;
@@ -427,15 +512,16 @@ __global__ void adjoint_backward_kernel(const float *__restrict__ dx,
       }
       float ed = t1 + t2 + qdy1[s] * e1[s] + qy1[s] * ed1[s];
       ed = cell_valid(s, k, n, m, lo) ? ed : 0.0f;
-      edo[row + s] = ed;
+      st(edo, row + s, ed, 0.0f);
       edn[s] = ed;
       float px, pm, py, hx, hm, hy;
-      max3<OP>(dx[row + s], dm[row + s], 0.0f, px, pm, py);
-      hessian3<OP>(px, pm, py, dxd[row + s], dmd[row + s], 0.0f, hx, hm,
-                   hy);
-      float e = E[row + s];
+      max3<OP>(ld(dx, row + s, 0.0f), ld(dm, row + s, 0.0f), 0.0f, px, pm,
+               py);
+      hessian3<OP>(px, pm, py, ld(dxd, row + s, 0.0f),
+                   ld(dmd, row + s, 0.0f), 0.0f, hx, hm, hy);
+      float e = ld(E, row + s, 0.0f);
       en[s] = e;
-      edao[row + s] = ed * (px + py) + e * (hx + hy);
+      st(edao, row + s, ed * (px + py) + e * (hx + hy), 0.0f);
       qxn[s] = px;
       qmn[s] = pm;
       qyn[s] = py;
@@ -678,21 +764,56 @@ int grid_for(size_t total) {
 
 }  // namespace
 
-// Each operator-templated entry switches over op and returns
-// cudaErrorInvalidValue for an unknown one.
+// The entries switch over the operator and the storage codes, one case
+// per template instance, and return cudaErrorInvalidValue for a code they
+// do not take.  Each case body is a statement that returns.
 #define DP_SWITCH_OP(...)                          \
   switch (op) {                                    \
     case OP_SOFTMAX: {                             \
       constexpr int OP = OP_SOFTMAX;               \
-      return (int)(__VA_ARGS__);                   \
+      __VA_ARGS__;                                 \
     }                                              \
     case OP_SPARSEMAX: {                           \
       constexpr int OP = OP_SPARSEMAX;             \
-      return (int)(__VA_ARGS__);                   \
+      __VA_ARGS__;                                 \
     }                                              \
     case OP_HARDMAX: {                             \
       constexpr int OP = OP_HARDMAX;               \
-      return (int)(__VA_ARGS__);                   \
+      __VA_ARGS__;                                 \
+    }                                              \
+    default:                                       \
+      return (int)cudaErrorInvalidValue;           \
+  }
+
+// float, bf16 or int16 storage
+#define DP_SWITCH_ANY(code, T, ...)                \
+  switch (code) {                                  \
+    case DT_F32: {                                 \
+      typedef float T;                             \
+      __VA_ARGS__;                                 \
+    }                                              \
+    case DT_BF16: {                                \
+      typedef bf16 T;                              \
+      __VA_ARGS__;                                 \
+    }                                              \
+    case DT_I16: {                                 \
+      typedef int16_t T;                           \
+      __VA_ARGS__;                                 \
+    }                                              \
+    default:                                       \
+      return (int)cudaErrorInvalidValue;           \
+  }
+
+// float or bf16 storage
+#define DP_SWITCH_FLOAT(code, T, ...)              \
+  switch (code) {                                  \
+    case DT_F32: {                                 \
+      typedef float T;                             \
+      __VA_ARGS__;                                 \
+    }                                              \
+    case DT_BF16: {                                \
+      typedef bf16 T;                              \
+      __VA_ARGS__;                                 \
     }                                              \
     default:                                       \
       return (int)cudaErrorInvalidValue;           \
@@ -700,65 +821,134 @@ int grid_for(size_t total) {
 
 extern "C" {
 
-int dp_skew(const float *x, int B, int N, int M, float *out, void *stream) {
+// x float; out of storage out_dt (int16: quantized at `scale`).
+int dp_skew(const float *x, int B, int N, int M, void *out, int out_dt,
+            float scale, void *stream) {
   int K = N + M - 1, S = N + 1;
-  skew_kernel<<<grid_for((size_t)B * K * S), 256, 0, (cudaStream_t)stream>>>(
-      x, B, N, M, K, S, out);
-  return (int)cudaGetLastError();
+  DP_SWITCH_ANY(out_dt, TO,
+                skew_kernel<TO><<<grid_for((size_t)B * K * S), 256, 0,
+                                  (cudaStream_t)stream>>>(
+                    x, B, N, M, K, S, (TO *)out, scale);
+                return (int)cudaGetLastError())
 }
 
-int dp_unskew(const float *s, int B, int K, int S, int N, int M, float *out,
-              void *stream) {
-  unskew_kernel<<<grid_for((size_t)B * N * M), 256, 0,
-                  (cudaStream_t)stream>>>(s, B, K, S, N, M, out);
-  return (int)cudaGetLastError();
+// Both skews of a pair in one launch: grid (blocks, 2).
+int dp_skew_pair(const float *x, const float *y, int B, int N, int M,
+                 void *ox, void *oy, int out_dt, float scale, void *stream) {
+  int K = N + M - 1, S = N + 1;
+  dim3 grid(grid_for((size_t)B * K * S), 2);
+  DP_SWITCH_ANY(out_dt, TO,
+                skew_pair_kernel<TO><<<grid, 256, 0, (cudaStream_t)stream>>>(
+                    x, y, B, N, M, K, S, (TO *)ox, (TO *)oy, scale);
+                return (int)cudaGetLastError())
 }
 
-// store == 0: the score-only forward (no residual stores).
-int dp_forward(const float *th, const float *ad, const int *ln, const int *lm,
-               int B, int K, int S, int lo, int op, int store, float *vt,
-               float *dxo, float *dmo, void *stream) {
+// s of storage s_dt (int16: dequantized by `inv`); out float.
+int dp_unskew(const void *s, int s_dt, float inv, int B, int K, int S, int N,
+              int M, float *out, void *stream) {
+  DP_SWITCH_ANY(s_dt, TI,
+                unskew_kernel<TI><<<grid_for((size_t)B * N * M), 256, 0,
+                                    (cudaStream_t)stream>>>(
+                    (const TI *)s, B, K, S, N, M, inv, out);
+                return (int)cudaGetLastError())
+}
+
+// Inputs of storage in_dt (int16: dequantized by `inv`); store == 0: the
+// score-only forward (no residual stores), else Dx, Dm of storage d_dt.
+int dp_forward(const void *th, const void *ad, int in_dt, float inv,
+               const int *ln, const int *lm, int B, int K, int S, int lo,
+               int op, int store, int d_dt, float *vt, void *dxo, void *dmo,
+               void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(store ? launch_rows(forward_kernel<OP, true>, 3, B, S, st, th,
-                                   ad, ln, lm, K, S, lo, vt, dxo, dmo)
-                     : launch_rows(forward_kernel<OP, false>, 3, B, S, st,
-                                   th, ad, ln, lm, K, S, lo, vt,
-                                   (float *)nullptr, (float *)nullptr))
+  if (!store) {
+    DP_SWITCH_OP(DP_SWITCH_ANY(
+        in_dt, TI,
+        return (int)launch_rows(forward_kernel<OP, false, TI, float>, 3, B, S,
+                                st, (const TI *)th, (const TI *)ad, inv, ln,
+                                lm, K, S, lo, vt, (float *)nullptr,
+                                (float *)nullptr)))
+  }
+  DP_SWITCH_OP(DP_SWITCH_ANY(
+      in_dt, TI,
+      DP_SWITCH_FLOAT(
+          d_dt, TD,
+          return (int)launch_rows(forward_kernel<OP, true, TI, TD>, 3, B, S,
+                                  st, (const TI *)th, (const TI *)ad, inv, ln,
+                                  lm, K, S, lo, vt, (TD *)dxo, (TD *)dmo))))
 }
 
-// eao == nullptr: E only (the decode path); else also EA = E (Qx + Qy).
-int dp_backward(const float *dx, const float *dm, const int *ln,
+// Dx, Dm of storage d_dt; E (and EA unless eao == nullptr) of storage e_dt
+// (int16: quantized at `escale`, the decode's E).
+int dp_backward(const void *dx, const void *dm, int d_dt, const int *ln,
                 const int *lm, const float *et, int B, int K, int S, int lo,
-                int op, float *eo, float *eao, void *stream) {
+                int op, int e_dt, float escale, void *eo, void *eao,
+                void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(eao ? launch_rows(backward_kernel<OP, true>, 10, B, S, st, dx,
-                                 dm, ln, lm, et, K, S, lo, eo, eao)
-                   : launch_rows(backward_kernel<OP, false>, 10, B, S, st,
-                                 dx, dm, ln, lm, et, K, S, lo, eo,
-                                 (float *)nullptr))
+  if (eao) {
+    DP_SWITCH_OP(DP_SWITCH_FLOAT(
+        d_dt, TD,
+        DP_SWITCH_ANY(
+            e_dt, TE,
+            return (int)launch_rows(backward_kernel<OP, true, TD, TE>, 10, B,
+                                    S, st, (const TD *)dx, (const TD *)dm,
+                                    ln, lm, et, K, S, lo, escale, (TE *)eo,
+                                    (TE *)eao))))
+  }
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      d_dt, TD,
+      DP_SWITCH_ANY(
+          e_dt, TE,
+          return (int)launch_rows(backward_kernel<OP, false, TD, TE>, 10, B, S,
+                                  st, (const TD *)dx, (const TD *)dm, ln, lm,
+                                  et, K, S, lo, escale, (TE *)eo,
+                                  (TE *)nullptr))))
 }
 
+// Dx, Dm (and Dxd, Dmd out) of storage d_dt, Zt and Za of storage z_dt;
 // za == nullptr: no gap cotangent, the kernel without a Za stream.
-int dp_adjoint_forward(const float *dx, const float *dm, const float *zt,
-                       const float *za, const int *ln, const int *lm, int B,
-                       int K, int S, int lo, int op, float *vtd, float *dxdo,
-                       float *dmdo, void *stream) {
+int dp_adjoint_forward(const void *dx, const void *dm, int d_dt,
+                       const void *zt, const void *za, int z_dt,
+                       const int *ln, const int *lm, int B, int K, int S,
+                       int lo, int op, float *vtd, void *dxdo, void *dmdo,
+                       void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(za ? launch_rows(adjoint_forward_kernel<OP, true>, 3, B, S,
-                                st, dx, dm, zt, za, ln, lm, K, S, lo, vtd,
-                                dxdo, dmdo)
-                  : launch_rows(adjoint_forward_kernel<OP, false>, 3, B, S,
-                                st, dx, dm, zt, (const float *)nullptr, ln,
-                                lm, K, S, lo, vtd, dxdo, dmdo))
+  if (za) {
+    DP_SWITCH_OP(DP_SWITCH_FLOAT(
+        d_dt, TD,
+        DP_SWITCH_FLOAT(
+            z_dt, TZ,
+            return (int)launch_rows(
+                adjoint_forward_kernel<OP, true, TD, TZ>, 3, B, S, st,
+                (const TD *)dx, (const TD *)dm, (const TZ *)zt,
+                (const TZ *)za, ln, lm, K, S, lo, vtd, (TD *)dxdo,
+                (TD *)dmdo))))
+  }
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      d_dt, TD,
+      DP_SWITCH_FLOAT(
+          z_dt, TZ,
+          return (int)launch_rows(
+              adjoint_forward_kernel<OP, false, TD, TZ>, 3, B, S, st,
+              (const TD *)dx, (const TD *)dm, (const TZ *)zt,
+              (const TZ *)nullptr, ln, lm, K, S, lo, vtd, (TD *)dxdo,
+              (TD *)dmdo))))
 }
 
-int dp_adjoint_backward(const float *dx, const float *dm, const float *dxd,
-                        const float *dmd, const float *E, const int *ln,
-                        const int *lm, int B, int K, int S, int lo, int op,
-                        float *edo, float *edao, void *stream) {
+// Dx, Dm, Dxd, Dmd of storage d_dt; E in and Ed, EdA out of storage e_dt.
+int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
+                        const void *dmd, int d_dt, const void *E, int e_dt,
+                        const int *ln, const int *lm, int B, int K, int S,
+                        int lo, int op, void *edo, void *edao, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(launch_rows(adjoint_backward_kernel<OP>, 20, B, S, st, dx, dm,
-                           dxd, dmd, E, ln, lm, K, S, lo, edo, edao))
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      d_dt, TD,
+      DP_SWITCH_FLOAT(
+          e_dt, TE,
+          return (int)launch_rows(
+              adjoint_backward_kernel<OP, TD, TE>, 20, B, S, st,
+              (const TD *)dx, (const TD *)dm, (const TD *)dxd,
+              (const TD *)dmd, (const TE *)E, ln, lm, K, S, lo, (TE *)edo,
+              (TE *)edao))))
 }
 
 int dp_forward_q(const float *th, const float *ad, const int *ln,
@@ -766,8 +956,9 @@ int dp_forward_q(const float *th, const float *ad, const int *ln,
                  float *vt, float *qxo, float *qmo, float *qyo,
                  void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(launch_rows(forward_q_kernel<OP>, 3, B, S, st, th, ad, ln, lm,
-                           K, S, lo, vt, qxo, qmo, qyo))
+  DP_SWITCH_OP(return (int)launch_rows(forward_q_kernel<OP>, 3, B, S, st, th,
+                                       ad, ln, lm, K, S, lo, vt, qxo, qmo,
+                                       qyo))
 }
 
 // eao == nullptr: E only; else also EA = E (Qx + Qy).
@@ -789,12 +980,13 @@ int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
                          float *vtd, float *qdxo, float *qdmo, float *qdyo,
                          void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(za ? launch_rows(adjoint_forward_q_kernel<OP, true>, 3, B, S,
-                                st, qx, qm, qy, zt, za, ln, lm, K, S, lo, vtd,
-                                qdxo, qdmo, qdyo)
-                  : launch_rows(adjoint_forward_q_kernel<OP, false>, 3, B, S,
-                                st, qx, qm, qy, zt, (const float *)nullptr,
-                                ln, lm, K, S, lo, vtd, qdxo, qdmo, qdyo))
+  DP_SWITCH_OP(return (int)(
+      za ? launch_rows(adjoint_forward_q_kernel<OP, true>, 3, B, S, st, qx,
+                       qm, qy, zt, za, ln, lm, K, S, lo, vtd, qdxo, qdmo,
+                       qdyo)
+         : launch_rows(adjoint_forward_q_kernel<OP, false>, 3, B, S, st, qx,
+                       qm, qy, zt, (const float *)nullptr, ln, lm, K, S, lo,
+                       vtd, qdxo, qdmo, qdyo)))
 }
 
 int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,

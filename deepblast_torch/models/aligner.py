@@ -9,13 +9,10 @@ into DP potentials and serves them:
 * :meth:`forward` — ``(aln, theta, A)`` with ``aln`` the differentiable
   natural-layout expected alignment (``aligner.py:104-111``), the
   training path;
-* :meth:`score` — terminal alignment scores (``aligner.py:113-119``);
-* :meth:`decode_stream` — the expected alignment as a ``(B, K, S)`` stream
-  for the traceback (``DeepBLAST.align``'s decode; the default backend
-  only).
+* :meth:`score` — terminal alignment scores (``aligner.py:113-119``).
 
-``backend`` names the DP passes of every call (``ops/dp.py``;
-``aligner.py:51,110,119``).
+``backend`` names the DP passes of every call and ``dp_dtypes`` their
+storage menu (``ops/dp.py``, ``ops/menu.py``; ``aligner.py:51,56,110,119``).
 
 ``softplus`` is ``logaddexp(x, 0)``, not ``torch.nn.functional.softplus``,
 which returns ``x`` itself above its threshold where ``jax.nn.softplus``
@@ -48,11 +45,12 @@ class NeuralAligner(nn.Module):
     def __init__(self, embedding_dim=1024, hidden_dim=1024, layers=2,
                  k_size=5, dropout=0.0, layer_type="cnn",
                  alignment_mode="needleman-wunsch", operator="softmax",
-                 backend=None, device=None, dtype=None):
+                 backend=None, dp_dtypes=None, device=None, dtype=None):
         super().__init__()
         self.mode = _MODE_ALIASES[alignment_mode]
         self.operator = operator
         self.backend = backend
+        self.dp_dtypes = dp_dtypes
         dp_ops.get_backend(backend)     # an unknown name fails here
         kw = dict(embedding_dim=embedding_dim, hidden_dim=hidden_dim,
                   layers=layers, k_size=k_size, dropout=dropout,
@@ -84,7 +82,8 @@ class NeuralAligner(nn.Module):
         theta, A = self.potentials(hx, hy, lengths, generator)
         aln = dp_ops.expected_alignment(theta, A, lengths, mode=self.mode,
                                         operator=self.operator,
-                                        backend=self.backend)
+                                        backend=self.backend,
+                                        dtypes=self.dp_dtypes)
         return aln, theta, A
 
     def score(self, hx, hy, lengths=None):
@@ -92,12 +91,5 @@ class NeuralAligner(nn.Module):
         theta, A = self.potentials(hx, hy, lengths)
         return dp_ops.alignment_score(theta, A, lengths, mode=self.mode,
                                       operator=self.operator,
-                                      backend=self.backend)
-
-    def decode_stream(self, hx, hy, lengths=None):
-        """Expected alignment stream ``(B, K, S)`` for
-        :func:`deepblast_torch.ops.dp.traceback_stream`."""
-        theta, A = self.potentials(hx, hy, lengths)
-        return dp_ops.expected_alignment_stream(
-            theta, A, lengths, mode=self.mode, operator=self.operator,
-            backend=self.backend)
+                                      backend=self.backend,
+                                      dtypes=self.dp_dtypes)

@@ -17,7 +17,7 @@ PyTorch counterpart of ``deepblast_tpu/ops/dp.py``:
   (``dp.py:399-479``), with the documented border guard (``dp.py:407-412``).
 
 The two ``jax.custom_vjp`` levels become two ``torch.autograd.Function``s:
-``_Expected`` (forward: skew x2, forward, backward, unskew; backward: skew
+``_Expected`` (forward: skew of theta and A, forward, backward, unskew; backward: skew
 of the cotangents, adjoint forward, adjoint backward, unskew x2) and
 ``_Score`` (forward: score-only forward; backward: ``_Expected`` itself,
 so ``create_graph=True`` gives the second order).  ``_Expected``'s own
@@ -41,6 +41,23 @@ residual that only its own reverse passes read):
   ``dp.py:371-373``).  The TPU's two names differ only in their
   relayout kernels; here both use the one skew and unskew.
 
+The ``dtypes=`` keyword (a :class:`~deepblast_torch.ops.menu.DTypeMenu`)
+sets the storage of the default backend's streams, as the JAX package's
+per-call menu does (``dp.py:190-195``; ``dp_bm._with_dtypes``): input
+streams in ``stream`` (int16 fixed point quantized by the skew), Dx, Dm,
+Dxd, Dmd in ``d``, E and its tangents in ``e`` (int16 only in
+:func:`expected_alignment_stream`, the decode).  Cotangent streams take
+``stream`` when it is a float type and stay in their own type otherwise
+(``dp_bm.skew_cotangent``).  The Q backends ignore the menu, as the JAX
+package does (``dp_pallas.py`` registers no ``with_dtypes``).
+
+The default backend skews (theta, A), and (Zt, Za) where there is a Za,
+in one pair-skew launch (``skew_bm_pair``).  The JAX package keeps that
+behind an opt-in gate (``DEEPBLAST_SKEW_PAIR``, ``dp_bm.py:105-111``)
+because the fused form gained nothing end to end on its chip; on the
+H100 the pair is bit-identical to two skews and no slower, so the port
+has the one path.
+
 For CUDA tensors every pass launches a kernel of ``ops/dp_cuda.py``; for
 CPU tensors it runs the plain version in ``ops/dp_ref.py``.  Any other
 device raises.
@@ -54,9 +71,12 @@ from torch.autograd.function import once_differentiable
 
 from deepblast_torch import native
 from deepblast_torch.ops import dp_cuda, dp_ref
+from deepblast_torch.ops.menu import E_SCALE, DTypeMenu, as_menu
 
 __all__ = [
     "BACKENDS",
+    "DEFAULT_BACKEND",
+    "DTypeMenu",
     "get_backend",
     "alignment_score",
     "expected_alignment",
@@ -77,60 +97,84 @@ def _passes(t):
 
 
 class _Residuals:
-    """The default passes: residuals Dx, Dm (``ops/dp_bm.py``'s kernels)."""
+    """The default passes: residuals Dx, Dm (``ops/dp_bm.py``'s kernels),
+    with the storage menu."""
 
     stream = True
 
     @staticmethod
-    def forward(ops, th_s, A_s, ln, lm, kw):
-        vt, dx, dm = ops.forward(th_s, A_s, ln, lm, **kw)
+    def skew_inputs(ops, theta, A, menu):
+        return ops.skew_pair(theta, A, out_dtype=menu.stream_dtype,
+                             quant_scale=menu.stream_scale)
+
+    @staticmethod
+    def skew_cotangents(ops, Zt, Za, menu):
+        ct = menu.cotangent_dtype
+        if Za is None:
+            return ops.skew(Zt, out_dtype=ct), None
+        return ops.skew_pair(Zt, Za, out_dtype=ct)
+
+    @staticmethod
+    def forward(ops, th_s, A_s, ln, lm, kw, menu):
+        vt, dx, dm = ops.forward(th_s, A_s, ln, lm, dtypes=menu, **kw)
         return vt, (dx, dm)
 
     @staticmethod
-    def score(ops, th_s, A_s, ln, lm, kw):
-        return ops.forward_score(th_s, A_s, ln, lm, **kw)
+    def score(ops, th_s, A_s, ln, lm, kw, menu):
+        return ops.forward_score(th_s, A_s, ln, lm, dtypes=menu, **kw)
 
     @staticmethod
-    def backward(ops, aux, ln, lm, Et, kw, want_gap):
-        return ops.backward(*aux, ln, lm, Et, want_gap=want_gap, **kw)
+    def backward(ops, aux, ln, lm, Et, kw, want_gap, menu, decode=False):
+        return ops.backward(*aux, ln, lm, Et, want_gap=want_gap, dtypes=menu,
+                            decode=decode, **kw)
 
     @staticmethod
-    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw):
-        vtd, dxd, dmd = ops.adjoint_forward(*aux, zt_s, za_s, ln, lm, **kw)
+    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw, menu):
+        vtd, dxd, dmd = ops.adjoint_forward(*aux, zt_s, za_s, ln, lm,
+                                            dtypes=menu, **kw)
         return vtd, (dxd, dmd)
 
     @staticmethod
-    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw):
-        return ops.adjoint_backward(*aux, *adj, E_s, ln, lm, **kw)
+    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw, menu):
+        return ops.adjoint_backward(*aux, *adj, E_s, ln, lm, dtypes=menu,
+                                    **kw)
 
 
 class _QStreams:
     """The long-sequence passes: stored soft-argmax streams Q and Qd
-    (``ops/dp_pallas.py``'s kernels)."""
+    (``ops/dp_pallas.py``'s kernels); float32 storage, the menu ignored."""
 
     stream = False
 
     @staticmethod
-    def forward(ops, th_s, A_s, ln, lm, kw):
+    def skew_inputs(ops, theta, A, menu):
+        return ops.skew(theta), ops.skew(A)
+
+    @staticmethod
+    def skew_cotangents(ops, Zt, Za, menu):
+        return ops.skew(Zt), None if Za is None else ops.skew(Za)
+
+    @staticmethod
+    def forward(ops, th_s, A_s, ln, lm, kw, menu):
         vt, qx, qm, qy = ops.forward_q(th_s, A_s, ln, lm, **kw)
         return vt, (qx, qm, qy)
 
     @staticmethod
-    def score(ops, th_s, A_s, ln, lm, kw):
+    def score(ops, th_s, A_s, ln, lm, kw, menu):
         return ops.forward_q(th_s, A_s, ln, lm, **kw)[0]
 
     @staticmethod
-    def backward(ops, aux, ln, lm, Et, kw, want_gap):
+    def backward(ops, aux, ln, lm, Et, kw, want_gap, menu):
         return ops.backward_q(*aux, ln, lm, Et, mode=kw["mode"],
                               want_gap=want_gap)
 
     @staticmethod
-    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw):
+    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw, menu):
         vtd, *qd = ops.adjoint_forward_q(*aux, zt_s, za_s, ln, lm, **kw)
         return vtd, tuple(qd)
 
     @staticmethod
-    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw):
+    def adjoint_backward(ops, aux, adj, E_s, ln, lm, kw, menu):
         return ops.adjoint_backward_q(*aux, *adj, E_s, ln, lm,
                                       mode=kw["mode"])
 
@@ -138,6 +182,8 @@ class _QStreams:
 #: the backend names the port takes, as the JAX package's ``--backend``
 BACKENDS = {None: _Residuals, "pallas_bm": _Residuals, "pallas": _QStreams,
             "pallas_long": _QStreams}
+#: the name of the backend ``None`` selects
+DEFAULT_BACKEND = "pallas_bm"
 
 
 def get_backend(name=None):
@@ -182,15 +228,18 @@ class _Expected(torch.autograd.Function):
     """``(theta, A, Et) -> E`` (and ``E_A`` with ``return_gap``)."""
 
     @staticmethod
-    def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap, be):
+    def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap, be,
+                menu):
         ops = _passes(theta)
         B, N, M = theta.shape
         kw = dict(mode=mode, operator=operator)
-        _, aux = be.forward(ops, ops.skew(theta), ops.skew(A), ln, lm, kw)
-        E_s, EA_s = be.backward(ops, aux, ln, lm, Et, kw, return_gap)
+        th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+        _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
+        del th_s, A_s
+        E_s, EA_s = be.backward(ops, aux, ln, lm, Et, kw, return_gap, menu)
         # the backend's own residual, opaque here (the JAX "aux")
         ctx.save_for_backward(E_s, ln, lm, *aux)
-        ctx.cfg = (mode, operator, return_gap, be)
+        ctx.cfg = (mode, operator, return_gap, be, menu, theta.dtype)
         ctx.set_materialize_grads(False)
         E = ops.unskew(E_s, N, M)
         return (E, ops.unskew(EA_s, N, M)) if return_gap else E
@@ -199,96 +248,106 @@ class _Expected(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, Zt, Za=None):
         E_s, ln, lm, *aux = ctx.saved_tensors
-        mode, operator, return_gap, be = ctx.cfg
+        mode, operator, return_gap, be, menu, dtype = ctx.cfg
         ops = _passes(E_s)
         B, K, S = E_s.shape
         N, M = S - 1, K - S + 2
-        # cotangents are unbounded: they go through the float skew
-        if Zt is None:
-            zt_s = E_s.new_zeros((B, K, S))
-        else:
-            zt_s = ops.skew(Zt.to(E_s.dtype).contiguous())
-        # no gap cotangent (the training decode path): the adjoint forward
+        # cotangents are unbounded: never int16 (menu.cotangent_dtype); no
+        # gap cotangent (the training decode path): the adjoint forward
         # drops the Za stream instead of streaming zeros
-        za_s = None if (not return_gap or Za is None) else \
-            ops.skew(Za.to(E_s.dtype).contiguous())
+        if Zt is None:
+            Zt = E_s.new_zeros((B, N, M), dtype=dtype)
+        Za = None if (not return_gap or Za is None) else Za.contiguous()
+        zt_s, za_s = be.skew_cotangents(ops, Zt.contiguous(), Za, menu)
         kw = dict(mode=mode, operator=operator)
-        vtd, adj = be.adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw)
-        Ed_s, EdA_s = be.adjoint_backward(ops, aux, adj, E_s, ln, lm, kw)
+        vtd, adj = be.adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw, menu)
+        del zt_s, za_s
+        Ed_s, EdA_s = be.adjoint_backward(ops, aux, adj, E_s, ln, lm, kw,
+                                          menu)
         # E is linear in Et, so d<cts, E>/dEt = <cts, E>/Et = vtd (the
         # adjoint forward's terminal tangent does not involve Et)
         return (ops.unskew(Ed_s, N, M), ops.unskew(EdA_s, N, M), vtd,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 class _Score(torch.autograd.Function):
     """``(theta, A) -> Vt``; the gradient is :class:`_Expected` itself."""
 
     @staticmethod
-    def forward(ctx, theta, A, ln, lm, mode, operator, be):
+    def forward(ctx, theta, A, ln, lm, mode, operator, be, menu):
         ops = _passes(theta)
         ctx.save_for_backward(theta, A, ln, lm)
-        ctx.cfg = (mode, operator, be)
-        return be.score(ops, ops.skew(theta), ops.skew(A), ln, lm,
-                        dict(mode=mode, operator=operator))
+        ctx.cfg = (mode, operator, be, menu)
+        th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+        return be.score(ops, th_s, A_s, ln, lm,
+                        dict(mode=mode, operator=operator), menu)
 
     @staticmethod
     def backward(ctx, gVt):
         theta, A, ln, lm = ctx.saved_tensors
-        mode, operator, be = ctx.cfg
+        mode, operator, be, menu = ctx.cfg
         g_theta, g_A = _Expected.apply(theta, A, gVt.contiguous(), ln, lm,
-                                       mode, operator, True, be)
-        return g_theta, g_A, None, None, None, None, None
+                                       mode, operator, True, be, menu)
+        return g_theta, g_A, None, None, None, None, None, None
 
 
 def alignment_score(theta, A, lengths=None, *, mode="nw",
-                    operator="softmax", backend=None):
+                    operator="softmax", backend=None, dtypes=None):
     """Terminal smoothed alignment score ``Vt (B,)`` of a padded batch,
     differentiable twice in ``theta`` and ``A``.
 
     ``theta``/``A``: ``(B, N, M)`` match and per-cell gap potentials;
     ``lengths``: optional ``(ln, lm)`` true lengths (default: full);
-    ``backend``: see the module docstring."""
+    ``backend`` and ``dtypes``: see the module docstring."""
     be = get_backend(backend)
+    menu = as_menu(dtypes)
     theta, A = _check(theta, A)
     ln, lm = _lengths(theta, lengths)
-    return _Score.apply(theta, A, ln, lm, mode, operator, be)
+    return _Score.apply(theta, A, ln, lm, mode, operator, be, menu)
 
 
 def expected_alignment(theta, A, lengths=None, Et=None, *, mode="nw",
-                       operator="softmax", return_gap=False, backend=None):
+                       operator="softmax", return_gap=False, backend=None,
+                       dtypes=None):
     """Expected (posterior marginal) alignment ``E (B, N, M)`` — the
     gradient of :func:`alignment_score` scaled by ``Et`` (default ones) —
     differentiable in ``theta``, ``A`` and ``Et``.  With ``return_gap``
     also the expected gap-potential usage ``E_A = dVt/dA``: returns
-    ``(E, E_A)``."""
+    ``(E, E_A)``.  Under a menu the outputs are float32 whatever ``e``
+    stores."""
     be = get_backend(backend)
+    menu = as_menu(dtypes)
     theta, A = _check(theta, A)
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
     return _Expected.apply(theta, A, Et, ln, lm, mode, operator,
-                           bool(return_gap), be)
+                           bool(return_gap), be, menu)
 
 
 def expected_alignment_stream(theta, A, lengths=None, Et=None, *, mode="nw",
-                              operator="softmax", backend=None):
+                              operator="softmax", backend=None, dtypes=None):
     """Expected alignment (posterior marginals) as a ``(B, K, S)`` stream:
-    skew, forward with residuals, backward.  Inference only.  Cell
-    ``(i, j)`` of pair ``b`` is :func:`stream_cell` ``(E, b, i, j)``;
-    :func:`traceback_stream` walks it without a relayout.  Only the
-    default backend has it; the others raise (use
+    skew, forward with residuals, backward.  Inference only (the decode):
+    under a menu with ``e="int16"`` the stream is int16 fixed point at
+    scale 32767 (``Et`` in ``[0, 1]``), which :func:`traceback_stream`
+    dequantizes.  Cell ``(i, j)`` of pair ``b`` is :func:`stream_cell`
+    ``(E, b, i, j)``; :func:`traceback_stream` walks it without a
+    relayout.  Only the default backend has it; the others raise (use
     :func:`expected_alignment`)."""
     be = get_backend(backend)
     if not be.stream:
         raise ValueError(f"backend {backend!r} has no stream-layout "
                          "accessor; use expected_alignment")
+    menu = as_menu(dtypes)
     theta, A = _check(theta, A)
     ops = _passes(theta)
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
     kw = dict(mode=mode, operator=operator)
-    _, aux = be.forward(ops, ops.skew(theta), ops.skew(A), ln, lm, kw)
-    return be.backward(ops, aux, ln, lm, Et, kw, False)[0]
+    th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+    _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
+    del th_s, A_s
+    return be.backward(ops, aux, ln, lm, Et, kw, False, menu, decode=True)[0]
 
 
 def stream_cell(stream, b, i, j):
@@ -301,9 +360,19 @@ def stream_cell(stream, b, i, j):
 # ---------------------------------------------------------------------------
 
 def _host(x):
+    """A stream or matrix as a contiguous float32/float64 numpy array: a
+    bfloat16 tensor as float32 (exact), an int16 expectation stream
+    dequantized as ``q.astype(float32) * float32(1 / 32767)``
+    (``dp_bm._stream_accessor``, ``dp_bm.py:1140-1162``)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.ascontiguousarray(x)
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        x = x.cpu().numpy()
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.int16:
+        x = x.astype(np.float32) * np.float32(1.0 / E_SCALE)
+    return x
 
 
 def traceback(grad):

@@ -5,6 +5,8 @@ TPU functions replaced (``deepblast_tpu/ops/``):
 
 * :func:`skew` <- ``skew_bm.py:195`` ``skew_bm`` (via ``dp_bm.skew_input``
   and, for cotangents, ``dp_bm.skew_cotangent``);
+* :func:`skew_pair` <- ``skew_bm.py:243`` ``skew_bm_pair`` (via
+  ``dp_bm.skew_input_pair`` and ``dp_bm.skew_cotangent_pair``);
 * :func:`unskew` <- ``skew_bm.py:321`` ``unskew_bm``;
 * :func:`forward` <- ``dp_bm.py:1025`` ``decode_stream_bm``, forward phases;
   ``dp_bm.py:423`` ``forward_bm``; ``dp_bm_train.py:179``
@@ -35,6 +37,12 @@ The source is compiled by ``nvcc`` for ``sm_90a`` at first use into
 shared library with a plain C interface, and loaded with ``ctypes``.
 Nothing here is imported or built when the module is imported.
 
+The default backend's wrappers and the relayouts take the storage menu of
+``ops/menu.py`` (``dtypes=``; the skew's ``out_dtype`` / ``quant_scale``)
+and launch the kernel instance of those storage types.  Each stream must
+have the type the menu gives it: a stream of another type raises, nothing
+is cast.  The Q-stream wrappers take float32 only.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
 launches on PyTorch's current stream, raises if the launch reports an
@@ -57,9 +65,11 @@ import threading
 import torch
 
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
+from deepblast_torch.ops.menu import E_SCALE, I16_MAX, as_menu
 
 __all__ = ["LAUNCHES", "SMEM_ROWS", "reset_launches", "build", "max_smem",
-           "skew", "unskew", "forward", "forward_score", "backward",
+           "skew", "skew_pair", "unskew", "forward", "forward_score",
+           "backward",
            "adjoint_forward", "adjoint_backward", "forward_q", "backward_q",
            "adjoint_forward_q", "adjoint_backward_q"]
 
@@ -71,10 +81,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
+# storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
 
 #: launches of each kernel since the last :func:`reset_launches`
 #: (``backward`` counts its launches with and without the gap output)
-LAUNCHES = {"skew": 0, "unskew": 0, "forward": 0, "forward_score": 0,
+LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
+            "forward_score": 0,
             "backward": 0, "adjoint_forward": 0, "adjoint_backward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
             "adjoint_backward_q": 0}
@@ -133,17 +146,18 @@ def _lib():
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.dp_skew.argtypes = [p, i, i, i, p, p]
-            lib.dp_unskew.argtypes = [p, i, i, i, i, i, p, p]
-            lib.dp_forward.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                       p, p, p, p]
-            lib.dp_backward.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                        p, p, p]
-            lib.dp_adjoint_forward.argtypes = [p, p, p, p, p, p, i, i, i,
-                                               i, i, p, p, p, p]
-            lib.dp_adjoint_backward.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                i, i, i, p, p, p]
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.dp_skew.argtypes = [p, i, i, i, p, i, f, p]
+            lib.dp_skew_pair.argtypes = [p, p, i, i, i, p, p, i, f, p]
+            lib.dp_unskew.argtypes = [p, i, f, i, i, i, i, i, p, p]
+            lib.dp_forward.argtypes = [p, p, i, f, p, p, i, i, i, i, i, i,
+                                       i, p, p, p, p]
+            lib.dp_backward.argtypes = [p, p, i, p, p, p, i, i, i, i, i, i,
+                                        f, p, p, p]
+            lib.dp_adjoint_forward.argtypes = [p, p, i, p, p, i, p, p, i, i,
+                                               i, i, i, p, p, p, p]
+            lib.dp_adjoint_backward.argtypes = [p, p, p, p, i, p, i, p, p,
+                                                i, i, i, i, i, p, p, p]
             lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p,
                                          p, p]
             lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
@@ -153,7 +167,8 @@ def _lib():
             lib.dp_adjoint_backward_q.argtypes = [p, p, p, p, p, p, p, p, p,
                                                   i, i, i, i, p, p, p]
             lib.dp_max_smem.argtypes = [i]
-            for fn in (lib.dp_skew, lib.dp_unskew, lib.dp_forward,
+            for fn in (lib.dp_skew, lib.dp_skew_pair, lib.dp_unskew,
+                       lib.dp_forward,
                        lib.dp_backward, lib.dp_adjoint_forward,
                        lib.dp_adjoint_backward, lib.dp_forward_q,
                        lib.dp_backward_q, lib.dp_adjoint_forward_q,
@@ -163,11 +178,13 @@ def _lib():
     return _LIB
 
 
-def _check_f32(name, t, shape=None):
+def _check_stream(name, t, dtype=torch.float32, shape=None):
+    """A contiguous CUDA tensor of ``dtype`` (what the menu gives this
+    stream) and, when given, ``shape``; raises otherwise."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -217,13 +234,24 @@ def _check_smem(name, S, device):
                      f"kernel); {hint}")
 
 
-def _check_streams(names, streams):
-    """Each stream float32, contiguous, on the card, of the first's shape;
-    returns that shape."""
-    _check_f32(names[0], streams[0])
+def _check_streams(names, streams, dtype=torch.float32):
+    """Each stream of ``dtype``, contiguous, on the card, of the first's
+    shape; returns that shape."""
+    _check_stream(names[0], streams[0], dtype)
     for name, t in zip(names[1:], streams[1:]):
-        _check_f32(name, t, streams[0].shape)
+        _check_stream(name, t, dtype, streams[0].shape)
     return streams[0].shape
+
+
+def _code(dtype):
+    return _DTYPE_CODES[dtype]
+
+
+def _train_e_dtype(menu):
+    """E, EA, Ed, EdA of the training passes: the menu's ``e``, float32 for
+    an int16 ``e`` (unbounded values)."""
+    e = menu.e_dtype
+    return torch.float32 if e in (None, torch.int16) else e
 
 
 def _check_pass(name, shape, ln, lm, device):
@@ -248,127 +276,189 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def skew(x):
-    """Natural ``(B, N, M)`` float32 -> stream ``(B, K, S)``; every slot is
-    written (zeros outside the band)."""
-    _check_f32("x", x)
+def _skew_out(x, out_dtype, quant_scale):
+    _check_stream("x", x)
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, M), got {tuple(x.shape)}")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"the skew stores float32, bfloat16 or int16, not "
+                        f"{out_dtype}")
+    if (out_dtype == torch.int16) != (quant_scale is not None):
+        raise ValueError("an int16 stream needs a quant_scale, and only an "
+                         "int16 stream takes one")
     B, N, M = x.shape
-    out = torch.empty((B, N + M - 1, N + 1), dtype=x.dtype, device=x.device)
+    return out_dtype, (B, N + M - 1, N + 1), float(quant_scale or 0.0)
+
+
+def skew(x, out_dtype=None, quant_scale=None):
+    """Natural ``(B, N, M)`` float32 -> stream ``(B, K, S)`` of
+    ``out_dtype`` (float32, bfloat16, or int16 quantized at
+    ``quant_scale``); every slot is written (zeros outside the band)."""
+    out_dtype, shape, scale = _skew_out(x, out_dtype, quant_scale)
+    B, N, M = x.shape
+    out = torch.empty(shape, dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().dp_skew(_ptr(x), B, N, M, _ptr(out), _stream(x.device))
+        rc = _lib().dp_skew(_ptr(x), B, N, M, _ptr(out), _code(out_dtype),
+                            scale, _stream(x.device))
     _raise_on(rc, "skew")
     LAUNCHES["skew"] += 1
     return out
 
 
+def skew_pair(x, y, out_dtype=None, quant_scale=None):
+    """``(skew(x), skew(y))`` in one launch, bit-identical to two
+    :func:`skew` launches; ``x`` and ``y`` of one shape."""
+    out_dtype, shape, scale = _skew_out(x, out_dtype, quant_scale)
+    _check_stream("y", y, torch.float32, x.shape)
+    B, N, M = x.shape
+    ox = torch.empty(shape, dtype=out_dtype, device=x.device)
+    oy = torch.empty(shape, dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().dp_skew_pair(_ptr(x), _ptr(y), B, N, M, _ptr(ox),
+                                 _ptr(oy), _code(out_dtype), scale,
+                                 _stream(x.device))
+    _raise_on(rc, "skew_pair")
+    LAUNCHES["skew_pair"] += 1
+    return ox, oy
+
+
 def unskew(s, N, M):
-    """Stream ``(B, K, S)`` float32 -> natural ``(B, N, M)``,
-    ``out[b, i, j] = s[b, i+j, i+1]``; every natural cell is written."""
-    _check_f32("s", s)
+    """Stream ``(B, K, S)`` -> natural ``(B, N, M)`` float32,
+    ``out[b, i, j] = s[b, i+j, i+1]``; a bfloat16 stream is widened, an
+    int16 expectation stream dequantized by ``1 / 32767``; every natural
+    cell is written."""
+    if s.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the unskew reads float32, bfloat16 or int16, not "
+                        f"{s.dtype}")
+    _check_stream("s", s, s.dtype)
     B, K, S = s.shape
     if S != N + 1 or K != N + M - 1:
         raise ValueError(f"stream {tuple(s.shape)} does not hold ({N}, {M})")
-    out = torch.empty((B, N, M), dtype=s.dtype, device=s.device)
+    out = torch.empty((B, N, M), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
-        rc = _lib().dp_unskew(_ptr(s), B, K, S, N, M, _ptr(out),
-                              _stream(s.device))
+        rc = _lib().dp_unskew(_ptr(s), _code(s.dtype), 1.0 / E_SCALE, B, K,
+                              S, N, M, _ptr(out), _stream(s.device))
     _raise_on(rc, "unskew")
     LAUNCHES["unskew"] += 1
     return out
 
 
-def _forward(th_s, A_s, ln, lm, mode, operator, store):
+def _forward(th_s, A_s, ln, lm, mode, operator, store, dtypes):
+    menu = as_menu(dtypes)
     name = "forward" if store else "forward_score"
-    shape = _check_streams(("th_s", "A_s"), (th_s, A_s))
+    in_dt = menu.stream_dtype or torch.float32
+    d_dt = menu.d_dtype or torch.float32
+    shape = _check_streams(("th_s", "A_s"), (th_s, A_s), in_dt)
     _check_pass(name, shape, ln, lm, th_s.device)
     B, K, S = shape
     vt = torch.zeros((B,), dtype=torch.float32, device=th_s.device)
     if store:
-        dx = torch.empty_like(th_s)
-        dm = torch.empty_like(th_s)
+        dx = torch.empty(shape, dtype=d_dt, device=th_s.device)
+        dm = torch.empty(shape, dtype=d_dt, device=th_s.device)
     with torch.cuda.device(th_s.device):
         rc = _lib().dp_forward(
-            _ptr(th_s), _ptr(A_s), _ptr(ln), _ptr(lm), B, K, S,
-            MODE_BOUNDS[mode][0], _OPS[operator], int(store), _ptr(vt),
-            _ptr(dx) if store else None, _ptr(dm) if store else None,
-            _stream(th_s.device))
+            _ptr(th_s), _ptr(A_s), _code(in_dt),
+            menu.stream_range / I16_MAX, _ptr(ln), _ptr(lm), B, K, S,
+            MODE_BOUNDS[mode][0], _OPS[operator], int(store), _code(d_dt),
+            _ptr(vt), _ptr(dx) if store else None,
+            _ptr(dm) if store else None, _stream(th_s.device))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return (vt, dx, dm) if store else vt
 
 
-def forward(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
-    """``(vt (B,), Dx, Dm (B, K, S))``: the forward with residual stores."""
-    return _forward(th_s, A_s, ln, lm, mode, operator, True)
+def forward(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+            dtypes=None):
+    """``(vt (B,), Dx, Dm (B, K, S))``: the forward with residual stores,
+    Dx and Dm in the menu's ``d``."""
+    return _forward(th_s, A_s, ln, lm, mode, operator, True, dtypes)
 
 
-def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+                  dtypes=None):
     """``vt (B,)``: the score-only forward (no residual stores; each pair's
     walk stops at its terminal diagonal)."""
-    return _forward(th_s, A_s, ln, lm, mode, operator, False)
+    return _forward(th_s, A_s, ln, lm, mode, operator, False, dtypes)
 
 
 def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
-             want_gap=False):
+             want_gap=False, dtypes=None, decode=False):
     """``(E, EA)``: the expected alignment stream ``E (B, K, S)`` seeded
     with ``Et``, and with ``want_gap`` the gap expectation
-    ``EA = E (Qx + Qy)`` (else None)."""
-    shape = _check_streams(("Dx", "Dm"), (dxs, dms))
-    _check_f32("Et", Et, shape[:1])
+    ``EA = E (Qx + Qy)`` (else None), in the menu's ``e`` (int16 only with
+    ``decode``)."""
+    menu = as_menu(dtypes)
+    d_dt = menu.d_dtype or torch.float32
+    e_dt = (menu.e_dtype or torch.float32) if decode \
+        else _train_e_dtype(menu)
+    shape = _check_streams(("Dx", "Dm"), (dxs, dms), d_dt)
+    _check_stream("Et", Et, torch.float32, shape[:1])
     _check_pass("backward", shape, ln, lm, dxs.device)
     B, K, S = shape
-    E = torch.empty_like(dxs)
-    EA = torch.empty_like(dxs) if want_gap else None
+    E = torch.empty(shape, dtype=e_dt, device=dxs.device)
+    EA = torch.empty(shape, dtype=e_dt, device=dxs.device) if want_gap \
+        else None
     with torch.cuda.device(dxs.device):
         rc = _lib().dp_backward(
-            _ptr(dxs), _ptr(dms), _ptr(ln), _ptr(lm), _ptr(Et), B, K, S,
-            MODE_BOUNDS[mode][1], _OPS[operator], _ptr(E),
-            _ptr(EA) if want_gap else None, _stream(dxs.device))
+            _ptr(dxs), _ptr(dms), _code(d_dt), _ptr(ln), _ptr(lm), _ptr(Et),
+            B, K, S, MODE_BOUNDS[mode][1], _OPS[operator], _code(e_dt),
+            E_SCALE, _ptr(E), _ptr(EA) if want_gap else None,
+            _stream(dxs.device))
     _raise_on(rc, "backward")
     LAUNCHES["backward"] += 1
     return E, EA
 
 
 def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
-                    operator="softmax"):
+                    operator="softmax", dtypes=None):
     """``(vtd (B,), Dxd, Dmd (B, K, S))``: the tangent of the forward along
-    the skewed cotangents; ``za_s=None`` launches the kernel without a Za
-    stream (a zero gap cotangent)."""
-    names, streams = ("Dx", "Dm", "Zt"), (dxs, dms, zt_s)
+    the skewed cotangents, Dxd and Dmd in the menu's ``d``; ``za_s=None``
+    launches the kernel without a Za stream (a zero gap cotangent)."""
+    menu = as_menu(dtypes)
+    d_dt = menu.d_dtype or torch.float32
+    z_dt = menu.cotangent_dtype or torch.float32
+    shape = _check_streams(("Dx", "Dm"), (dxs, dms), d_dt)
+    _check_stream("Zt", zt_s, z_dt, shape)
     if za_s is not None:
-        names, streams = names + ("Za",), streams + (za_s,)
-    shape = _check_streams(names, streams)
+        _check_stream("Za", za_s, z_dt, shape)
     _check_pass("adjoint_forward", shape, ln, lm, dxs.device)
     B, K, S = shape
     vtd = torch.zeros((B,), dtype=torch.float32, device=dxs.device)
-    dxd = torch.empty_like(dxs)
-    dmd = torch.empty_like(dxs)
+    dxd = torch.empty(shape, dtype=d_dt, device=dxs.device)
+    dmd = torch.empty(shape, dtype=d_dt, device=dxs.device)
     with torch.cuda.device(dxs.device):
         rc = _lib().dp_adjoint_forward(
-            _ptr(dxs), _ptr(dms), _ptr(zt_s),
-            None if za_s is None else _ptr(za_s), _ptr(ln), _ptr(lm),
-            B, K, S, MODE_BOUNDS[mode][2], _OPS[operator], _ptr(vtd),
-            _ptr(dxd), _ptr(dmd), _stream(dxs.device))
+            _ptr(dxs), _ptr(dms), _code(d_dt), _ptr(zt_s),
+            None if za_s is None else _ptr(za_s), _code(z_dt), _ptr(ln),
+            _ptr(lm), B, K, S, MODE_BOUNDS[mode][2], _OPS[operator],
+            _ptr(vtd), _ptr(dxd), _ptr(dmd), _stream(dxs.device))
     _raise_on(rc, "adjoint_forward")
     LAUNCHES["adjoint_forward"] += 1
     return vtd, dxd, dmd
 
 
 def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
-                     operator="softmax"):
+                     operator="softmax", dtypes=None):
     """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the backward and
-    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``."""
-    shape = _check_streams(("Dx", "Dm", "Dxd", "Dmd", "E"),
-                           (dxs, dms, dxds, dmds, E))
+    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``, stored
+    like the training E."""
+    menu = as_menu(dtypes)
+    d_dt = menu.d_dtype or torch.float32
+    e_dt = _train_e_dtype(menu)
+    shape = _check_streams(("Dx", "Dm", "Dxd", "Dmd"),
+                           (dxs, dms, dxds, dmds), d_dt)
+    _check_stream("E", E, e_dt, shape)
     _check_pass("adjoint_backward", shape, ln, lm, dxs.device)
     B, K, S = shape
-    Ed = torch.empty_like(dxs)
-    EdA = torch.empty_like(dxs)
+    Ed = torch.empty(shape, dtype=e_dt, device=dxs.device)
+    EdA = torch.empty(shape, dtype=e_dt, device=dxs.device)
     with torch.cuda.device(dxs.device):
         rc = _lib().dp_adjoint_backward(
-            _ptr(dxs), _ptr(dms), _ptr(dxds), _ptr(dmds), _ptr(E), _ptr(ln),
-            _ptr(lm), B, K, S, MODE_BOUNDS[mode][3], _OPS[operator],
-            _ptr(Ed), _ptr(EdA), _stream(dxs.device))
+            _ptr(dxs), _ptr(dms), _ptr(dxds), _ptr(dmds), _code(d_dt),
+            _ptr(E), _code(e_dt), _ptr(ln), _ptr(lm), B, K, S,
+            MODE_BOUNDS[mode][3], _OPS[operator], _ptr(Ed), _ptr(EdA),
+            _stream(dxs.device))
     _raise_on(rc, "adjoint_backward")
     LAUNCHES["adjoint_backward"] += 1
     return Ed, EdA
@@ -397,7 +487,7 @@ def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
     streams, seeded with ``Et``, and with ``want_gap`` ``EA = E (Qx + Qy)``
     (else None)."""
     shape = _check_streams(("Qx", "Qm", "Qy"), (qx, qm, qy))
-    _check_f32("Et", Et, shape[:1])
+    _check_stream("Et", Et, torch.float32, shape[:1])
     _check_pass("backward_q", shape, ln, lm, qx.device)
     B, K, S = shape
     E = torch.empty_like(qx)

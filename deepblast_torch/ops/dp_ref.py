@@ -74,6 +74,22 @@ forward stores ``Qd = hessian3(Q, args_d)`` along the tangent arguments
 ``(Za + shr(Vd[r-1]), shr(Vd[r-2]), Za + Vd[r-1])`` with
 ``Vd[r] = Zt[r] + Qx xd + Qm md + Qy yd``, and the adjoint backward reads
 both.  Rows past ``K - 1`` read as zero (the TPU kernels' zero carries).
+
+Storage (``dtypes=``, a :class:`~deepblast_torch.ops.menu.DTypeMenu`) of
+the default backend's passes, with the semantics of their JAX
+counterparts: the forward dequantizes int16 input streams on load
+(``stream_range / 32767``) and rounds Dx, Dm to ``d`` at the store
+(``dp_bm.py:423-445``, ``:509-536``), while its value recurrence runs on
+the unrounded differences; the backward reads D and stores E (and EA) in
+``e``, except that an int16 ``e`` is stored in the compute type unless
+``decode=True`` (the decode's E, ``dp_bm.py:628``, ``:1037-1043``); the
+adjoint forward rounds Dxd, Dmd to ``d`` (``:709-716``); the adjoint
+backward reads D, Dd and E and stores Ed, EdA like the training E
+(``:837``).  Compute is float32, or the input type where that is wider
+(``menu.compute_dtype``, from theta's stream in the forward, ``Et`` in the
+backward, ``Zt``'s stream in the adjoint forward and ``E`` in the adjoint
+backward, as ``dp_bm._cdt``).  The Q-stream passes take no menu: the JAX
+package registers none for them (``dp_pallas.py:646-680``).
 """
 
 from __future__ import annotations
@@ -82,9 +98,11 @@ import torch
 import torch.nn.functional as F
 
 from deepblast_torch.ops import smooth
-from deepblast_torch.ops.skew import skew, unskew
+from deepblast_torch.ops.menu import (E_SCALE, I16_MAX, as_menu,
+                                      compute_dtype, dequantize, quantize)
+from deepblast_torch.ops.skew import skew, skew_pair, unskew
 
-__all__ = ["MODE_BOUNDS", "skew", "unskew", "forward", "forward_score",
+__all__ = ["MODE_BOUNDS", "skew", "skew_pair", "unskew", "forward", "forward_score",
            "backward", "adjoint_forward", "adjoint_backward", "forward_q",
            "backward_q", "adjoint_forward_q", "adjoint_backward_q"]
 
@@ -115,25 +133,53 @@ def _masks(slots, k, ln, lm, lo):
     return valid, term
 
 
-def _forward(th_s, A_s, ln, lm, mode, operator, store):
+def _load(x, cdt, stream_range):
+    """A stored stream row in the compute type: int16 fixed point
+    dequantized by ``stream_range / 32767`` (``dp_bm._deq``)."""
+    if x.dtype == torch.int16:
+        return dequantize(x, stream_range / I16_MAX, cdt)
+    return x.to(cdt)
+
+
+def _e_store(E, r, e, decode):
+    """Store row ``r`` of an expectation stream: int16 fixed point at scale
+    32767 only in the decode (``dp_bm._eq``)."""
+    E[:, r] = quantize(e, E_SCALE) if (decode and E.dtype == torch.int16) \
+        else e
+
+
+def _e_dtype(menu, cdt, decode):
+    """Storage of the expectation streams: ``e``, but the compute type for
+    an int16 ``e`` outside the decode (training E, Ed, EdA are unbounded)."""
+    edt = menu.e_dtype
+    if edt is None or (edt == torch.int16 and not decode):
+        return cdt
+    return edt
+
+
+def _forward(th_s, A_s, ln, lm, mode, operator, store, dtypes):
+    menu = as_menu(dtypes)
     B, K, S = th_s.shape
     lo = MODE_BOUNDS[mode][0]
+    cdt = compute_dtype(th_s.dtype)
+    rng = menu.stream_range
     slots = torch.arange(S, device=th_s.device)
-    zero = th_s.new_zeros(())
-    v1 = th_s.new_zeros((B, S))
+    zero = torch.zeros((), dtype=cdt, device=th_s.device)
+    v1 = th_s.new_zeros((B, S), dtype=cdt)
     v2 = v1
-    vt = th_s.new_zeros((B,))
-    dxs = torch.empty_like(th_s) if store else None
-    dms = torch.empty_like(th_s) if store else None
+    vt = th_s.new_zeros((B,), dtype=cdt)
+    ddt = menu.d_dtype or cdt
+    dxs = th_s.new_empty(th_s.shape, dtype=ddt) if store else None
+    dms = th_s.new_empty(th_s.shape, dtype=ddt) if store else None
     for r in range(K):
-        a = A_s[:, r]
+        a = _load(A_s[:, r], cdt, rng)
         dx = _shr(v1) - v1
         dm = _shr(v2) - a - v1
         if store:
             dxs[:, r] = dx
             dms[:, r] = dm
         rel, _ = smooth.max3(operator, dx, dm, torch.zeros_like(dx))
-        v = th_s[:, r] + a + v1 + rel
+        v = _load(th_s[:, r], cdt, rng) + a + v1 + rel
         valid, term = _masks(slots, r + 2, ln, lm, lo)
         v = torch.where(valid, v, zero)
         vt = vt + torch.where(term, v, zero).sum(1)
@@ -141,44 +187,52 @@ def _forward(th_s, A_s, ln, lm, mode, operator, store):
     return vt, dxs, dms
 
 
-def forward(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
-    """Forward pass storing the residuals: ``(vt (B,), Dx, Dm (B, K, S))``.
-    Plain version of the ``forward`` kernel."""
-    return _forward(th_s, A_s, ln, lm, mode, operator, True)
+def forward(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+            dtypes=None):
+    """Forward pass storing the residuals: ``(vt (B,), Dx, Dm (B, K, S))``,
+    Dx and Dm in the menu's ``d``.  Plain version of the ``forward``
+    kernel."""
+    return _forward(th_s, A_s, ln, lm, mode, operator, True, dtypes)
 
 
-def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+def forward_score(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+                  dtypes=None):
     """Terminal scores ``vt (B,)`` only.  Plain version of the
     ``forward_score`` kernel."""
-    return _forward(th_s, A_s, ln, lm, mode, operator, False)[0]
+    return _forward(th_s, A_s, ln, lm, mode, operator, False, dtypes)[0]
 
 
 def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
-             want_gap=False):
+             want_gap=False, dtypes=None, decode=False):
     """Expected alignment ``E (B, K, S)`` from the forward residuals,
     seeded with ``Et (B,)`` at each pair's terminal cell, and with
     ``want_gap`` the gap expectation ``EA = E (Qx + Qy)`` (else None).
-    Returns ``(E, EA)``.  Plain version of the ``backward`` kernel."""
+    Returns ``(E, EA)`` in the menu's ``e`` (int16 only with ``decode``,
+    which assumes ``Et`` in ``[0, 1]``).  Plain version of the
+    ``backward`` kernel."""
+    menu = as_menu(dtypes)
     B, K, S = dxs.shape
     lo = MODE_BOUNDS[mode][1]
+    cdt = compute_dtype(Et.dtype)
     slots = torch.arange(S, device=dxs.device)
-    zero = dxs.new_zeros(())
-    Et = Et.to(dxs.dtype)[:, None]
-    z = dxs.new_zeros((B, S))
+    zero = torch.zeros((), dtype=cdt, device=dxs.device)
+    Et = Et[:, None]
+    z = dxs.new_zeros((B, S), dtype=cdt)
     e1 = e2 = z
     qx1 = qm1 = qy1 = qm2 = z
-    E = torch.empty_like(dxs)
-    EA = torch.empty_like(dxs) if want_gap else None
+    edt = _e_dtype(menu, cdt, decode)
+    E = dxs.new_empty(dxs.shape, dtype=edt)
+    EA = dxs.new_empty(dxs.shape, dtype=edt) if want_gap else None
     for r in reversed(range(K)):
         e = _shl(qx1 * e1) + _shl(qm2 * e2) + qy1 * e1
         valid, term = _masks(slots, r + 2, ln, lm, lo)
         e = torch.where(valid, e, zero)
         e = e + torch.where(term, Et, zero)
-        E[:, r] = e
-        _, (qx, qm, qy) = smooth.max3(operator, dxs[:, r], dms[:, r],
-                                      torch.zeros_like(e))
+        _e_store(E, r, e, decode)
+        _, (qx, qm, qy) = smooth.max3(operator, dxs[:, r].to(cdt),
+                                      dms[:, r].to(cdt), torch.zeros_like(e))
         if want_gap:
-            EA[:, r] = e * (qx + qy)
+            _e_store(EA, r, e * (qx + qy), decode)
         e2, e1 = e1, e
         qm2 = qm1
         qx1, qm1, qy1 = qx, qm, qy
@@ -186,31 +240,36 @@ def backward(dxs, dms, ln, lm, Et, *, mode="nw", operator="softmax",
 
 
 def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
-                    operator="softmax"):
+                    operator="softmax", dtypes=None):
     """Tangent of the forward along the skewed cotangents ``zt_s`` and
     ``za_s`` (``None``: a zero gap cotangent, no Za term at all).  Returns
-    ``(vtd (B,), Dxd, Dmd (B, K, S))``.  Plain version of the
-    ``adjoint_forward`` kernel."""
+    ``(vtd (B,), Dxd, Dmd (B, K, S))``, Dxd and Dmd in the menu's ``d``.
+    Plain version of the ``adjoint_forward`` kernel."""
+    menu = as_menu(dtypes)
     B, K, S = dxs.shape
     lo = MODE_BOUNDS[mode][2]
+    cdt = compute_dtype(zt_s.dtype)
+    rng = menu.stream_range
     slots = torch.arange(S, device=dxs.device)
-    zero = dxs.new_zeros(())
-    vd1 = dxs.new_zeros((B, S))
+    zero = torch.zeros((), dtype=cdt, device=dxs.device)
+    vd1 = dxs.new_zeros((B, S), dtype=cdt)
     vd2 = vd1
-    vtd = dxs.new_zeros((B,))
-    dxds = torch.empty_like(dxs)
-    dmds = torch.empty_like(dxs)
+    vtd = dxs.new_zeros((B,), dtype=cdt)
+    ddt = menu.d_dtype or cdt
+    dxds = dxs.new_empty(dxs.shape, dtype=ddt)
+    dmds = dxs.new_empty(dxs.shape, dtype=ddt)
     for r in range(K):
-        _, (qx, qm, _) = smooth.max3(operator, dxs[:, r], dms[:, r],
-                                     torch.zeros_like(vd1))
+        _, (qx, qm, _) = smooth.max3(operator, dxs[:, r].to(cdt),
+                                     dms[:, r].to(cdt), torch.zeros_like(vd1))
         dxd = _shr(vd1) - vd1
+        zt = _load(zt_s[:, r], cdt, rng)
         if za_s is None:
             dmd = _shr(vd2) - vd1
-            vd = zt_s[:, r] + vd1 + qx * dxd + qm * dmd
+            vd = zt + vd1 + qx * dxd + qm * dmd
         else:
-            za = za_s[:, r]
+            za = _load(za_s[:, r], cdt, rng)
             dmd = _shr(vd2) - za - vd1
-            vd = zt_s[:, r] + za + vd1 + qx * dxd + qm * dmd
+            vd = zt + za + vd1 + qx * dxd + qm * dmd
         dxds[:, r] = dxd
         dmds[:, r] = dmd
         valid, term = _masks(slots, r + 2, ln, lm, lo)
@@ -221,30 +280,37 @@ def adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, *, mode="nw",
 
 
 def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
-                     operator="softmax"):
+                     operator="softmax", dtypes=None):
     """Tangent of the backward: ``(Ed, EdA)``, both ``(B, K, S)``, from the
     forward residuals, the adjoint forward's ``Dxd``/``Dmd`` and the
-    backward's ``E``.  Plain version of the ``adjoint_backward`` kernel."""
+    backward's ``E``, stored like the training E (the menu's ``e``, the
+    compute type for int16).  Plain version of the ``adjoint_backward``
+    kernel."""
+    menu = as_menu(dtypes)
     B, K, S = dxs.shape
     lo = MODE_BOUNDS[mode][3]
+    cdt = compute_dtype(E.dtype)
     slots = torch.arange(S, device=dxs.device)
-    zero = dxs.new_zeros(())
-    z = dxs.new_zeros((B, S))
+    zero = torch.zeros((), dtype=cdt, device=dxs.device)
+    z = dxs.new_zeros((B, S), dtype=cdt)
     ed1 = ed2 = e1 = e2 = z
     qx1 = qm1 = qy1 = qm2 = z
     qdx1 = qdm1 = qdy1 = qdm2 = z
-    Ed = torch.empty_like(dxs)
-    EdA = torch.empty_like(dxs)
+    edt = _e_dtype(menu, cdt, False)
+    Ed = dxs.new_empty(dxs.shape, dtype=edt)
+    EdA = dxs.new_empty(dxs.shape, dtype=edt)
     for r in reversed(range(K)):
         ed = (_shl(qdx1 * e1 + qx1 * ed1) + _shl(qdm2 * e2 + qm2 * ed2)
               + qdy1 * e1 + qy1 * ed1)
         valid, _ = _masks(slots, r + 2, ln, lm, lo)
         ed = torch.where(valid, ed, zero)
         Ed[:, r] = ed
-        q = smooth.max3(operator, dxs[:, r], dms[:, r], torch.zeros_like(ed))[1]
+        q = smooth.max3(operator, dxs[:, r].to(cdt), dms[:, r].to(cdt),
+                        torch.zeros_like(ed))[1]
         qd = smooth.hessian3(operator, q,
-                             (dxds[:, r], dmds[:, r], torch.zeros_like(ed)))
-        e = E[:, r]
+                             (dxds[:, r].to(cdt), dmds[:, r].to(cdt),
+                              torch.zeros_like(ed)))
+        e = E[:, r].to(cdt)
         EdA[:, r] = ed * (q[0] + q[2]) + e * (qd[0] + qd[2])
         ed2, ed1 = ed1, ed
         e2, e1 = e1, e

@@ -24,6 +24,14 @@ the clip ``g <- g / |g| * c`` when ``|g| >= c`` (``clip_grad_norm_`` adds
 its rate set per update by ``LambdaLR`` over a base rate of 1.  Only the
 aligner trains; the LM is frozen (``finetune`` is a later slice).
 
+The DP storage menu (``ops/menu.py``) follows the JAX package's config
+(``trainer.py:100-124``, ``:208-239``): ``dp_bf16_residuals`` ("auto": on
+for the pallas backends, which includes the default ``pallas_bm``; the Q
+backends ignore the menu), ``dp_i16_streams`` (int16 input streams, and
+int16 E in the decode) and ``dp_decode_menu`` ("fast": bf16 residuals and
+int16 E for :meth:`DeepBLAST.align` only).  ``fit`` and ``score_pairs``
+run the training menu, ``align`` the decode menu.
+
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; without a CUDA device and without ``device="cpu"`` they raise.
 The port runs at precision "32": on CUDA it turns TF32 off for matmuls
@@ -49,16 +57,27 @@ from deepblast_torch.eval.score import ROC_COLUMNS, filter_gaps, roc_edges
 from deepblast_torch.models.aligner import NeuralAligner
 from deepblast_torch.models.lm import RMSNorm, T5Config, T5Encoder, TokenEmbed
 from deepblast_torch.ops import dp as dp_ops
+from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.train.losses import get_loss
 from deepblast_torch.train.schedules import make_schedule
+from deepblast_torch.unported import UNPORTED, check_ported
 
 __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 
+#: JAX config.json fields that change nothing the port computes or trains:
+#: the share of validation pairs drawn as figures (no figures yet), the
+#: tensor-parallel mesh (one device), a dispatch amortisation with
+#: identical per-step semantics, and the BiLM feature schema (BiLM itself
+#: is refused by ``lm_type``)
+_DROPPED_FIELDS = ("visualization_fraction", "tp", "use_tp_params",
+                   "steps_per_dispatch", "bilstm_onehot_channel")
+
+
 @dataclasses.dataclass
 class DeepBLASTConfig:
-    """Hyper-parameters (the JAX package's field names; its fields for
-    options the port does not have yet are ignored on load)."""
+    """Hyper-parameters (the JAX package's field names; see
+    :meth:`from_json` for its fields the port does not have)."""
 
     # model
     embedding_dim: int = 1024       # LM feature dim fed to the heads
@@ -81,6 +100,11 @@ class DeepBLASTConfig:
     grad_clip: Optional[float] = None
     mask_gaps: bool = True
     seed: int = 0
+    # DP storage menu ("auto": on for the pallas backends, the default's
+    # pallas_bm included)
+    dp_bf16_residuals: "bool | str" = "auto"
+    dp_i16_streams: bool = False
+    dp_decode_menu: str = "default"     # default | fast (align only)
     # data
     train_pairs: Optional[str] = None
     valid_pairs: Optional[str] = None
@@ -91,9 +115,29 @@ class DeepBLASTConfig:
 
     @classmethod
     def from_json(cls, s):
+        """The config of a ``config.json`` written by the port or by the
+        JAX package.  A field whose value the port does not take (e.g.
+        ``"finetune": true``, ``"precision": "bf16"``, ``"lm_type":
+        "bilstm"``) raises ``ValueError`` naming its ROADMAP.md item, as
+        does a field neither package writes.  Dropped: the fields of
+        ``_DROPPED_FIELDS``, which change nothing the port computes or
+        trains, and ``"t5"``, the port's own T5 geometry (read by
+        ``load_model``)."""
         d = json.loads(s)
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in names})
+        kept = {}
+        for k, v in d.items():
+            if k in _DROPPED_FIELDS or k == "t5":
+                continue
+            if k in UNPORTED:
+                check_ported(k, v, f"config.json field {k!r} =")
+                if k not in names:      # the one value the port runs
+                    continue
+            if k not in names:
+                raise ValueError(f"config.json field {k!r} is not a field of "
+                                 "DeepBLASTConfig")
+            kept[k] = v
+        return cls(**kept)
 
 
 def resolve_device(device=None):
@@ -146,6 +190,9 @@ class DeepBLAST:
         self._ext_lm_params = lm_params is not None
         if lm_params is not None:
             self.lm.load_state_dict(lm_params)
+        self.dp_dtypes = self._dp_dtype_menu(config)
+        self.dp_decode_dtypes = self._dp_decode_dtype_menu(config,
+                                                           self.dp_dtypes)
         self.aligner = NeuralAligner(
             embedding_dim=config.embedding_dim,
             hidden_dim=config.hidden_dim,
@@ -156,6 +203,7 @@ class DeepBLAST:
             alignment_mode=config.alignment_mode,
             operator=config.operator,
             backend=config.backend,
+            dp_dtypes=self.dp_dtypes,
             device=self.device,
         ).eval()
         self.loss_fn = get_loss(config.loss)
@@ -163,6 +211,35 @@ class DeepBLAST:
         self.state = None   # training state to resume from (load_model)
         self._spe = 1
         self._opt = self._sched = None
+
+    @staticmethod
+    def _dp_dtype_menu(config):
+        """The training and scoring storage menu (``trainer.py:208-227``):
+        ``"auto"`` resolves by the backend's name, on for the pallas
+        backends (``None`` is ``pallas_bm``)."""
+        bf16 = config.dp_bf16_residuals
+        if bf16 == "auto":
+            name = dp_ops.DEFAULT_BACKEND if config.backend is None \
+                else config.backend
+            bf16 = name.startswith("pallas")
+        elif not isinstance(bf16, bool):
+            raise ValueError(f"dp_bf16_residuals {bf16!r}: expected 'auto', "
+                             "true or false")
+        if not (bf16 or config.dp_i16_streams):
+            return None
+        i16 = "int16" if config.dp_i16_streams else None
+        return DTypeMenu.make(stream=i16, d="bfloat16" if bf16 else None,
+                              e=i16)
+
+    @staticmethod
+    def _dp_decode_dtype_menu(config, train_menu):
+        """The decode's menu for :meth:`align` (``trainer.py:229-239``)."""
+        if config.dp_decode_menu == "default":
+            return train_menu
+        if config.dp_decode_menu == "fast":
+            return DTypeMenu.make(d="bfloat16", e="int16")
+        raise ValueError(f"unknown dp_decode_menu {config.dp_decode_menu!r} "
+                         "(expected 'default' or 'fast')")
 
     def _build_lm(self):
         c = self.config
@@ -222,7 +299,11 @@ class DeepBLAST:
         hx, hy = self._embeddings(batch)
         lengths = (batch["x_len"], batch["y_len"])
         if dp_ops.get_backend(self.config.backend).stream:
-            E = self.aligner.decode_stream(hx, hy, lengths)
+            theta, A = self.aligner.potentials(hx, hy, lengths)
+            E = dp_ops.expected_alignment_stream(
+                theta, A, lengths, mode=self.aligner.mode,
+                operator=self.config.operator, backend=self.config.backend,
+                dtypes=self.dp_decode_dtypes)
             states = dp_ops.traceback_stream(E, len(x_tok), len(y_tok), 0)
         else:
             aln, _, _ = self.aligner(hx, hy, lengths)

@@ -1,0 +1,45 @@
+"""The JAX package's options that the port does not take yet.
+
+:data:`UNPORTED` maps an option (a ``deepblast-train`` flag's destination,
+which for most is also a ``DeepBLASTConfig`` field) to the values the port
+takes and the ROADMAP.md item that ports the rest.  ``cli.common`` checks
+a command line against it and ``DeepBLASTConfig.from_json`` a loaded
+``config.json``, so that no option is silently ignored.
+"""
+
+from __future__ import annotations
+
+from deepblast_torch.ops.dp import BACKENDS
+
+__all__ = ["UNPORTED", "check_ported"]
+
+#: option -> (the values the port takes, ROADMAP.md item)
+UNPORTED = {
+    "finetune": ((False,), "queue A item 1 (trainer options: finetune)"),
+    "precision": (("32",), "queue A item 1 (trainer options: precision "
+                           "bf16/16)"),
+    "grad_accum": ((1,), "queue A item 1 (trainer options: grad_accum)"),
+    "steps_per_dispatch": ((1,), "queue A item 1 (trainer options: "
+                                 "steps_per_dispatch)"),
+    "lm_type": (("embed", "prot_t5"), "queue A item 2 (BiLM)"),
+    "layer_type": (("cnn",), "queue A item 2 (the RNN head)"),
+    "backend": (tuple(BACKENDS), "queue A item 10 (the scan backend, "
+                                 "ops/dp_scan.py)"),
+    "nodes": ((1,), "queue A item 5 (data parallel)"),
+    "coordinator": ((None,), "queue A item 5 (data parallel)"),
+    "process_id": ((None,), "queue A item 5 (data parallel)"),
+    "tp": ((1,), "queue A item 5 (data parallel)"),
+    "visualization_fraction": ((0.0,), "queue A item 7 (visualisations "
+                                       "and TensorBoard)"),
+    "pretrain_path": ((None,), "queue A item 8 (HF ProtT5 weights)"),
+}
+
+
+def check_ported(option, value, what):
+    """Raise ``ValueError`` naming the ROADMAP.md item when ``value`` of
+    ``option`` (described as ``what``, e.g. the flag) is not one the port
+    takes."""
+    ported, item = UNPORTED[option]
+    if value not in ported:
+        raise ValueError(f"{what} {value!r} is not ported to deepblast_torch "
+                         f"yet: ROADMAP.md {item}")

@@ -1,0 +1,191 @@
+"""The port's configuration against the JAX package's: the storage-menu
+fields (``dp_bf16_residuals``, ``dp_i16_streams``, ``dp_decode_menu``) and
+the menus they resolve to, ``config.json`` in both directions,
+``cli.train``'s menu flags, and ``DeepBLASTConfig.from_json`` refusing a
+JAX ``config.json`` whose options the port does not have (it used to drop
+them without a word, ROADMAP.md queue C).  Everything is exact: no
+numbers are compared.
+"""
+
+import argparse
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from deepblast_torch.cli import common as tcommon
+from deepblast_torch.cli import train as ttrain
+from deepblast_torch.ops import dp_ref
+from deepblast_torch.ops.menu import DTypeMenu
+from deepblast_torch.train import trainer as ttrainer
+from deepblast_torch.train.checkpoint import load_model, save_config
+from deepblast_tpu.train import trainer as jtrainer
+from test_train import fixture_frame
+
+TINY = dict(embedding_dim=16, hidden_dim=16, layers=2, k_size=5,
+            vocab_size=32, lm_type="embed", batch_size=4,
+            learning_rate=5e-3, epochs=1, max_len=64, pad_multiple=8,
+            dropout=0.0)
+MENU_FIELDS = ("dp_bf16_residuals", "dp_i16_streams", "dp_decode_menu")
+
+
+def _menus(model):
+    return (model.dp_dtypes, model.dp_decode_dtypes)
+
+
+def _jax_menus(cfg):
+    train = jtrainer.DeepBLAST._dp_dtype_menu(cfg)
+    return (train, jtrainer.DeepBLAST._dp_decode_dtype_menu(cfg, train))
+
+
+@pytest.mark.parametrize("fields", [
+    dict(dp_bf16_residuals=False, dp_i16_streams=True,
+         dp_decode_menu="fast"),
+    dict(dp_bf16_residuals=True, dp_i16_streams=False,
+         dp_decode_menu="default", backend="pallas_bm"),
+    dict(dp_bf16_residuals="auto", backend="pallas_long"),
+])
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_config_json_round_trips_the_menu(tmp_path, source, fields):
+    """The three menu fields cross ``config.json`` both ways and resolve to
+    the JAX trainer's menus (``"auto"`` compared where the two packages
+    name the same backend: the JAX package's CPU default is scan)."""
+    if source == "port":
+        save_config(ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(
+            **fields, **TINY), device="cpu"), str(tmp_path))
+    else:
+        with open(tmp_path / "config.json", "w") as f:
+            f.write(jtrainer.DeepBLASTConfig(**fields, **TINY).to_json())
+    with open(tmp_path / "config.json") as f:
+        raw = f.read()
+    jcfg = jtrainer.DeepBLASTConfig.from_json(raw)
+    model = load_model(str(tmp_path), device="cpu")
+    for k in MENU_FIELDS:
+        assert getattr(model.config, k) == getattr(jcfg, k) == \
+            fields.get(k, getattr(jcfg, k))
+    assert [None if m is None else tuple(m) for m in _menus(model)] == \
+        [None if m is None else tuple(m) for m in _jax_menus(jcfg)]
+    assert model.aligner.dp_dtypes == model.dp_dtypes
+
+
+def test_auto_is_on_for_the_default_backend():
+    """``"auto"`` resolves by the backend's name: the port's ``None`` is
+    ``pallas_bm``, so the default trains with bf16 residuals, as
+    ``deepblast-train`` does on the TPU."""
+    model = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(**TINY),
+                               device="cpu")
+    assert model.config.dp_bf16_residuals == "auto"
+    assert _menus(model) == (DTypeMenu.make(d="bfloat16"),) * 2
+    jcfg = jtrainer.DeepBLASTConfig(backend="pallas_bm", **TINY)
+    assert tuple(_menus(model)[0]) == tuple(_jax_menus(jcfg)[0])
+    args = tcommon.add_infra_args(tcommon.add_model_args(
+        argparse.ArgumentParser())).parse_args(
+        ["--train-pairs", "t", "--valid-pairs", "v", "-o", "o"])
+    assert args.dp_bf16_residuals == "auto"
+    assert tcommon.config_from_args(args).dp_bf16_residuals == "auto"
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("finetune", True, "queue A item 1"),
+    ("precision", "bf16", "queue A item 1"),
+    ("grad_accum", 2, "queue A item 1"),
+    ("lm_type", "bilstm", "queue A item 2"),
+    ("layer_type", "rnn", "queue A item 2"),
+    ("backend", "scan", "queue A item 10"),
+])
+def test_load_model_refuses_unported_jax_fields(tmp_path, field, value,
+                                                item):
+    """A JAX ``config.json`` with an option the port does not have raises,
+    naming the ROADMAP.md item (before, ``from_json`` dropped it and the
+    port computed or trained something else than the JAX model)."""
+    cfg = dict(TINY, **{field: value})
+    if field == "lm_type":
+        cfg["bilstm_onehot_channel"] = True
+    with open(tmp_path / "config.json", "w") as f:
+        f.write(jtrainer.DeepBLASTConfig(**cfg).to_json())
+    with pytest.raises(ValueError,
+                       match=f"'{field}'.*not ported.*ROADMAP.md {item}"):
+        load_model(str(tmp_path), device="cpu")
+
+
+def test_from_json_drops_only_what_changes_nothing():
+    """The JAX fields that change nothing the port computes load (and are
+    dropped); a field neither package writes raises."""
+    raw = json.loads(jtrainer.DeepBLASTConfig(**TINY).to_json())
+    raw.update(visualization_fraction=0.5, tp=2, use_tp_params=True,
+               steps_per_dispatch=8)
+    cfg = ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))
+    assert cfg.embedding_dim == 16 and cfg.dp_bf16_residuals == "auto"
+    raw["bogus"] = 1
+    with pytest.raises(ValueError, match="'bogus' is not a field"):
+        ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))
+
+
+def _write_tsv(path, frame):
+    with open(path, "w") as f:
+        for row in frame.values.tolist():
+            f.write("\t".join(str(v) for v in row) + "\n")
+
+
+@pytest.mark.parametrize("flags,train_menu,decode_menu", [
+    (["--dp-i16-streams", "--dp-decode-menu", "fast"],
+     DTypeMenu.make(stream="int16", d="bfloat16", e="int16"),
+     DTypeMenu.make(d="bfloat16", e="int16")),
+    (["--no-dp-bf16-residuals"], None, None),
+])
+def test_cli_train_takes_the_menu_flags(tmp_path, monkeypatch, flags,
+                                        train_menu, decode_menu):
+    """``cli.train`` passes the menu flags into config.json; training runs
+    the training menu (int16 inputs, float E), ``align`` the decode menu
+    (an int16 E stream under "fast") and ``score_pairs`` the training
+    menu."""
+    train, valid = tmp_path / "train.tsv", tmp_path / "valid.tsv"
+    _write_tsv(train, fixture_frame(n_rows=4, seed=1))
+    _write_tsv(valid, fixture_frame(n_rows=2, seed=2))
+    seen = []
+    forward, backward = dp_ref._forward, dp_ref.backward
+
+    def spy_forward(th_s, *a):
+        seen.append(("forward", th_s.dtype, a[-1]))
+        return forward(th_s, *a)
+
+    def spy_backward(*a, **k):
+        out = backward(*a, **k)
+        seen.append(("backward", out[0].dtype, k.get("dtypes")))
+        return out
+
+    monkeypatch.setattr(dp_ref, "_forward", spy_forward)
+    monkeypatch.setattr(dp_ref, "backward", spy_backward)
+    out = tmp_path / "out"
+    assert ttrain.main([
+        "--train-pairs", str(train), "--valid-pairs", str(valid),
+        "-o", str(out), "--embedding-dim", "16", "--hidden-dim", "16",
+        "--batch-size", "4", "--epochs", "1", "--max-len", "64",
+        "--device", "cpu", *flags]) == 0
+    # the dispatcher passes None as the all-float32 menu
+    tm, dm = (m or DTypeMenu() for m in (train_menu, decode_menu))
+    stream = tm.stream_dtype or torch.float32
+    assert seen and all(s == ("forward", stream, tm)
+                        for s in seen if s[0] == "forward")
+    assert all(s == ("backward", torch.float32, tm)
+               for s in seen if s[0] == "backward")
+    with open(out / "config.json") as f:
+        cfg = json.load(f)
+    assert {k: cfg[k] for k in MENU_FIELDS} == {
+        "dp_bf16_residuals": (False if "--no-dp-bf16-residuals" in flags
+                              else "auto"),
+        "dp_i16_streams": "--dp-i16-streams" in flags,
+        "dp_decode_menu": "fast" if "fast" in flags else "default"}
+    model = load_model(str(out), device="cpu")
+    assert _menus(model) == (train_menu, decode_menu)
+    seen.clear()
+    s = model.align("ACDEFGHIKL", "ACDFGHIKLM")
+    assert s.count(":") + s.count("1") == 10
+    assert seen[-1] == ("backward", dm.e_dtype or torch.float32, dm)
+    tok = model.tokenizer("ACDEFG")[0]
+    batch = dict(x=tok[None], y=tok[None], x_len=np.array([6]),
+                 y_len=np.array([6]))
+    seen.clear()
+    assert torch.isfinite(model.score_pairs(batch)).all()
+    assert seen == [("forward", stream, tm)]

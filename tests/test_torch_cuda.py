@@ -16,7 +16,12 @@ tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
 The Q-stream kernels of the ``pallas_long`` backend are held to the same
 checks (``chip_smoke.check_q_kernels``), also past the default kernels'
 shared-memory limit, where the default backend must refuse with an error
-that names the limit.
+that names the limit.  Every storage form of the default kernels (the
+menus of ``chip_smoke.MENUS``: bf16 and int16 inputs, bf16 residuals,
+bf16 and int16 expectations) and the pair skew are held to their plain
+versions by ``chip_smoke.check_menu_kernels`` (the same tolerance, stored
+values compared as float32; the relayouts exactly, the pair = two single
+skews), and a stream of another type than its menu gives it raises.
 """
 
 import numpy as np
@@ -27,6 +32,8 @@ import chip_smoke
 from chip_smoke import ATOL, RTOL
 from deepblast_torch.ops import dp as dp_ops
 from deepblast_torch.ops import dp_cuda
+from deepblast_torch.ops.menu import DTypeMenu
+from deepblast_torch.ops.skew import skew as plain_skew
 
 pytestmark = pytest.mark.cuda
 
@@ -90,7 +97,8 @@ def test_dispatcher_launches_kernels(cuda):
     vt = dp_ops.alignment_score(theta, A, (ln, lm))
     E = dp_ops.expected_alignment_stream(theta, A, (ln, lm))
     after = dp_cuda.LAUNCHES
-    assert after["skew"] - before["skew"] == 4
+    assert after["skew_pair"] - before["skew_pair"] == 2
+    assert after["skew"] - before["skew"] == 0
     assert after["forward_score"] - before["forward_score"] == 1
     assert after["forward"] - before["forward"] == 1
     assert after["backward"] - before["backward"] == 1
@@ -101,13 +109,13 @@ def test_dispatcher_launches_kernels(cuda):
                                dp_ops.expected_alignment_stream(*args),
                                rtol=RTOL, atol=ATOL)
 
-    # the training step: skew of theta, A and the cotangent; forward,
-    # backward, unskew; the two adjoints and two unskews
+    # the training step: pair skew of theta and A, skew of the cotangent;
+    # forward, backward, unskew; the two adjoints and two unskews
     t = theta.clone().requires_grad_()
     before = dict(dp_cuda.LAUNCHES)
     aln = dp_ops.expected_alignment(t, A, (ln, lm))
     (aln * aln).sum().backward()
-    want = {"skew": 3, "forward": 1, "backward": 1, "unskew": 3,
+    want = {"skew_pair": 1, "skew": 1, "forward": 1, "backward": 1, "unskew": 3,
             "adjoint_forward": 1, "adjoint_backward": 1, "forward_score": 0}
     assert {k: dp_cuda.LAUNCHES[k] - before[k] for k in want} == want
 
@@ -202,3 +210,102 @@ def test_q_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         dp_cuda.forward_q(s.transpose(1, 2).contiguous().transpose(1, 2),
                           s, n, n)
+
+
+@pytest.mark.parametrize("menu", sorted(chip_smoke.MENUS))
+@pytest.mark.parametrize("mode,operator", [("nw", "softmax"),
+                                           ("sw", "sparsemax"),
+                                           ("nw", "hardmax")])
+def test_menu_kernels_match_plain(cuda, menu, mode, operator):
+    """chip_smoke's storage-form check (every kernel instance of the menu,
+    the pair skew, the decode's int16 E and its traceback)."""
+    theta, A, ln, lm = _problem(len(menu) + len(operator), 3, 40, 29, cuda)
+    errs = {}
+    chip_smoke.check_menu_kernels(theta, A, ln, lm, mode, operator,
+                                  DTypeMenu.make(**chip_smoke.MENUS[menu]),
+                                  errs)
+    assert set(errs) == set(chip_smoke.KERNELS)
+
+
+@pytest.mark.parametrize("out_dtype,scale", [(None, None),
+                                             (torch.bfloat16, None),
+                                             (torch.int16, 2047.9375)])
+def test_skew_pair_is_two_skews(cuda, out_dtype, scale):
+    """One launch, bit-identical to two single skews and to the plain
+    pair, at a shape that is not a multiple of the block size."""
+    theta, A, _, _ = _problem(21, 3, 131, 77, cuda)
+    A = A * 40.0                                  # saturates as int16
+    before = dict(dp_cuda.LAUNCHES)
+    px, py = dp_cuda.skew_pair(theta, A, out_dtype, scale)
+    assert dp_cuda.LAUNCHES["skew_pair"] - before["skew_pair"] == 1
+    assert dp_cuda.LAUNCHES["skew"] == before["skew"]
+    for got, x in ((px, theta), (py, A)):
+        assert torch.equal(got, dp_cuda.skew(x, out_dtype, scale))
+        assert torch.equal(got, plain_skew(x, out_dtype, scale))
+
+
+def test_menu_autograd_through_kernels(cuda):
+    """Autograd under bf16 residuals (the training default) through the
+    kernels = through the plain passes on the card."""
+    theta, A, ln, lm = _problem(23, 3, 40, 29, cuda)
+    errs = {}
+    chip_smoke.check_autograd(theta, A, ln, lm, "nw", "softmax", errs,
+                              dtypes=DTypeMenu.make(d="bfloat16"))
+    assert errs["autograd"] == 0.0
+
+
+def test_dispatcher_launches_skew_pair(cuda, monkeypatch):
+    """theta/A (and Zt/Za with a Za) go through one pair launch, the
+    single skew runs only for the lone cotangent, and the outputs equal a
+    run in which each pair is two single skew launches."""
+    theta, A, ln, lm = _problem(29, 3, 50, 41, cuda)
+    menu = DTypeMenu.make(stream="int16", d="bfloat16", e="int16")
+
+    def run():
+        t = theta.clone().requires_grad_()
+        a = A.clone().requires_grad_()
+        E, EA = dp_ops.expected_alignment(t, a, (ln, lm), return_gap=True,
+                                          dtypes=menu)
+        ((E * E).sum() + EA.sum()).backward()
+        aln = dp_ops.expected_alignment(t, a, (ln, lm), dtypes=menu)
+        (aln * aln).sum().backward()
+        Es = dp_ops.expected_alignment_stream(theta, A, (ln, lm),
+                                              dtypes=menu)
+        return E, EA, t.grad, a.grad, Es
+
+    before = dict(dp_cuda.LAUNCHES)
+    paired = run()
+    used = {k: dp_cuda.LAUNCHES[k] - before[k] for k in ("skew", "skew_pair")}
+    # pairs: two forwards, one (Zt, Za), the stream; single: the lone Zt
+    assert used == {"skew_pair": 4, "skew": 1}
+    skew = dp_cuda.skew
+    monkeypatch.setattr(dp_cuda, "skew_pair",
+                        lambda x, y, **k: (skew(x, **k), skew(y, **k)))
+    for x, y in zip(run(), paired):
+        assert torch.equal(x, y)
+
+
+def test_menu_wrappers_check_dtypes(cuda):
+    """A stream of another type than the menu gives it raises; nothing is
+    cast."""
+    theta, A, ln, lm = _problem(31, 2, 12, 9, cuda)
+    f32 = dp_cuda.skew(theta)
+    i16 = DTypeMenu.make(stream="int16", e="int16")
+    bf = DTypeMenu.make(d="bfloat16")
+    with pytest.raises(TypeError, match="int16"):
+        dp_cuda.forward(f32, f32, ln, lm, dtypes=i16)
+    _, dx, dm = dp_cuda.forward(f32, f32, ln, lm)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dp_cuda.backward(dx, dm, ln, lm, torch.ones(2, device=cuda),
+                         dtypes=bf)
+    with pytest.raises(TypeError, match="float32"):
+        dp_cuda.adjoint_forward(dx, dm, f32.bfloat16(), None, ln, lm)
+    q = dp_cuda.skew(theta, torch.int16, 2047.9375)
+    with pytest.raises(TypeError, match="float32"):
+        dp_cuda.adjoint_backward(dx, dm, dx, dm, q, ln, lm, dtypes=i16)
+    with pytest.raises(ValueError, match="quant_scale"):
+        dp_cuda.skew(theta, torch.int16)
+    with pytest.raises(TypeError, match="float32, bfloat16 or int16"):
+        dp_cuda.unskew(f32.double(), 12, 9)
+    with pytest.raises(ValueError, match="shape"):
+        dp_cuda.skew_pair(theta, A[:1])
