@@ -28,7 +28,12 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              every default kernel, and the pair skew, against the plain
              passes under the same menu (``check_menu_kernels``: the
              relayouts exactly, the pair = two single skews, stored values
-             as float32 to the same tolerance).
+             as float32 to the same tolerance).  Then the strip kernels
+             (forward, score-only forward, backward) bit for bit (0.0)
+             against their plain versions at the shapes of their design's
+             edges (``EDGE_SHAPES``, up to S = 20,480), in float32 and
+             every storage menu (``check_edges``; the whole matrix is
+             ``tests/test_torch_cuda.py``'s).
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
              of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
@@ -98,9 +103,13 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              against the natural one, mean >= 0.995).
 7. bench   — decode at B=256, N=M=512, fp32, nw, softmax: each kernel's
              time (CUDA events), the plain version's time, alignments/s,
-             and each kernel's bound (bytes over 3.35 TB/s, flops over
-             67 TFLOP/s fp32; H100 SXM data sheet), counting the valid
-             cells of the run's pairs, not the stream's padding slots;
+             and each kernel's bound: the larger of its bytes over 3.35
+             TB/s and its operations -- MUFU and fp32 instructions per
+             cell, read off the instance's SASS (``kernel_report``), over
+             16 and 128 a clock per SM at 1,980 MHz on 132 SMs -- counting
+             the valid cells of the run's pairs, not the stream's padding
+             slots; the registers, stack and spills of every instance
+             (ptxas);
              the unskew's library time is one strided ``clone``; then the
              training kernels at the same shape and one whole
              differentiable DP step (``expected_alignment`` + ``backward()``
@@ -117,6 +126,7 @@ The line before the last is the kernels JSON; the last line is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,14 +180,46 @@ REPLACES = {
     "adjoint_forward_q": ["deepblast_tpu/ops/dp_pallas.py:423"],
     "adjoint_backward_q": ["deepblast_tpu/ops/dp_pallas.py:548"],
 }
-# fp32 operations per cell of the slot loop (softmax; the other operators
-# are of the same order), for the operations side of each bound
-FLOPS_PER_CELL = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 20,
-                  "forward_score": 20, "backward": 24, "backward_gap": 27,
-                  "adjoint_forward": 28, "adjoint_forward_za": 29,
-                  "adjoint_backward": 45, "forward_q": 22, "backward_q": 5,
-                  "backward_q_gap": 7, "adjoint_forward_q": 17,
-                  "adjoint_forward_q_za": 19, "adjoint_backward_q": 16}
+# The operations side of each bound, counted from the compiled code: an
+# H100 SXM has 132 SMs at up to 1,980 MHz, each issuing 16 MUFU operations
+# (ex2, lg2, rcp: the transcendentals of max3) and 128 fp32 instructions
+# (add, mul, fma, min/max, compare, select) a clock -- the data sheet's 67
+# TFLOP/s counts an fma as two.  The two pipes run side by side, so a
+# kernel's least time for its operations is the larger of the two.
+MUFU_PER_S = 16 * 132 * 1.98e9
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FRND",
+            "FCHK")
+# the instance each bench name times (softmax = operator 0, float32
+# storage, strip width 2 at S = 513); the relayouts do no arithmetic
+BENCH_INSTANCES = {
+    "forward": "forward_kernel<0, true, float, float, 2>",
+    "forward_score": "forward_kernel<0, false, float, float, 2>",
+    "backward": "backward_kernel<0, false, float, float, 2>",
+    "backward_gap": "backward_kernel<0, true, float, float, 2>",
+    "adjoint_forward": "adjoint_forward_kernel<0, false, float, float>",
+    "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float>",
+    "adjoint_backward": "adjoint_backward_kernel<0, float, float>",
+    "forward_q": "forward_q_kernel<0>",
+    "backward_q": "backward_q_kernel<false>",
+    "backward_q_gap": "backward_q_kernel<true>",
+    "adjoint_forward_q": "adjoint_forward_q_kernel<0, false>",
+    "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true>",
+    "adjoint_backward_q": "adjoint_backward_q_kernel",
+}
+# cells one pass of a strip kernel's unrolled row loop computes: T slots x
+# the D rows of its register ring (ring_for in csrc/dp_kernels.cu)
+RING = {2: 4, 6: 2, 20: 1}
+# (B, N, M, short): shapes at the strip kernels' edges, lengths ragged with
+# pair 0 full and, with `short`, the last pair n = max(1, N // 50) (whole
+# diagonals of padding): N = 1 and M = 1; S not a multiple of the strip;
+# n < m and n > m; S past 1,024 slots; the 6-slot strip; S at the
+# backward's limit (1,024 x 6) and at the forward's (1,024 x 20), where the
+# backward refuses
+EDGE_SHAPES = [(1, 1, 1, False), (3, 1, 37, False), (3, 37, 1, False),
+               (2, 67, 300, True), (2, 300, 67, True),
+               (3, 1100, 60, True), (2, 2500, 40, True),
+               (1, 6143, 3, False), (1, 20479, 2, False)]
 
 
 # Storage menus (deepblast_torch/ops/menu.py) whose kernel instances the
@@ -472,6 +514,102 @@ def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
     _close("adjoint_backward", _wide(EdA_k), _wide(EdA_p), errs)
 
 
+def _exact(name, got, want, errs):
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{name} stores {got.dtype}, the plain version "
+                             f"{want.dtype}")
+    err = (_wide(got) - _wide(want)).abs().max().item() if got.numel() \
+        else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    if not torch.isfinite(_wide(got)).all():
+        raise AssertionError(f"{name}: non-finite output")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: max abs diff {err}, not bit-identical "
+                             "to the plain version")
+
+
+def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
+    """The strip kernels -- the forward (Vt, Dx, Dm), the score-only
+    forward, the backward (training E with EA, E alone, the decode's E) --
+    under one storage menu (None: float32) against their plain versions
+    bit for bit, outputs over NaN-filled memory; tracebacks of the decode's
+    E identical.  Past the backward's strips (S > ``MAX_SLOTS``) the
+    backward must refuse, naming its limit."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.menu import as_menu
+    from deepblast_torch.ops.skew import skew
+    kw = dict(mode=mode, operator=operator, dtypes=menu)
+    m = as_menu(menu)
+    th_s = skew(theta, m.stream_dtype, m.stream_scale)
+    A_s = skew(A, m.stream_dtype, m.stream_scale)
+    vt_p, dx_p, dm_p = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    _poison(dx_p, dm_p)
+    for got, want in zip(dp_cuda.forward(th_s, A_s, ln, lm, **kw),
+                         (vt_p, dx_p, dm_p)):
+        _exact("forward", got, want, errs)
+    _exact("forward_score", dp_cuda.forward_score(th_s, A_s, ln, lm, **kw),
+           dp_ref.forward_score(th_s, A_s, ln, lm, **kw), errs)
+    Et = torch.ones_like(vt_p)
+    S = th_s.shape[2]
+    if S > dp_cuda.MAX_SLOTS["backward"]:
+        try:
+            dp_cuda.backward(dx_p, dm_p, ln, lm, Et, **kw)
+        except ValueError as e:
+            if f"S <= {dp_cuda.MAX_SLOTS['backward']} " not in str(e):
+                raise AssertionError(f"unclear refusal: {e}")
+            return
+        raise AssertionError(f"the backward took S = {S}")
+    for gap, decode in ((True, False), (False, False), (False, True)):
+        E_p, EA_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
+                                    decode=decode, **kw)
+        _poison(E_p, *([EA_p] if gap else []))
+        E_k, EA_k = dp_cuda.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
+                                     decode=decode, **kw)
+        _exact("backward", E_k, E_p, errs)
+        if gap:
+            _exact("backward", EA_k, EA_p, errs)
+    E_kh, E_ph = E_k.cpu(), E_p.cpu()
+    for b, (n, mm) in enumerate(zip(ln.tolist(), lm.tolist())):
+        if dp_ops.traceback_stream(E_kh, n, mm, b) != \
+                dp_ops.traceback_stream(E_ph, n, mm, b):
+            raise AssertionError(f"traceback of pair {b} differs")
+
+
+def edge_problem(g, B, N, M, short):
+    """``dp_problem`` with lengths from 1 up, pair 0 full and, with
+    ``short``, the last pair ``n = max(1, N // 50)``."""
+    theta, A, _, _ = dp_problem(g, B, N, M, ragged=False)
+    ln = torch.randint(1, N + 1, (B,), generator=g, device=theta.device)
+    lm = torch.randint(1, M + 1, (B,), generator=g, device=theta.device)
+    ln[0], lm[0] = N, M
+    if short:
+        ln[-1] = max(1, N // 50)
+    return theta, A, ln.to(torch.int32), lm.to(torch.int32)
+
+
+def check_edges(g, errs):
+    """``check_passes`` at every ``EDGE_SHAPES`` shape, in float32 for nw
+    softmax and, below the limit shapes (whose plain passes walk 6,145
+    and 20,480 diagonals), sw sparsemax; the storage menus, one (mode,
+    operator) each in turn, at the shapes of at most 1,101 slots.
+    ``tests/test_torch_cuda.py`` runs the whole matrix."""
+    from deepblast_torch.ops.menu import DTypeMenu
+    pairs = [("nw", "softmax"), ("sw", "sparsemax"), ("nw", "hardmax")]
+    for B, N, M, short in EDGE_SHAPES:
+        theta, A, ln, lm = edge_problem(g, B, N, M, short)
+        combos = [(*pairs[0], None)]
+        if N + 1 < 1024 * 6:
+            combos.append((*pairs[1], None))
+        if N + 1 <= 1101:
+            combos += [(*pairs[i % 3], DTypeMenu.make(**kw))
+                       for i, kw in enumerate(MENUS.values())]
+        for mode, op, menu in combos:
+            check_passes(theta, A, ln, lm, mode, op, menu, errs)
+        del theta, A
+    torch.cuda.empty_cache()
+
+
 def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
     """Every Q-stream kernel against its plain version on the same inputs
     (outputs over NaN-filled memory): the forward (Vt, Qx, Qm, Qy), the
@@ -655,6 +793,16 @@ def phase_kernels(seed):
         f"float32 and under the storage menus {sorted(MENUS)}, tracebacks "
         "identical; autograd on the card = on the CPU; max abs diff "
         f"{json.dumps(errs)}")
+    edge_errs, t0 = {}, time.time()
+    check_edges(g, edge_errs)
+    torch.cuda.synchronize()
+    log("phase kernels: forward, score-only forward and backward bit-"
+        f"identical to plain at the strip edges {EDGE_SHAPES} in float32 "
+        "and every storage menu; the backward refuses S = 20,480 naming its "
+        f"limit; {time.time() - t0:.1f} s; max abs diff "
+        f"{json.dumps(edge_errs)}")
+    for k, v in edge_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
     return errs
 
 
@@ -1351,10 +1499,93 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, flops):
+def bound(nbytes, ops_ms):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (t_bytes, "bytes") if t_bytes >= ops_ms else (ops_ms, "operations")
+
+
+def _cuda_tool(name):
+    from deepblast_torch.ops import dp_cuda
+    return os.path.join(os.path.dirname(dp_cuda._nvcc()), name)
+
+
+def _demangle(names):
+    """Demangled kernel names without their namespace or parameters,
+    e.g. ``forward_kernel<0, true, float, float, 2>``."""
+    import shutil
+    tool = shutil.which("c++filt") or _cuda_tool("cu++filt")
+    proc = subprocess.run([tool], input="\n".join(names),
+                          capture_output=True, text=True, check=True,
+                          timeout=120)
+    out = proc.stdout.splitlines()
+    if len(out) != len(names):
+        raise AssertionError("cu++filt did not demangle every kernel name")
+    # the first name followed by its parameter list (or the end), past any
+    # namespace
+    return {n: re.search(r"(\w+(<[^()]*>)?)(\(|$)", d.strip()).group(1)
+            for n, d in zip(names, out)}
+
+
+def kernel_report(so):
+    """Every kernel instance of the library ``so``: registers, stack and
+    spills from ptxas's report (``dp_cuda.build`` keeps it beside the
+    library), and from its SASS (``cuobjdump -sass``) the count of MUFU and
+    fp32 instructions and of all instructions of its body (up to the last
+    EXIT before the first called subroutine, e.g. a division's slow path)."""
+    rep, cur = {}, None
+    with open(f"{so}.ptxas") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                cur = rep.setdefault(line.split("'")[1], {})
+            elif "bytes stack frame" in line and cur is not None:
+                nums = [int(w) for w in line.split() if w.isdigit()]
+                cur.update(stack=nums[0], spill_stores=nums[1],
+                           spill_loads=nums[2])
+            elif "Used" in line and "registers" in line and cur is not None:
+                cur["regs"] = int(line.split("Used")[1].split()[0])
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", so],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    body = {}
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            ops = body.setdefault(line.split(":", 1)[1].strip(), [])
+        elif line.startswith("/*") and "*/" in line and ";" in line:
+            text = line.split("*/", 1)[1].split(";")[0].split()
+            if text and text[0].startswith("@"):
+                text = text[1:]
+            if text and not text[0].startswith("0x"):
+                ops.append(text[0].split(".")[0])
+    for name, ops in body.items():
+        if "RET" in ops:
+            ops = ops[:ops.index("RET")]
+            ops = ops[:len(ops) - ops[::-1].index("EXIT")]
+        rep.setdefault(name, {}).update(
+            mufu=ops.count("MUFU"), instr=len(ops),
+            fp32=sum(ops.count(o) for o in FP32_OPS))
+    names = _demangle(sorted(rep))
+    return {names[k]: v for k, v in rep.items()}
+
+
+def cells_per_body(instance):
+    """Cells one copy of an instance's code computes: T x D for a strip
+    kernel (T its last template argument), else 1."""
+    if instance.startswith(("forward_kernel<", "backward_kernel<")):
+        T = int(instance.rsplit(",", 1)[1].rstrip("> "))
+        return T * RING[T]
+    return 1
+
+
+def ops_ms(report, instance, cells):
+    """The operations side of the bound for ``cells`` valid cells of
+    ``instance``: its MUFU and fp32 instructions per cell (from the SASS)
+    over their peak rates, the larger of the two, in ms; and the counts."""
+    r = report[instance]
+    per = cells_per_body(instance)
+    mufu, fp32, instr = (r[k] / per for k in ("mufu", "fp32", "instr"))
+    t = max(cells * mufu / MUFU_PER_S, cells * fp32 / FP32_INSTR_PER_S)
+    return t * 1e3, dict(mufu=mufu, fp32=fp32, instr=instr)
 
 
 def phase_bench(seed, card):
@@ -1480,16 +1711,21 @@ def phase_bench(seed, card):
     library_ms = {k: cuda_ms(fn, 10) for k, fn in library.items()}
     decode_ms = cuda_ms(decode, 10)
     step_ms = cuda_ms(dp_step, 5)
-    menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card)
+    report = kernel_report(dp_cuda.build())
+    log_registers(report)
+    menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card, report)
     out = {}
     for k in kern:
-        b_ms, by = bound(nbytes[k], FLOPS_PER_CELL[k] * band)
+        ops, per = ops_ms(report, BENCH_INSTANCES[k], band) \
+            if k in BENCH_INSTANCES else (0.0, {})
+        b_ms, by = bound(nbytes[k], ops)
         out[k] = dict(ms=ms[k], plain_ms=plain_ms[k], bound_ms=b_ms,
                       bound_by=by, library_ms=library_ms.get(k))
         lib = f", library {library_ms[k]:.4f} ms" if k in library_ms else ""
         log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms"
-            f"{lib}, bound {b_ms:.4f} ms by {by}, {nbytes[k]} bytes) "
-            f"[{card}]")
+            f"{lib}, bound {b_ms:.4f} ms by {by}: {nbytes[k]} bytes "
+            f"{nbytes[k] / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
+            f"{ops:.4f} ms at {json.dumps(per)} per cell) [{card}]")
     log(f"phase bench: decode skew_pair + forward + backward at (256, 512, "
         f"512) nw softmax fp32: {decode_ms:.4f} ms = "
         f"{B / decode_ms * 1e3:.1f} alignments/s; score-only forward "
@@ -1537,7 +1773,45 @@ def phase_bench(seed, card):
     return out
 
 
-def menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card):
+def log_registers(report):
+    """Registers, stack and spills (ptxas) of the strip kernels' instances,
+    per kernel and strip width, and the most of any other kernel."""
+    groups = {}
+    for name, r in report.items():
+        if name.startswith(("forward_kernel<", "backward_kernel<")):
+            key = f"{name.split('<')[0]} T={name.rsplit(',', 1)[1][:-1].strip()}"
+        else:
+            key = "other kernels"
+        groups.setdefault(key, []).append(r)
+    for key, rs in sorted(groups.items()):
+        regs = [r["regs"] for r in rs]
+        log(f"phase bench: ptxas {key}: {len(rs)} instances, registers "
+            f"{min(regs)}-{max(regs)}, stack <= "
+            f"{max(r['stack'] for r in rs)} bytes, spill stores <= "
+            f"{max(r['spill_stores'] for r in rs)} bytes, spill loads <= "
+            f"{max(r['spill_loads'] for r in rs)} bytes")
+
+
+# the instance each storage form times (softmax, strip width 2)
+FORM_INSTANCES = {
+    "forward D bf16": "forward_kernel<0, true, float, __nv_bfloat16, 2>",
+    "forward in int16": "forward_kernel<0, true, short, float, 2>",
+    "forward in int16 D bf16":
+        "forward_kernel<0, true, short, __nv_bfloat16, 2>",
+    "forward_score in int16": "forward_kernel<0, false, short, float, 2>",
+    "backward D bf16": "backward_kernel<0, false, __nv_bfloat16, float, 2>",
+    "backward D bf16 gap": "backward_kernel<0, true, __nv_bfloat16, float, 2>",
+    "backward D bf16 E int16 (fast decode)":
+        "backward_kernel<0, false, __nv_bfloat16, short, 2>",
+    "adjoint_forward D bf16":
+        "adjoint_forward_kernel<0, false, __nv_bfloat16, float>",
+    "adjoint_forward D bf16 Za":
+        "adjoint_forward_kernel<0, true, __nv_bfloat16, float>",
+    "adjoint_backward D bf16": "adjoint_backward_kernel<0, __nv_bfloat16, float>",
+}
+
+
+def menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card, report):
     """Each kernel's storage forms at the bench shape: time (CUDA events),
     the plain version's time, and the bound from the bytes each form's
     streams really move (a bf16 or int16 stream moves 2 bytes a value)."""
@@ -1633,9 +1907,12 @@ def menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card):
     for name, (kern, plain, nbytes) in forms.items():
         ms = cuda_ms(kern, 10)
         plain_ms = cuda_ms(plain, 1)
-        b_ms, by = bound(nbytes, FLOPS_PER_CELL[name.split()[0]] * band)
+        ops = ops_ms(report, FORM_INSTANCES[name], band)[0] \
+            if name in FORM_INSTANCES else 0.0
+        b_ms, by = bound(nbytes, ops)
         log(f"phase bench: {name} {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-            f"bound {b_ms:.4f} ms by {by}, {nbytes} bytes) [{card}]")
+            f"bound {b_ms:.4f} ms by {by}: {nbytes} bytes, operations "
+            f"{ops:.4f} ms) [{card}]")
 
 
 def main(argv):

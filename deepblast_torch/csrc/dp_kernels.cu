@@ -45,29 +45,64 @@
 // deepblast_torch/ops/skew.py (skew, unskew) and deepblast_torch/ops/dp_ref.py
 // (the rest); the arithmetic here follows them operation by operation.
 //
-// What bounds them on the H100: bytes.  Per cell the forward reads 2
+// What bounds them on the H100, on paper: bytes (the score-only forward:
+// its MUFU and fp32 operations).  Per cell the forward reads 2
 // streams (theta, A) and writes 2 (Dx, Dm), the score-only forward reads 2,
 // the backward reads 2 (Dx, Dm) and writes 1 (E) or 2 (E, EA), the adjoint
 // forward reads 3 or 4 (Dx, Dm, Zt[, Za]) and writes 2 (Dxd, Dmd), the
 // adjoint backward reads 5 (Dx, Dm, Dxd, Dmd, E) and writes 2 (Ed, EdA),
-// the relayouts read 1 and write 1 -- tens of flops per 4-byte value at
-// most, below the card's 20 flop/byte fp32 ridge.  The recurrence is also a
-// chain of K dependent diagonal steps per pair, so at small batch the
-// latency of one step (a global load, a few transcendental ops, one
-// barrier) bounds it instead.
+// the relayouts read 1 and write 1.  The recurrence is also a chain of K
+// dependent diagonal steps per pair, with one or two pairs on an SM at
+// the bench's B = 256, so the latency of a step and the instructions
+// issued per cell bound them in practice: without fast math one softmax
+// max3 (three expf, a logf, an IEEE divide) is ~65 instructions, and the
+// strip kernels issue ~210-245 per cell of their unrolled bodies
+// (chip_smoke.py kernel_report; PERF.md).
 //
-// What the design does about it, in this first version: one CTA per pair
-// walks all K diagonals in one launch; threads run along the slot axis
-// (coalesced loads and stores of each diagonal row), and the rolling DP
-// rows live in shared memory with one __syncthreads() per diagonal, so
-// the only device-memory traffic is each stream read once and each output
-// written once.  Every output slot is written (zeros, or finite residuals
-// outside the valid band), so no uninitialised memory can reach a Q * E or
-// Qd * E product (0 * NaN).  Wider per-thread work, bf16 residuals and
-// TMA prefetch of the next rows are later work.  The rows a pair keeps in
-// shared memory bound its length: the adjoint backward holds 20 rows of S
-// floats (80 S bytes), so one CTA holds a pair up to S ~ 2,900 slots in the
-// 227 KB an H100 block can use.
+// The forward and the backward (the decode's whole DP, and the forward of
+// search) are designed for the H100 as follows.
+//  * Smoothed max on the band only.  On diagonal k only the slots
+//    [max(lo, k-m), min(n, k-lo)] hold a cell (about half of a square
+//    pair's stream); max3 -- three expf, a logf and an IEEE divide under
+//    softmax, ~100 issued instructions a cell at --fmad=false -- runs
+//    there alone.  The padding keeps a cheap path that still writes the
+//    plain version's value (forward: Dx, Dm by two subtractions, V = 0;
+//    backward: E = EA = 0, Q = 0, since Q only multiplies E there).  Rows
+//    past a ragged pair's terminal diagonal are a plain store loop.
+//  * Inputs loaded ahead of the chain.  Their addresses depend on nothing
+//    in the DP, so each thread keeps the rows of the next D diagonals in
+//    flight in a register ring (D = 4, 2, 1 at strip width 2, 6, 20) and
+//    issues row r+D as it starts row r; only the band's values (and A
+//    everywhere where Dm is stored) are read.  cp.async or TMA would save
+//    those registers, but the (B, K, S) rows are not 16-byte aligned at
+//    odd S, and 2-byte streams have no 2-byte cp.async.
+//  * Synchronisation local to a pair, and lighter.  Thread t owns the T
+//    consecutive slots [tT, tT+T) of every diagonal in registers (the V
+//    rows of the forward; the products Qx E, Qy E, Qm E of the backward),
+//    so a block is ceil(S / T / 32) warps instead of S / 32: 9 warps at
+//    S = 513, two pairs on most SMs.  A diagonal needs one neighbour slot
+//    per strip (s0-1 in the forward, s0+T in the backward): by shuffle
+//    inside a warp, and through a two-deep `edge` array and one named
+//    barrier (bar.sync 1) over the pair's warps between warps.
+//  * Every register row holds T slots, so one block of 1,024 threads holds
+//    1,024 T slots; T grows with S (2 up to 2,048 slots, then 6, then 20
+//    for the forward), and only the widest strips come near the 64
+//    registers a thread has at 1,024 threads.
+// Every cell still rounds as ops/dp_ref.py: the same float operations in
+// the same order (the backward's products are formed one row early and
+// summed in the plain version's order), so every output is bit-identical.
+//
+// The other DP kernels (first version): one CTA per pair walks all K
+// diagonals in one launch; threads run along the slot axis (coalesced
+// loads and stores of each diagonal row), and the rolling DP rows live in
+// shared memory with one __syncthreads() per diagonal, so the only
+// device-memory traffic is each stream read once and each output written
+// once.  Every output slot is written (zeros, or finite residuals outside
+// the valid band), so no uninitialised memory can reach a Q * E or Qd * E
+// product (0 * NaN).  The rows a pair keeps in shared memory bound its
+// length: the adjoint backward holds 20 rows of S floats (80 S bytes), so
+// one CTA holds a pair up to S ~ 2,900 slots in the 227 KB an H100 block
+// can use.
 //
 // The Q-stream kernels lift that bound by moving a stream more: the
 // forward stores the three soft-argmax streams Q (and the adjoint forward
@@ -87,7 +122,7 @@
 // floor(clip(v * scale, +-32767) + 0.5), loads (float)q * inv, with the
 // scale and its inverse passed as float arguments).  Every register and
 // every shared-memory row stays float, so the shared-memory rows and the
-// limit check do not change; only the loads and stores convert.  Inputs
+// limit checks do not change; only the loads and stores convert.  Inputs
 // theta and A may be float, bf16 or int16; the differences Dx, Dm, Dxd,
 // Dmd float or bf16; E, EA float, bf16 or (the decode only) int16; Ed,
 // EdA and the cotangents Zt, Za float or bf16.  A bf16 difference stream
@@ -97,7 +132,8 @@
 // its Q backends no menu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC
+//        --fmad=false -shared -Xcompiler -fPIC (ops/dp_cuda.py compiles
+//        the three DP_PART objects in parallel and links them)
 // No fast math (the traceback compares E values exactly), and no FMA
 // contraction, so each cell rounds as the plain PyTorch version does.
 // Each C entry returns cudaGetLastError() of its launch.
@@ -115,16 +151,18 @@ enum { DT_F32 = 0, DT_BF16 = 1, DT_I16 = 2 };
 typedef __nv_bfloat16 bf16;
 
 // Typed loads and stores of a stream value; compute is float.  `inv`
-// dequantizes an int16 load, `scale` quantizes an int16 store (unused by
+// dequantizes an int16 value, `scale` quantizes an int16 store (unused by
 // the float types).
-__device__ __forceinline__ float ld(const float *p, size_t i, float) {
-  return p[i];
+__device__ __forceinline__ float cvt(float x, float) { return x; }
+__device__ __forceinline__ float cvt(bf16 x, float) {
+  return __bfloat162float(x);
 }
-__device__ __forceinline__ float ld(const bf16 *p, size_t i, float) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ float cvt(int16_t q, float inv) {
+  return (float)q * inv;
 }
-__device__ __forceinline__ float ld(const int16_t *p, size_t i, float inv) {
-  return (float)p[i] * inv;
+template <typename T>
+__device__ __forceinline__ float ld(const T *p, size_t i, float inv) {
+  return cvt(p[i], inv);
 }
 __device__ __forceinline__ void st(float *p, size_t i, float v, float) {
   p[i] = v;
@@ -287,113 +325,251 @@ __global__ void unskew_kernel(const TI *__restrict__ s, int B, int K, int S,
   }
 }
 
-// One CTA per pair.  Shared memory: three rolling V rows (r-1, r-2, r).
-// Inputs of TI (int16 dequantized by `inv`), residuals stored as TD; the
-// value recurrence uses the unrounded differences.
-template <int OP, bool kStoreResiduals, typename TI, typename TD>
-__global__ void forward_kernel(const TI *__restrict__ th,
-                               const TI *__restrict__ ad, float inv,
-                               const int *__restrict__ ln,
-                               const int *__restrict__ lm, int K, int S,
-                               int lo, float *__restrict__ vt,
-                               TD *__restrict__ dxo, TD *__restrict__ dmo) {
-  extern __shared__ float smem[];
+// The forward and the backward: one CTA per pair, W = ceil(S / T / 32)
+// warps, thread t owning the strip of slots [tT, tT + T) in registers
+// (T = 2, 6 or 20 by S: DP_SWITCH_FORWARD_STRIP, DP_SWITCH_BACKWARD_STRIP).
+// The input rows of the next D diagonals
+// are in flight while the current one computes (a register ring, D =
+// ring_for(T)), the smoothed max runs only on the diagonal's band, and the
+// neighbour at a strip's edge comes by shuffle inside a warp and through
+// `edge` and one named barrier over the pair's warps between warps.
+
+// The ring depth of a strip width: the rows in flight per thread cost 2 T
+// registers each, and the block must fit 64 registers a thread at 1,024
+// threads.
+__host__ __device__ constexpr int ring_for(int T) {
+  return T <= 2 ? 4 : (T <= 6 ? 2 : 1);
+}
+
+// The pair's barrier: named barrier 1 over the block's warps, which are
+// the pair's and no other's.
+__device__ __forceinline__ void pair_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"r"((int)blockDim.x) : "memory");
+}
+
+// The band of diagonal k: slots [max(lo, k - m), min(n, k - lo)].
+__device__ __forceinline__ bool in_band(int s, int k, int n, int m, int lo) {
+  return s >= max(lo, k - m) && s <= min(n, k - lo);
+}
+
+// Forward, diagonals ascending.  Registers: V rows r-1 and r-2 of the
+// strip (v1, v2) and, at its left edge, slot s0-1 of both (l1, l2).  Row
+// r of the inputs is loaded D rows ahead: A at every slot with residual
+// stores (Dm needs it), else on the band only; theta on the band only.
+// Inputs of TI (int16 dequantized by `inv`), residuals stored as TD for
+// every slot; the value recurrence uses the unrounded differences.  Rows
+// past n+m have V[r-1] = V[r-2] = 0: a plain store loop writes their
+// Dx = 0 - 0 and Dm = (0 - A) - 0.  The score-only walk stops at the
+// terminal row.
+template <int OP, bool kStoreResiduals, typename TI, typename TD, int T>
+__global__ void __launch_bounds__(1024)
+    forward_kernel(const TI *__restrict__ th, const TI *__restrict__ ad,
+                   float inv, const int *__restrict__ ln,
+                   const int *__restrict__ lm, int K, int S, int lo,
+                   float *__restrict__ vt, TD *__restrict__ dxo,
+                   TD *__restrict__ dmo) {
+  constexpr int D = ring_for(T);
+  __shared__ float edge[2][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = threadIdx.x * T;
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  // the score-only walk stops at the terminal row; with residuals every
-  // row is written
-  const int rows = kStoreResiduals ? K : min(K, n + m - 1);
-  for (int r = 0; r < rows; ++r) {
-    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
-    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
-    float *vn = smem + (r % 3) * S;              // row r
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float a = ld(ad, row + s, inv);
-      float t = ld(th, row + s, inv);
-      float v1s = v1[s];
-      float v1l = s > 0 ? v1[s - 1] : 0.0f;
-      float v2l = s > 0 ? v2[s - 1] : 0.0f;
-      float dx = v1l - v1s;
-      float dm = v2l - a - v1s;
-      if (kStoreResiduals) {
-        st(dxo, row + s, dx, 0.0f);
-        st(dmo, row + s, dm, 0.0f);
+  const int rows = kStoreResiduals ? min(K, n + m + 1) : min(K, n + m - 1);
+  float v1[T], v2[T], l1 = 0.0f, l2 = 0.0f;
+  TI pa[D][T], pt[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) v1[i] = v2[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q < rows && in_band(s, q + 2, n, m, lo);
+    const bool need_a = kStoreResiduals ? (q < rows && s < S) : band;
+    const size_t at = base + (size_t)q * S + s;
+    pa[d][i] = need_a ? ad[at] : TI();
+    pt[d][i] = band ? th[at] : TI();
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, d, i);
+
+  for (int r0 = 0; r0 < rows; r0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 + d;
+      if (r >= rows) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float vn[T];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int s = s0 + i;
+        const float a = cvt(pa[d][i], inv), t = cvt(pt[d][i], inv);
+        fetch(d, r + D, i);
+        const float v1l = i ? v1[i - 1] : l1;
+        const float v2l = i ? v2[i - 1] : l2;
+        const float dx = v1l - v1[i];
+        const float dm = v2l - a - v1[i];
+        if (kStoreResiduals && s < S) {
+          st(dxo, row + s, dx, 0.0f);
+          st(dmo, row + s, dm, 0.0f);
+        }
+        float v = 0.0f;
+        if (in_band(s, k, n, m, lo)) {
+          float px, pm, py;
+          const float rel = max3<OP>(dx, dm, 0.0f, px, pm, py);
+          v = t + a + v1[i] + rel;
+          if (s == n && k == n + m) vt[b] = v;
+        }
+        vn[i] = v;
       }
-      float px, pm, py;
-      float rel = max3<OP>(dx, dm, 0.0f, px, pm, py);
-      float v = t + a + v1s + rel;
-      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
-      if (s == n && k == n + m) vt[b] = v;
-      vn[s] = v;
+      // V[r][s0-1]: the left lane's last slot, or the left warp's
+      float left = __shfl_up_sync(0xffffffffu, vn[T - 1], 1);
+      if (lane == 31) edge[r & 1][warp] = vn[T - 1];
+      pair_barrier();
+      if (lane == 0) left = warp ? edge[r & 1][warp - 1] : 0.0f;
+      l2 = l1;
+      l1 = left;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        v2[i] = v1[i];
+        v1[i] = vn[i];
+      }
     }
-    __syncthreads();
+  }
+  if (kStoreResiduals) {
+    const float zero = 0.0f;
+    for (int r = rows; r < K; ++r) {
+      const size_t row = base + (size_t)r * S;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int s = s0 + i;
+        if (s < S) {
+          st(dxo, row + s, zero - zero, 0.0f);
+          st(dmo, row + s, zero - ld(ad, row + s, inv) - zero, 0.0f);
+        }
+      }
+    }
   }
 }
 
-// One CTA per pair, rows descending.  Shared memory: E rows r+2, r+1, r
-// (3 x S), Qx and Qy rows r+1, r (2 x S each), Qm rows r+2, r+1, r (3 x S).
-// With kWantGap it also writes EA[r] = E[r] (Qx[r] + Qy[r]), Q of the same
-// row recomputed from Dx/Dm (as _bwd_train_kernel, dp_bm_train.py:290-292).
-// Dx, Dm of TD; E and EA stored as TE (int16, the decode's E: quantized
-// at `escale`); the recurrence carries the unrounded E.
-template <int OP, bool kWantGap, typename TD, typename TE>
-__global__ void backward_kernel(const TD *__restrict__ dx,
-                                const TD *__restrict__ dm,
-                                const int *__restrict__ ln,
-                                const int *__restrict__ lm,
-                                const float *__restrict__ et, int K, int S,
-                                int lo, float escale, TE *__restrict__ eo,
-                                TE *__restrict__ eao) {
-  extern __shared__ float smem[];
-  float *E = smem;
-  float *QX = smem + 3 * S;
-  float *QY = smem + 5 * S;
-  float *QM = smem + 7 * S;
+// Backward, diagonals descending.  Registers, per strip slot: the products
+// X = Qx E and Y = Qy E of row r+1 and M = Qm E of rows r+1 and r+2 (x1,
+// y1, m1, m2), and at its right edge slot s0+T of x1, m1, m2 (rx1, rm1,
+// rm2), so that E[r] = (X[r+1] + M[r+2]) at s+1, + Y[r+1] at s, as
+// E = shl(Qx1 E1) + shl(Qm2 E2) + Qy1 E1 rounds in the plain version.  Q
+// is 0 off the band: it only multiplies E there, which is 0 -- except at
+// the terminal slot, which is seeded with Et even where it lies off the
+// band (sw with n = 1 or m = 1), so Q is computed there too.  Dx, Dm of
+// TD, loaded D rows ahead on the band (and the terminal slot) only.  With kWantGap it also writes
+// EA[r] = E[r] (Qx[r] + Qy[r]).  E and EA stored as TE (int16, the
+// decode's E: quantized at `escale`) for every slot; rows past n+m-2 hold
+// no cell and are stored as zeros.
+template <int OP, bool kWantGap, typename TD, typename TE, int T>
+__global__ void __launch_bounds__(1024)
+    backward_kernel(const TD *__restrict__ dx, const TD *__restrict__ dm,
+                    const int *__restrict__ ln, const int *__restrict__ lm,
+                    const float *__restrict__ et, int K, int S, int lo,
+                    float escale, TE *__restrict__ eo,
+                    TE *__restrict__ eao) {
+  constexpr int D = ring_for(T);
+  __shared__ float edge[2][2][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int s0 = threadIdx.x * T;
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
   const float e_t = et[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 10 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = K - 1; r >= 0; --r) {
-    const float *e1 = E + ((r + 1) % 3) * S;    // row r+1
-    const float *e2 = E + ((r + 2) % 3) * S;    // row r+2
-    float *en = E + (r % 3) * S;                // row r
-    const float *qx1 = QX + ((r + 1) & 1) * S;  // row r+1
-    const float *qy1 = QY + ((r + 1) & 1) * S;
-    const float *qm2 = QM + ((r + 2) % 3) * S;  // row r+2
-    float *qxn = QX + (r & 1) * S;
-    float *qyn = QY + (r & 1) * S;
-    float *qmn = QM + (r % 3) * S;
-    const int k = r + 2;
+  const int top = min(K, n + m - 1);  // rows [top, K) hold no cell
+  for (int r = K - 1; r >= top; --r) {
     const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float dxs = ld(dx, row + s, 0.0f);
-      float dms = ld(dm, row + s, 0.0f);
-      bool in = s + 1 < S;
-      float e1s = e1[s];
-      float e1r = in ? e1[s + 1] : 0.0f;
-      float e2r = in ? e2[s + 1] : 0.0f;
-      float qx1r = in ? qx1[s + 1] : 0.0f;
-      float qm2r = in ? qm2[s + 1] : 0.0f;
-      float e = qx1r * e1r + qm2r * e2r + qy1[s] * e1s;
-      e = cell_valid(s, k, n, m, lo) ? e : 0.0f;
-      if (s == n && k == n + m) e = e + e_t;
-      st(eo, row + s, e, escale);
-      en[s] = e;
-      float px, pm, py;
-      max3<OP>(dxs, dms, 0.0f, px, pm, py);
-      if (kWantGap) st(eao, row + s, e * (px + py), escale);
-      qxn[s] = px;
-      qmn[s] = pm;
-      qyn[s] = py;
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      const int s = s0 + i;
+      if (s < S) {
+        st(eo, row + s, 0.0f, escale);
+        if (kWantGap) st(eao, row + s, 0.0f * (0.0f + 0.0f), escale);
+      }
     }
-    __syncthreads();
+  }
+  float x1[T], y1[T], m1[T], m2[T];
+  float rx1 = 0.0f, rm1 = 0.0f, rm2 = 0.0f;
+  TD px_[D][T], pm_[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) x1[i] = y1[i] = m1[i] = m2[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q >= 0 && (in_band(s, q + 2, n, m, lo) ||
+                                 (s == n && q + 2 == n + m));
+    const size_t at = base + (size_t)q * S + s;
+    px_[d][i] = band ? dx[at] : TD();
+    pm_[d][i] = band ? dm[at] : TD();
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, top - 1 - d, i);
+
+  for (int r0 = top - 1; r0 >= 0; r0 -= D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 - d;
+      if (r < 0) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float xn[T], yn[T], mn[T];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int s = s0 + i;
+        const float dxs = cvt(px_[d][i], 0.0f), dms = cvt(pm_[d][i], 0.0f);
+        fetch(d, r - D, i);
+        const bool band = in_band(s, k, n, m, lo);
+        const bool term = s == n && k == n + m;
+        const float xr = i + 1 < T ? x1[i + 1] : rx1;
+        const float mr = i + 1 < T ? m2[i + 1] : rm2;
+        float e = xr + mr + y1[i];
+        e = band ? e : 0.0f;
+        if (term) e = e + e_t;
+        float px = 0.0f, pm = 0.0f, py = 0.0f;
+        if (band || term) max3<OP>(dxs, dms, 0.0f, px, pm, py);
+        if (s < S) {
+          st(eo, row + s, e, escale);
+          if (kWantGap) st(eao, row + s, e * (px + py), escale);
+        }
+        xn[i] = px * e;
+        yn[i] = py * e;
+        mn[i] = pm * e;
+      }
+      // X[r], M[r] at s0+T: the right lane's first slot, or the right
+      // warp's (0 past the last slot)
+      float rx = __shfl_down_sync(0xffffffffu, xn[0], 1);
+      float rm = __shfl_down_sync(0xffffffffu, mn[0], 1);
+      if (lane == 0) {
+        edge[r & 1][0][warp] = xn[0];
+        edge[r & 1][1][warp] = mn[0];
+      }
+      pair_barrier();
+      if (lane == 31) {
+        const bool last = warp + 1 == nwarps;
+        rx = last ? 0.0f : edge[r & 1][0][warp + 1];
+        rm = last ? 0.0f : edge[r & 1][1][warp + 1];
+      }
+      rx1 = rx;
+      rm2 = rm1;
+      rm1 = rm;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        x1[i] = xn[i];
+        y1[i] = yn[i];
+        m2[i] = m1[i];
+        m1[i] = mn[i];
+      }
+    }
   }
 }
 
@@ -756,6 +932,19 @@ cudaError_t launch_rows(Kern kern, int rows, int B, int S, cudaStream_t st,
   return cudaGetLastError();
 }
 
+// One CTA per pair of ceil(S / T) threads, rounded up to whole warps.  The
+// narrowest strip that fits runs: at the bench shape (S = 513) strips of 2
+// (9 warps a pair) beat 4 and 8 (5 and 3 warps) by 1.3-3x (PERF.md, PR 5),
+// since the kernels are issue-bound and a wider strip serialises more
+// cells on one warp and idles more lanes at the band's ragged edges.
+template <typename Kern, typename... A>
+cudaError_t launch_strip(Kern kern, int T, int B, int S, cudaStream_t st,
+                         A... args) {
+  int threads = ((S + T - 1) / T + 31) / 32 * 32;
+  kern<<<B, threads, 0, st>>>(args...);
+  return cudaGetLastError();
+}
+
 int grid_for(size_t total) {
   size_t want = (total + 255) / 256;
   int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
@@ -819,8 +1008,35 @@ int grid_for(size_t total) {
       return (int)cudaErrorInvalidValue;           \
   }
 
+// The strip width T for S slots: the narrowest of the kernel's widths
+// with T x 1,024 >= S; wider pairs return cudaErrorInvalidValue.
+#define DP_STRIP_CASE(S, W, T, ...)                \
+  if ((S) <= 1024 * (W)) {                         \
+    constexpr int T = (W);                         \
+    __VA_ARGS__;                                   \
+  }
+#define DP_SWITCH_FORWARD_STRIP(S, T, ...)         \
+  DP_STRIP_CASE(S, 2, T, __VA_ARGS__)              \
+  DP_STRIP_CASE(S, 6, T, __VA_ARGS__)              \
+  DP_STRIP_CASE(S, 20, T, __VA_ARGS__)             \
+  return (int)cudaErrorInvalidValue;
+#define DP_SWITCH_BACKWARD_STRIP(S, T, ...)        \
+  DP_STRIP_CASE(S, 2, T, __VA_ARGS__)              \
+  DP_STRIP_CASE(S, 6, T, __VA_ARGS__)              \
+  return (int)cudaErrorInvalidValue;
+
+// DP_PART selects the entries of one object when the library is built by
+// several nvcc processes at once (ops/dp_cuda.py build): 1 the forward, 2
+// the backward, 0 the rest; without it every entry is compiled.
+#ifndef DP_PART
+#define DP_PART_IS(p) 1
+#else
+#define DP_PART_IS(p) (DP_PART == (p))
+#endif
+
 extern "C" {
 
+#if DP_PART_IS(0)
 // x float; out of storage out_dt (int16: quantized at `scale`).
 int dp_skew(const float *x, int B, int N, int M, void *out, int out_dt,
             float scale, void *stream) {
@@ -853,6 +1069,9 @@ int dp_unskew(const void *s, int s_dt, float inv, int B, int K, int S, int N,
                 return (int)cudaGetLastError())
 }
 
+#endif
+
+#if DP_PART_IS(1)
 // Inputs of storage in_dt (int16: dequantized by `inv`); store == 0: the
 // score-only forward (no residual stores), else Dx, Dm of storage d_dt.
 int dp_forward(const void *th, const void *ad, int in_dt, float inv,
@@ -863,20 +1082,28 @@ int dp_forward(const void *th, const void *ad, int in_dt, float inv,
   if (!store) {
     DP_SWITCH_OP(DP_SWITCH_ANY(
         in_dt, TI,
-        return (int)launch_rows(forward_kernel<OP, false, TI, float>, 3, B, S,
-                                st, (const TI *)th, (const TI *)ad, inv, ln,
-                                lm, K, S, lo, vt, (float *)nullptr,
-                                (float *)nullptr)))
+        DP_SWITCH_FORWARD_STRIP(
+            S, T,
+            return (int)launch_strip(forward_kernel<OP, false, TI, float, T>,
+                                     T, B, S, st, (const TI *)th,
+                                     (const TI *)ad, inv, ln, lm, K, S, lo,
+                                     vt, (float *)nullptr, (float *)nullptr))))
   }
   DP_SWITCH_OP(DP_SWITCH_ANY(
       in_dt, TI,
       DP_SWITCH_FLOAT(
           d_dt, TD,
-          return (int)launch_rows(forward_kernel<OP, true, TI, TD>, 3, B, S,
-                                  st, (const TI *)th, (const TI *)ad, inv, ln,
-                                  lm, K, S, lo, vt, (TD *)dxo, (TD *)dmo))))
+          DP_SWITCH_FORWARD_STRIP(
+              S, T,
+              return (int)launch_strip(forward_kernel<OP, true, TI, TD, T>, T,
+                                       B, S, st, (const TI *)th,
+                                       (const TI *)ad, inv, ln, lm, K, S, lo,
+                                       vt, (TD *)dxo, (TD *)dmo)))))
 }
 
+#endif
+
+#if DP_PART_IS(2)
 // Dx, Dm of storage d_dt; E (and EA unless eao == nullptr) of storage e_dt
 // (int16: quantized at `escale`, the decode's E).
 int dp_backward(const void *dx, const void *dm, int d_dt, const int *ln,
@@ -889,21 +1116,28 @@ int dp_backward(const void *dx, const void *dm, int d_dt, const int *ln,
         d_dt, TD,
         DP_SWITCH_ANY(
             e_dt, TE,
-            return (int)launch_rows(backward_kernel<OP, true, TD, TE>, 10, B,
-                                    S, st, (const TD *)dx, (const TD *)dm,
-                                    ln, lm, et, K, S, lo, escale, (TE *)eo,
-                                    (TE *)eao))))
+            DP_SWITCH_BACKWARD_STRIP(
+                S, T,
+                return (int)launch_strip(
+                    backward_kernel<OP, true, TD, TE, T>, T, B, S, st,
+                    (const TD *)dx, (const TD *)dm, ln, lm, et, K, S, lo,
+                    escale, (TE *)eo, (TE *)eao)))))
   }
   DP_SWITCH_OP(DP_SWITCH_FLOAT(
       d_dt, TD,
       DP_SWITCH_ANY(
           e_dt, TE,
-          return (int)launch_rows(backward_kernel<OP, false, TD, TE>, 10, B, S,
-                                  st, (const TD *)dx, (const TD *)dm, ln, lm,
-                                  et, K, S, lo, escale, (TE *)eo,
-                                  (TE *)nullptr))))
+          DP_SWITCH_BACKWARD_STRIP(
+              S, T,
+              return (int)launch_strip(
+                  backward_kernel<OP, false, TD, TE, T>, T, B, S, st,
+                  (const TD *)dx, (const TD *)dm, ln, lm, et, K, S, lo,
+                  escale, (TE *)eo, (TE *)nullptr)))))
 }
 
+#endif
+
+#if DP_PART_IS(0)
 // Dx, Dm (and Dxd, Dmd out) of storage d_dt, Zt and Za of storage z_dt;
 // za == nullptr: no gap cotangent, the kernel without a Za stream.
 int dp_adjoint_forward(const void *dx, const void *dm, int d_dt,
@@ -1008,5 +1242,7 @@ int dp_max_smem(int device) {
     return -1;
   return v;
 }
+
+#endif
 
 }  // extern "C"

@@ -46,10 +46,12 @@ is cast.  The Q-stream wrappers take float32 only.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
 launches on PyTorch's current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`LAUNCHES`.  A DP kernel keeps
-:data:`SMEM_ROWS` rows of S floats of one pair in shared memory; a pair
-padded past what the device allows raises a ``ValueError`` naming the
-limit before anything is launched.  The plain versions with the same
+error, and adds one to its entry in :data:`LAUNCHES`.  The forward and
+the backward keep a pair's rows in the registers of at most 1,024 threads
+(:data:`MAX_SLOTS`), every other DP kernel :data:`SMEM_ROWS` rows of S
+floats in shared memory; a pair padded past what the kernel holds on the
+device raises a ``ValueError`` naming the limit before anything is
+launched.  The plain versions with the same
 signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
 """
 
@@ -67,8 +69,8 @@ import torch
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.menu import E_SCALE, I16_MAX, as_menu
 
-__all__ = ["LAUNCHES", "SMEM_ROWS", "reset_launches", "build", "max_smem",
-           "skew", "skew_pair", "unskew", "forward", "forward_score",
+__all__ = ["LAUNCHES", "SMEM_ROWS", "MAX_SLOTS", "reset_launches", "build",
+           "max_smem", "skew", "skew_pair", "unskew", "forward", "forward_score",
            "backward",
            "adjoint_forward", "adjoint_backward", "forward_q", "backward_q",
            "adjoint_forward_q", "adjoint_backward_q"]
@@ -78,7 +80,10 @@ _PKG = os.path.dirname(_HERE)
 SOURCE = os.path.join(_PKG, "csrc", "dp_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: the source's DP_PART objects (1 the forward, 2 the backward, 0 the
+#: rest), compiled by one nvcc each, all at once, then linked
+PARTS = 3
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 # storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
@@ -92,11 +97,15 @@ LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
             "adjoint_backward_q": 0}
 
-#: rows of S floats each DP kernel keeps in shared memory (the ``rows`` of
-#: its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
-SMEM_ROWS = {"forward": 3, "forward_score": 3, "backward": 10,
-             "adjoint_forward": 3, "adjoint_backward": 20, "forward_q": 3,
+#: rows of S floats each shared-memory DP kernel keeps in shared memory
+#: (the ``rows`` of its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
+SMEM_ROWS = {"adjoint_forward": 3, "adjoint_backward": 20, "forward_q": 3,
              "backward_q": 3, "adjoint_forward_q": 3, "adjoint_backward_q": 6}
+#: the most slots a pair may have in the kernels that keep its rows in
+#: registers: 1,024 threads of the widest strip (``DP_SWITCH_FORWARD_STRIP``
+#: and ``DP_SWITCH_BACKWARD_STRIP`` in ``csrc/dp_kernels.cu``)
+MAX_SLOTS = {"forward": 1024 * 20, "forward_score": 1024 * 20,
+             "backward": 1024 * 6}
 _Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
               "adjoint_backward_q")
 
@@ -122,9 +131,22 @@ def _nvcc():
     return cand
 
 
+def _run(procs):
+    """Wait for every nvcc process; raise with the output of the first
+    that failed; return their standard error, joined."""
+    outs = [p.communicate() for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build():
     """Compile the kernels if no library for this source and these flags
-    exists yet; returns the path of the shared library."""
+    exists yet; returns the path of the shared library.  The source's
+    :data:`PARTS` objects compile in parallel.  ptxas's report (registers,
+    spills and stack of every kernel instance) is kept beside the library
+    as ``<library>.ptxas``."""
     with open(SOURCE, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -132,11 +154,19 @@ def build():
     so = os.path.join(BUILD_DIR, f"libdp_kernels-{tag}.so")
     if not os.path.exists(so):
         tmp = f"{so}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        objs = [f"{tmp}.{part}.o" for part in range(PARTS)]
+        report = _run([subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, f"-DDP_PART={part}", "-c", "-o", obj,
+             SOURCE], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for part, obj in enumerate(objs)])
+        _run([subprocess.Popen([_nvcc(), "-shared", "-o", tmp, *objs],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)])
+        for obj in objs:
+            os.remove(obj)
+        with open(f"{tmp}.ptxas", "w") as f:
+            f.write(report)
+        os.replace(f"{tmp}.ptxas", f"{so}.ptxas")
         os.replace(tmp, so)  # atomic when several processes build at once
     return so
 
@@ -214,20 +244,28 @@ def max_smem(device):
 
 
 def _check_smem(name, S, device):
-    """Raise a ``ValueError`` naming the limit when one pair's rows of
-    ``name`` do not fit in a block's shared memory."""
+    """Raise a ``ValueError`` naming the limit when one pair of ``name``
+    does not fit in a block: its rows in shared memory, or its strips in
+    the registers of 1,024 threads."""
     limit = max_smem(device)
+    q_most = limit // (max(SMEM_ROWS[k] for k in _Q_KERNELS) * 4)
+    if name in _Q_KERNELS or S > q_most:
+        hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
+                "queue A item 4)")
+    else:
+        hint = (f'backend="pallas_long" keeps fewer rows and holds pairs up '
+                f"to S = {q_most} slots")
+    if name in MAX_SLOTS:
+        most = MAX_SLOTS[name]
+        if S > most:
+            raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots "
+                             f"exceeds the strips of one block (S <= {most} "
+                             f"slots for this kernel); {hint}")
+        return
     need = SMEM_ROWS[name] * S * 4
     if need <= limit:
         return
     most = limit // (SMEM_ROWS[name] * 4)
-    if name in _Q_KERNELS:
-        hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
-                "queue A item 4)")
-    else:
-        q_most = limit // (max(SMEM_ROWS[k] for k in _Q_KERNELS) * 4)
-        hint = (f'backend="pallas_long" keeps fewer rows and holds pairs up '
-                f"to S = {q_most} slots")
     raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots needs "
                      f"{need} bytes of shared memory per block, and this "
                      f"device allows {limit} (S <= {most} slots for this "

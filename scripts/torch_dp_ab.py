@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Time the default backend's DP kernels of two checkouts in turns on one
+NVIDIA GPU, at the bench shape (B = 256, N = M = 512, nw, softmax).
+
+    python3 scripts/torch_dp_ab.py BEFORE_ROOT AFTER_ROOT [--turns 1]
+
+Each root is a checkout of the port (for example ``git archive`` of a
+commit unpacked under ``_archive/``).  One child process per (root, turn)
+imports that root's ``deepblast_torch``, builds its kernels into the root's
+own ``_build/`` (the first turn only), and times with CUDA events: the
+forward, the score-only forward and the backward in every storage form the
+main paths run, the decode (pair skew + forward + backward) in float32,
+bf16 residuals and the fast menu, and the differentiable DP step in float32
+and bf16 residuals.  The roots run in the order BEFORE, AFTER, AFTER,
+BEFORE (``--turns`` repeats of that order), so that drift of the card falls
+on both.  Every child checks that its kernels' outputs equal the first
+root's on the same inputs (bit for bit), prints one JSON object, and the
+parent prints, per timing, the least time of each root over its turns and
+their ratio, with the card's name and power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+B, N, M = 256, 512, 512
+
+
+def child(root, out, ref):
+    sys.path.insert(0, root)
+    import torch
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.ops.menu import DTypeMenu
+    from deepblast_torch.train.losses import matrix_cross_entropy
+    dp_cuda.build()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    theta = torch.randn((B, N, M), generator=g, device="cuda")
+    A = torch.randn((B, N, M), generator=g, device="cuda") - 1.0
+    ln = torch.full((B,), N, dtype=torch.int32, device="cuda")
+    lm = torch.full((B,), M, dtype=torch.int32, device="cuda")
+    Et = torch.ones((B,), device="cuda")
+    kw = dict(mode="nw", operator="softmax")
+    menus = {"f32": None, "d_bf16": DTypeMenu.make(d="bfloat16"),
+             "fast": DTypeMenu.make(d="bfloat16", e="int16"),
+             "i16": DTypeMenu.make(stream="int16", e="int16"),
+             "i16_d_bf16": DTypeMenu.make(stream="int16", d="bfloat16",
+                                          e="int16")}
+
+    def streams(menu):
+        m = menu or DTypeMenu.make()
+        th, a = dp_cuda.skew_pair(theta, A, m.stream_dtype, m.stream_scale)
+        _, dx, dm = dp_cuda.forward(th, a, ln, lm, dtypes=menu, **kw)
+        return th, a, dx, dm
+
+    data = {k: streams(m) for k, m in menus.items()}
+    torch.cuda.empty_cache()
+    target = (torch.rand((B, N, M), generator=g, device="cuda")
+              < 1.0 / N).float()
+    gmask = torch.ones((B, N, M), dtype=torch.bool, device="cuda")
+    t_req = theta.clone().requires_grad_()
+    a_req = A.clone().requires_grad_()
+
+    def fwd(k, store=True):
+        th, a, _, _ = data[k]
+        fn = dp_cuda.forward if store else dp_cuda.forward_score
+        return lambda: fn(th, a, ln, lm, dtypes=menus[k], **kw)
+
+    def bwd(k, **o):
+        _, _, dx, dm = data[k]
+        return lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=menus[k],
+                                        **o, **kw)
+
+    def decode(k):
+        def run():
+            th, a, dx, dm = streams(menus[k])
+            return dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=menus[k],
+                                    decode=True, **kw)
+        return run
+
+    def step(k):
+        def run():
+            aln = dp_ops.expected_alignment(t_req, a_req, (ln, lm),
+                                            dtypes=menus[k], **kw)
+            matrix_cross_entropy(target, aln, ln, lm, gmask).backward()
+        return run
+
+    fns = {
+        "forward f32": fwd("f32"), "forward D bf16": fwd("d_bf16"),
+        "forward in int16": fwd("i16"),
+        "forward in int16 D bf16": fwd("i16_d_bf16"),
+        "forward_score f32": fwd("f32", False),
+        "forward_score in int16": fwd("i16", False),
+        "backward f32": bwd("f32"), "backward D bf16": bwd("d_bf16"),
+        "backward f32 gap": bwd("f32", want_gap=True),
+        "backward D bf16 gap": bwd("d_bf16", want_gap=True),
+        "backward D bf16 E int16 (fast decode)": bwd("fast", decode=True),
+        "decode f32": decode("f32"), "decode d_bf16": decode("d_bf16"),
+        "decode fast": decode("fast"),
+        "dp_step f32": step("f32"), "dp_step d_bf16": step("d_bf16"),
+    }
+
+    def fingerprint(t):
+        """A position-weighted sum of the stored bits: equal fingerprints
+        are equal tensors but for a collision."""
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                                   else torch.int32).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+        return int((bits * w).sum())
+
+    # the outputs of every kernel timed, for the check against the first
+    # root
+    prints = {}
+    for k, fn in fns.items():
+        if not k.startswith("dp_step"):
+            v = fn()
+            prints[k] = [fingerprint(t) for t in
+                         (v if isinstance(v, tuple) else (v,))
+                         if t is not None]
+            del v
+    if os.path.exists(ref):
+        with open(ref) as f:
+            want = json.load(f)
+        for k, fp in prints.items():
+            if fp != want[k]:
+                raise AssertionError(f"{k}: outputs differ from the first "
+                                     "root's")
+    else:
+        with open(ref, "w") as f:
+            json.dump(prints, f)
+
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    ms = {k: cuda_ms(fn, 5 if k.startswith("dp_step") else 20)
+          for k, fn in fns.items()}
+    with open(out, "w") as f:
+        json.dump(ms, f)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("before")
+    ap.add_argument("after")
+    ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--child", nargs=3, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.child:
+        return child(*a.child)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_dp_ab: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    roots = {"before": os.path.abspath(a.before),
+             "after": os.path.abspath(a.after)}
+    times = {"before": [], "after": []}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        ref = os.path.join(tmp, "ref.json")
+        for _ in range(a.turns):
+            for side in ("before", "after", "after", "before"):
+                out = os.path.join(tmp, "out.json")
+                subprocess.run([sys.executable, os.path.abspath(__file__),
+                                a.before, a.after, "--child", roots[side],
+                                out, ref], check=True)
+                with open(out) as f:
+                    times[side].append(json.load(f))
+    rows = {}
+    for k in times["before"][0]:
+        b = min(t[k] for t in times["before"])
+        c = min(t[k] for t in times["after"])
+        rows[k] = dict(before_ms=b, after_ms=c, ratio=c / b,
+                       turns_before=[t[k] for t in times["before"]],
+                       turns_after=[t[k] for t in times["after"]])
+        print(f"{k}: before {b:.4f} ms, after {c:.4f} ms, x{c / b:.3f} at "
+              f"({B}, {N}, {M}) nw softmax [{card}]", flush=True)
+    print(json.dumps({"card": card, "ab": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

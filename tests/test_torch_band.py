@@ -1,0 +1,132 @@
+"""The invariant the CUDA forward and backward kernels rely on, on the CPU:
+evaluating the smoothed max only on each diagonal's band gives the plain
+passes' outputs bit for bit.
+
+``band_forward`` and ``band_backward`` below restate ``ops/dp_ref.py``'s
+forward and backward the way ``csrc/dp_kernels.cu`` computes them, one pair
+at a time: ``max3`` runs only on the slots
+``[max(lo, k - m), min(n, k - lo)]`` of diagonal ``k`` (and, in the
+backward, the terminal slot, which is seeded with ``Et`` even where sw puts
+it off the band); off it the forward's V is 0 and the backward's Q is 0;
+the backward carries the products ``Qx E``, ``Qy E``, ``Qm E`` of the rows
+before and sums ``E = shl(Qx1 E1) + shl(Qm2 E2) + Qy1 E1`` in the plain
+order; rows past the terminal diagonal are a store loop (forward:
+``Dx = 0 - 0``, ``Dm = (0 - A) - 0``; backward: zeros).  Tolerance: none
+(``torch.equal``), since every cell takes the same float32 operations.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepblast_torch.ops import dp_ref, smooth
+from deepblast_torch.ops.dp_ref import MODE_BOUNDS
+from deepblast_torch.ops.skew import skew
+
+SHAPES = [(3, 9, 7), (2, 23, 40), (3, 40, 11), (2, 1, 17), (2, 17, 1)]
+
+
+def _problem(seed, B, N, M):
+    rng = np.random.default_rng(seed)
+    theta = torch.tensor(rng.standard_normal((B, N, M)), dtype=torch.float32)
+    A = torch.tensor(rng.standard_normal((B, N, M)) - 1.0,
+                     dtype=torch.float32)
+    ln = rng.integers(1, N + 1, size=B)
+    lm = rng.integers(1, M + 1, size=B)
+    ln[0], lm[0] = N, M
+    ln[-1] = max(1, N // 5)                       # whole rows of padding
+    Et = torch.tensor(rng.standard_normal(B), dtype=torch.float32)
+    i32 = dict(dtype=torch.int32)
+    return (skew(theta), skew(A), torch.tensor(ln, **i32),
+            torch.tensor(lm, **i32), Et)
+
+
+def _band(S, k, n, m, lo):
+    s = torch.arange(S)
+    return (s >= max(lo, k - m)) & (s <= min(n, k - lo))
+
+
+def _shr(v):
+    return torch.cat([v.new_zeros(1), v[:-1]])
+
+
+def _shl(v):
+    return torch.cat([v[1:], v.new_zeros(1)])
+
+
+def band_forward(th_s, A_s, ln, lm, mode, operator):
+    B, K, S = th_s.shape
+    lo = MODE_BOUNDS[mode][0]
+    vt = torch.zeros(B)
+    dxs, dms = torch.empty_like(th_s), torch.empty_like(th_s)
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        rows = min(K, n + m + 1)
+        v1 = v2 = torch.zeros(S)
+        for r in range(rows):
+            a, t = A_s[b, r], th_s[b, r]
+            dx = _shr(v1) - v1
+            dm = _shr(v2) - a - v1
+            dxs[b, r], dms[b, r] = dx, dm
+            band = _band(S, r + 2, n, m, lo)
+            v = torch.zeros(S)
+            rel, _ = smooth.max3(operator, dx[band], dm[band],
+                                 torch.zeros_like(dx[band]))
+            v[band] = t[band] + a[band] + v1[band] + rel
+            if r + 2 == n + m and bool(band[n]):
+                vt[b] = v[n]
+            v2, v1 = v1, v
+        zero = torch.zeros(S)
+        for r in range(rows, K):
+            dxs[b, r] = zero - zero
+            dms[b, r] = zero - A_s[b, r] - zero
+    return vt, dxs, dms
+
+
+def band_backward(dxs, dms, ln, lm, Et, mode, operator):
+    B, K, S = dxs.shape
+    lo = MODE_BOUNDS[mode][1]
+    E, EA = torch.empty_like(dxs), torch.empty_like(dxs)
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        top = min(K, n + m - 1)
+        E[b, top:] = 0.0
+        EA[b, top:] = 0.0
+        x1 = y1 = m1 = m2 = torch.zeros(S)
+        for r in reversed(range(top)):
+            k = r + 2
+            band = _band(S, k, n, m, lo)
+            e = _shl(x1) + _shl(m2) + y1
+            e = torch.where(band, e, torch.zeros(()))
+            if k == n + m:
+                e[n] = e[n] + Et[b]
+                band = band.clone()
+                band[n] = True
+            q = [torch.zeros(S) for _ in range(3)]
+            zero = torch.zeros_like(dxs[b, r, band])
+            _, qb = smooth.max3(operator, dxs[b, r, band], dms[b, r, band],
+                                zero)
+            for full, part in zip(q, qb):
+                full[band] = part
+            px, pm, py = q
+            E[b, r], EA[b, r] = e, e * (px + py)
+            x1, y1, m2, m1 = px * e, py * e, m1, pm * e
+    return E, EA
+
+
+@pytest.mark.parametrize("B,N,M", SHAPES)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_band_only_passes_equal_plain(B, N, M, mode, operator):
+    th_s, A_s, ln, lm, Et = _problem(B * N + M, B, N, M)
+    kw = dict(mode=mode, operator=operator)
+    want = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    got = band_forward(th_s, A_s, ln, lm, mode, operator)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(dp_ref.forward_score(th_s, A_s, ln, lm, **kw), got[0])
+    _, dxs, dms = want
+    want_e = dp_ref.backward(dxs, dms, ln, lm, Et, want_gap=True, **kw)
+    got_e = band_backward(dxs, dms, ln, lm, Et, mode, operator)
+    for g, w in zip(got_e, want_e):
+        assert torch.equal(g, w)

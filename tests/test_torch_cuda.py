@@ -22,6 +22,13 @@ bf16 and int16 expectations) and the pair skew are held to their plain
 versions by ``chip_smoke.check_menu_kernels`` (the same tolerance, stored
 values compared as float32; the relayouts exactly, the pair = two single
 skews), and a stream of another type than its menu gives it raises.
+The strip kernels (the forward, the score-only forward and the backward)
+are held bit for bit (max abs diff 0.0) to their plain versions at the
+shapes of their design's edges (``chip_smoke.EDGE_SHAPES``: N = 1, M = 1,
+S not a multiple of the strip, n < m and n > m, S past 1,024 slots, whole
+diagonals of padding, the wider strips, S at each kernel's limit) in
+float32 and every storage form (``chip_smoke.check_passes``), and one slot
+past its limit each wrapper raises the error that names it.
 """
 
 import numpy as np
@@ -309,3 +316,66 @@ def test_menu_wrappers_check_dtypes(cuda):
         dp_cuda.unskew(f32.double(), 12, 9)
     with pytest.raises(ValueError, match="shape"):
         dp_cuda.skew_pair(theta, A[:1])
+
+
+_EDGES = [e for e in chip_smoke.EDGE_SHAPES if e[1] + 1 < 1024 * 6]
+_LIMITS = [e for e in chip_smoke.EDGE_SHAPES if e[1] + 1 >= 1024 * 6]
+
+
+def _edge(seed, B, N, M, short):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return chip_smoke.edge_problem(g, B, N, M, short)
+
+
+@pytest.mark.parametrize("B,N,M,short", _EDGES)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_strip_kernels_at_edges(cuda, B, N, M, short, mode, operator):
+    theta, A, ln, lm = _edge(B * N + M, B, N, M, short)
+    errs = {}
+    chip_smoke.check_passes(theta, A, ln, lm, mode, operator, None, errs)
+    assert errs == {"forward": 0.0, "forward_score": 0.0, "backward": 0.0}
+
+
+@pytest.mark.parametrize("B,N,M,short", _EDGES)
+@pytest.mark.parametrize("menu", sorted(chip_smoke.MENUS))
+def test_strip_kernels_at_edges_menus(cuda, B, N, M, short, menu):
+    theta, A, ln, lm = _edge(N + len(menu), B, N, M, short)
+    errs = {}
+    mode, operator = ("sw", "sparsemax") if len(menu) % 2 else \
+        ("nw", "softmax")
+    chip_smoke.check_passes(theta, A, ln, lm, mode, operator,
+                            DTypeMenu.make(**chip_smoke.MENUS[menu]), errs)
+    assert set(errs.values()) == {0.0}
+
+
+@pytest.mark.parametrize("B,N,M,short", _LIMITS)
+@pytest.mark.parametrize("mode,operator,menu", [("nw", "softmax", None),
+                                                ("sw", "hardmax", "fast")])
+def test_strip_kernels_at_their_limits(cuda, B, N, M, short, mode, operator,
+                                       menu):
+    """S = 6,144 (the backward's 1,024 strips of 6) and S = 20,480 (the
+    forward's 1,024 strips of 20, where the backward refuses)."""
+    theta, A, ln, lm = _edge(N, B, N, M, short)
+    menu = menu and DTypeMenu.make(**chip_smoke.MENUS[menu])
+    errs = {}
+    chip_smoke.check_passes(theta, A, ln, lm, mode, operator, menu, errs)
+    assert set(errs.values()) == {0.0}
+
+
+def test_strip_kernels_refuse_past_their_limits(cuda):
+    """One slot past the strips of 1,024 threads each wrapper raises the
+    error that names its limit, before launching."""
+    for name, most in dp_cuda.MAX_SLOTS.items():
+        s = torch.zeros((1, most + 2, most + 1), device=cuda)
+        n = torch.tensor([most], dtype=torch.int32, device=cuda)
+        m = torch.tensor([2], dtype=torch.int32, device=cuda)
+        before = dict(dp_cuda.LAUNCHES)
+        with pytest.raises(ValueError, match=rf"S = {most + 1} .*"
+                                             rf"S <= {most} "):
+            if name == "backward":
+                dp_cuda.backward(s, s, n, m, torch.ones(1, device=cuda))
+            else:
+                getattr(dp_cuda, name)(s, s, n, m)
+        assert dp_cuda.LAUNCHES == before
