@@ -14,9 +14,9 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              kernel against its plain PyTorch version on the card, ragged
              (B, N, M) = (16, 200, 150), nw and sw x softmax / sparsemax /
              hardmax, outputs allocated over NaN-filled memory:
-             skew and unskew exact; forward (Vt, Dx, Dm), score-only forward
-             (Vt), backward (E, and E with EA), adjoint forward with and
-             without Za (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) to
+             skew, unskew and adjoint backward (Ed, EdA) exact; forward
+             (Vt, Dx, Dm), score-only forward (Vt), backward (E, and E with
+             EA), adjoint forward with and without Za (vtd, Dxd, Dmd) to
              rtol 1e-4 / atol 1e-5 (fp32, transcendental ulps accumulated
              over the diagonal walk); tracebacks identical; autograd of
              ``alignment_score`` (two orders) and ``expected_alignment``
@@ -27,12 +27,15 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              residuals, bf16 and int16 expectations, bf16 cotangents) of
              every default kernel, and the pair skew, against the plain
              passes under the same menu (``check_menu_kernels``: the
-             relayouts exactly, the pair = two single skews, stored values
-             as float32 to the same tolerance).  Then the strip kernels
-             (forward, score-only forward, backward) bit for bit (0.0)
-             against their plain versions at the shapes of their design's
-             edges (``EDGE_SHAPES``, up to S = 20,480), in float32 and
-             every storage menu (``check_edges``; the whole matrix is
+             relayouts and the adjoint backward exactly, the pair = two
+             single skews, stored values as float32 to the same
+             tolerance).  Then the redesigned kernels (skew, pair skew,
+             forward, score-only forward, backward, adjoint backward on
+             the training E and on an E that is noise at every slot) bit
+             for bit (0.0) against their plain versions at the shapes of
+             their design's edges (``EDGE_SHAPES``, up to S = 20,480, where
+             the reverse passes refuse), in float32 and every storage menu
+             (``check_edges``; the whole matrix is
              ``tests/test_torch_cuda.py``'s).
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
@@ -48,8 +51,7 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              + CNN-1024 (the ``deepblast-train`` defaults: dropout 0.5, NW,
              softmax, cross entropy, cosine schedule, clip 10, lr 5e-5) on
              synthetic TM-align TSVs: 48 pairs of length 100-500 and 8 of
-             600-1000 (one batch padded past 600 slots, where the adjoint
-             backward needs more than 48 KB of shared memory), 16 valid
+             600-1000 (one batch padded past 600 slots), 16 valid
              pairs, batch 16, 2 epochs.  Counters zeroed before, read
              after: every training kernel must have run.  Losses finite,
              aligner changed (against the config's seeded init), at most
@@ -69,16 +71,20 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              ``cli.train --backend pallas_long --max-len 4096`` at
              ProtT5-XL + CNN-1024 on 6 synthetic TM-align pairs of
              1,000-3,900 residues (batch 2, 2 epochs; the longest batch
-             pads past S = 2,905 slots, where the default kernels' adjoint
-             backward no longer fits in shared memory), ``load_model`` ->
+             pads past S = 3,600 slots), ``load_model`` ->
              ``align`` of the ~3,900-residue pair and ``score_pairs``, and
              one ``expected_alignment`` + gradient with ``backend="pallas"``
              (the same skew and unskew kernels).  Counters zeroed before,
              read after: every Q kernel, the skew and the unskew must have
              run.  Then, at the trained model's potentials of the longest
-             batch: the default backend refuses it with the shared-memory
-             limit error, and every Q kernel and autograd through them
-             equal their plain versions (and the CPU: the first-order
+             batch: the default backend trains it (S <= 6,144, its reverse
+             passes' strips), its expected alignment and gradient as close
+             to a float64 run of the plain passes as ``pallas_long``'s
+             (at most twice its distance, plus 1e-4 of scale; float32
+             storage; under bf16 residuals finite, the deviation
+             reported); one slot past the strips it refuses, naming the
+             limit; and every Q kernel and autograd through them equal
+             their plain versions (and the CPU: the first-order
              outputs to phase 2's tolerance; the second-order ones,
              which two fp32 runs at this length do not share to 1e-4,
              are reported).  Times at 8 x 4096 x
@@ -110,7 +116,9 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              the valid cells of the run's pairs, not the stream's padding
              slots; the registers, stack and spills of every instance
              (ptxas);
-             the unskew's library time is one strided ``clone``; then the
+             the unskew's library time is one strided ``clone``, and the
+             skew's and the pair skew's yardstick (not a library time: two
+             calls a stream) ``torch.zeros`` + a strided ``copy_``; then the
              training kernels at the same shape and one whole
              differentiable DP step (``expected_alignment`` + ``backward()``
              of a cross entropy); the Q kernels at the same shape.  Then
@@ -199,7 +207,7 @@ BENCH_INSTANCES = {
     "backward_gap": "backward_kernel<0, true, float, float, 2>",
     "adjoint_forward": "adjoint_forward_kernel<0, false, float, float>",
     "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float>",
-    "adjoint_backward": "adjoint_backward_kernel<0, float, float>",
+    "adjoint_backward": "adjoint_backward_kernel<0, float, float, 2>",
     "forward_q": "forward_q_kernel<0>",
     "backward_q": "backward_q_kernel<false>",
     "backward_q_gap": "backward_q_kernel<true>",
@@ -208,14 +216,18 @@ BENCH_INSTANCES = {
     "adjoint_backward_q": "adjoint_backward_q_kernel",
 }
 # cells one pass of a strip kernel's unrolled row loop computes: T slots x
-# the D rows of its register ring (ring_for in csrc/dp_kernels.cu)
+# the D rows of its register ring (ring_for and, for the adjoint backward,
+# abwd_ring_for in csrc/dp_kernels.cu)
 RING = {2: 4, 6: 2, 20: 1}
-# (B, N, M, short): shapes at the strip kernels' edges, lengths ragged with
-# pair 0 full and, with `short`, the last pair n = max(1, N // 50) (whole
-# diagonals of padding): N = 1 and M = 1; S not a multiple of the strip;
-# n < m and n > m; S past 1,024 slots; the 6-slot strip; S at the
-# backward's limit (1,024 x 6) and at the forward's (1,024 x 20), where the
-# backward refuses
+ABWD_RING = {2: 2, 6: 1}
+STRIP_KERNELS = ("forward_kernel<", "backward_kernel<",
+                 "adjoint_backward_kernel<")
+# (B, N, M, short): shapes at the strip kernels' (and the skew's tiles')
+# edges, lengths ragged with pair 0 full and, with `short`, the last pair
+# n = max(1, N // 50) (whole diagonals of padding): N = 1 and M = 1; S not
+# a multiple of the strip or the tile; n < m and n > m; S past 1,024
+# slots; the 6-slot strip; S at the reverse passes' limit (1,024 x 6) and
+# at the forward's (1,024 x 20), where the reverse passes refuse
 EDGE_SHAPES = [(1, 1, 1, False), (3, 1, 37, False), (3, 37, 1, False),
                (2, 67, 300, True), (2, 300, 67, True),
                (3, 1100, 60, True), (2, 2500, 40, True),
@@ -370,7 +382,7 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
 def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     """The training kernels against their plain versions: unskew exactly,
     backward with the gap output, the adjoint forward with and without a
-    Za stream, the adjoint backward; random cotangents."""
+    Za stream, the adjoint backward (bit for bit); random cotangents."""
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew, unskew
     B, N, M = theta.shape
@@ -405,8 +417,8 @@ def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     _poison(Ed_p, EdA_p)
     Ed_k, EdA_k = dp_cuda.adjoint_backward(dx, dm, dxd_p, dmd_p, E, ln, lm,
                                            **kw)
-    _close("adjoint_backward", Ed_k, Ed_p, errs)
-    _close("adjoint_backward", EdA_k, EdA_p, errs)
+    _exact("adjoint_backward", Ed_k, Ed_p, errs)
+    _exact("adjoint_backward", EdA_k, EdA_p, errs)
 
 
 def _wide(t):
@@ -425,9 +437,9 @@ def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
     backward with the gap output (training E) and without it (the decode's
     E, int16 under an int16 ``e``), the unskew of each E (exactly), the
     adjoint forward with and without Za on cotangents of the menu's
-    cotangent type, the adjoint backward; tracebacks of the decode's E
-    identical.  Stored values compared as float32 (int16 E in units of
-    1/32767), to RTOL / ATOL."""
+    cotangent type, the adjoint backward (bit for bit); tracebacks of the
+    decode's E identical.  Stored values compared as float32 (int16 E in
+    units of 1/32767), to RTOL / ATOL."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew, unskew
@@ -507,11 +519,8 @@ def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
     _poison(Ed_p, EdA_p)
     Ed_k, EdA_k = dp_cuda.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E_train,
                                            ln, lm, **kw)
-    if Ed_k.dtype != Ed_p.dtype:
-        raise AssertionError(f"adjoint backward stores {Ed_k.dtype}, the "
-                             f"plain version {Ed_p.dtype}")
-    _close("adjoint_backward", _wide(Ed_k), _wide(Ed_p), errs)
-    _close("adjoint_backward", _wide(EdA_k), _wide(EdA_p), errs)
+    _exact("adjoint_backward", Ed_k, Ed_p, errs)
+    _exact("adjoint_backward", EdA_k, EdA_p, errs)
 
 
 def _exact(name, got, want, errs):
@@ -528,13 +537,31 @@ def _exact(name, got, want, errs):
                              "to the plain version")
 
 
+def _refuses(name, call):
+    """``call`` must raise the ``ValueError`` that names the limit of
+    ``name`` (``dp_cuda.MAX_SLOTS``) before launching."""
+    from deepblast_torch.ops import dp_cuda
+    before = dict(dp_cuda.LAUNCHES)
+    try:
+        call()
+    except ValueError as e:
+        if f"S <= {dp_cuda.MAX_SLOTS[name]} " not in str(e) or \
+                dp_cuda.LAUNCHES != before:
+            raise AssertionError(f"unclear refusal of {name}: {e}")
+        return str(e)
+    raise AssertionError(f"{name} took a pair past its limit")
+
+
 def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
-    """The strip kernels -- the forward (Vt, Dx, Dm), the score-only
-    forward, the backward (training E with EA, E alone, the decode's E) --
-    under one storage menu (None: float32) against their plain versions
-    bit for bit, outputs over NaN-filled memory; tracebacks of the decode's
-    E identical.  Past the backward's strips (S > ``MAX_SLOTS``) the
-    backward must refuse, naming its limit."""
+    """The redesigned kernels under one storage menu (None: float32)
+    against their plain versions bit for bit, outputs over NaN-filled
+    memory: the skew and the pair skew to the menu's stream type; the
+    strip kernels -- the forward (Vt, Dx, Dm), the score-only forward, the
+    backward (training E with EA, E alone, the decode's E), the adjoint
+    backward (Ed, EdA) on the training E and on an E that is noise at every
+    slot; tracebacks of the decode's E identical.  Past the reverse passes'
+    strips (S > ``MAX_SLOTS``) the backward and the adjoint backward must
+    refuse, naming their limit."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.menu import as_menu
@@ -543,6 +570,12 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
     m = as_menu(menu)
     th_s = skew(theta, m.stream_dtype, m.stream_scale)
     A_s = skew(A, m.stream_dtype, m.stream_scale)
+    _poison(th_s, A_s)
+    _exact("skew", dp_cuda.skew(theta, m.stream_dtype, m.stream_scale), th_s,
+           errs)
+    for got, want in zip(dp_cuda.skew_pair(theta, A, m.stream_dtype,
+                                           m.stream_scale), (th_s, A_s)):
+        _exact("skew_pair", got, want, errs)
     vt_p, dx_p, dm_p = dp_ref.forward(th_s, A_s, ln, lm, **kw)
     _poison(dx_p, dm_p)
     for got, want in zip(dp_cuda.forward(th_s, A_s, ln, lm, **kw),
@@ -553,13 +586,13 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
     Et = torch.ones_like(vt_p)
     S = th_s.shape[2]
     if S > dp_cuda.MAX_SLOTS["backward"]:
-        try:
-            dp_cuda.backward(dx_p, dm_p, ln, lm, Et, **kw)
-        except ValueError as e:
-            if f"S <= {dp_cuda.MAX_SLOTS['backward']} " not in str(e):
-                raise AssertionError(f"unclear refusal: {e}")
-            return
-        raise AssertionError(f"the backward took S = {S}")
+        _refuses("backward", lambda: dp_cuda.backward(dx_p, dm_p, ln, lm, Et,
+                                                      **kw))
+        E = torch.zeros(dx_p.shape, dtype=dp_cuda._train_e_dtype(m),
+                        device=dx_p.device)
+        _refuses("adjoint_backward", lambda: dp_cuda.adjoint_backward(
+            dx_p, dm_p, dx_p, dm_p, E, ln, lm, **kw))
+        return
     for gap, decode in ((True, False), (False, False), (False, True)):
         E_p, EA_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
                                     decode=decode, **kw)
@@ -569,11 +602,28 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
         _exact("backward", E_k, E_p, errs)
         if gap:
             _exact("backward", EA_k, EA_p, errs)
+            E_train = E_p
     E_kh, E_ph = E_k.cpu(), E_p.cpu()
+    del E_k, EA_k, E_p, EA_p
     for b, (n, mm) in enumerate(zip(ln.tolist(), lm.tolist())):
         if dp_ops.traceback_stream(E_kh, n, mm, b) != \
                 dp_ops.traceback_stream(E_ph, n, mm, b):
             raise AssertionError(f"traceback of pair {b} differs")
+
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(S + theta.shape[2])
+    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
+                m.cotangent_dtype)
+    _, dxd_p, dmd_p = dp_ref.adjoint_forward(dx_p, dm_p, zt_s, None, ln, lm,
+                                             **kw)
+    noise = torch.randn(dx_p.shape, generator=g, device=theta.device)
+    for E in (E_train, noise.to(E_train.dtype)):
+        Ed_p, EdA_p = dp_ref.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E, ln,
+                                              lm, **kw)
+        _poison(Ed_p, EdA_p)
+        for got, want in zip(dp_cuda.adjoint_backward(
+                dx_p, dm_p, dxd_p, dmd_p, E, ln, lm, **kw), (Ed_p, EdA_p)):
+            _exact("adjoint_backward", got, want, errs)
 
 
 def edge_problem(g, B, N, M, short):
@@ -592,8 +642,9 @@ def check_edges(g, errs):
     """``check_passes`` at every ``EDGE_SHAPES`` shape, in float32 for nw
     softmax and, below the limit shapes (whose plain passes walk 6,145
     and 20,480 diagonals), sw sparsemax; the storage menus, one (mode,
-    operator) each in turn, at the shapes of at most 1,101 slots.
-    ``tests/test_torch_cuda.py`` runs the whole matrix."""
+    operator) each in turn, at the shapes of at most 301 slots (the plain
+    passes, a few hundred small launches a diagonal, set the smoke's
+    time).  ``tests/test_torch_cuda.py`` runs the whole matrix."""
     from deepblast_torch.ops.menu import DTypeMenu
     pairs = [("nw", "softmax"), ("sw", "sparsemax"), ("nw", "hardmax")]
     for B, N, M, short in EDGE_SHAPES:
@@ -601,7 +652,7 @@ def check_edges(g, errs):
         combos = [(*pairs[0], None)]
         if N + 1 < 1024 * 6:
             combos.append((*pairs[1], None))
-        if N + 1 <= 1101:
+        if N + 1 <= 301:
             combos += [(*pairs[i % 3], DTypeMenu.make(**kw))
                        for i, kw in enumerate(MENUS.values())]
         for mode, op, menu in combos:
@@ -796,9 +847,11 @@ def phase_kernels(seed):
     edge_errs, t0 = {}, time.time()
     check_edges(g, edge_errs)
     torch.cuda.synchronize()
-    log("phase kernels: forward, score-only forward and backward bit-"
-        f"identical to plain at the strip edges {EDGE_SHAPES} in float32 "
-        "and every storage menu; the backward refuses S = 20,480 naming its "
+    log("phase kernels: skew, skew_pair, forward, score-only forward, "
+        "backward and adjoint backward bit-identical to plain at the strip "
+        f"edges {EDGE_SHAPES} in float32 (every storage menu up to 301 "
+        "slots); the "
+        "backward and the adjoint backward refuse S = 20,480 naming their "
         f"limit; {time.time() - t0:.1f} s; max abs diff "
         f"{json.dumps(edge_errs)}")
     for k, v in edge_errs.items():
@@ -1191,13 +1244,11 @@ def phase_long(seed, card):
                                  "adjoint_backward", "forward_score")):
         raise AssertionError(f"the long path ran a default kernel: "
                              f"{launches}")
-    # the most slots the default adjoint backward holds in shared memory
+    # the default backend's reverse passes hold this batch in their strips
     S = theta.shape[1] + 1
-    most = dp_cuda.max_smem(theta.device) // (
-        4 * dp_cuda.SMEM_ROWS["adjoint_backward"])
-    if S <= most:
-        raise AssertionError(f"the longest batch pads to S = {S} slots, "
-                             f"within the default kernels' {most}")
+    if S > dp_cuda.MAX_SLOTS["adjoint_backward"]:
+        raise AssertionError(f"the longest batch pads to S = {S} slots, past "
+                             "the default kernels' strips")
     if len(losses) != 2 * (len(batches) + 1) or \
             not all(np.isfinite(v) for _, v in losses):
         raise AssertionError(f"training losses {losses}")
@@ -1218,30 +1269,103 @@ def phase_long(seed, card):
         f"launches {json.dumps(launches)}; of which the pallas call "
         f"{json.dumps(pallas)}")
 
-    # the default backend refuses this batch, naming the limit
-    t = theta.clone().requires_grad_()
-    try:
-        (dp_ops.expected_alignment(t, A, lengths) ** 2).sum().backward()
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError(f"the default backend trained S = {S}")
-    if 'backend="pallas_long"' not in refusal:
-        raise AssertionError(f"unclear refusal: {refusal}")
-    del t
+    default = default_vs_long(theta, A, lengths, seed, errs)
+    refusal = refusal_past_strips()
     torch.cuda.empty_cache()
     check_q_kernels(theta, A, *lengths, "nw", "softmax", errs)
     check_autograd(theta, A, *lengths, "nw", "softmax", errs,
                    backend="pallas_long", cpu_second_order=False)
     torch.cuda.synchronize()
-    log(f"phase long: the default backend refuses {tuple(theta.shape)}: "
-        f"{refusal}")
+    log(f"phase long: the default backend trains {tuple(theta.shape)} (S = "
+        f"{S}): {default}; at S = "
+        f"{dp_cuda.MAX_SLOTS['adjoint_backward'] + 1} it refuses: {refusal}")
     log(f"phase long: Q kernels = plain and autograd = plain and CPU at the "
         f"longest training batch {tuple(theta.shape)}; max abs diff "
         f"{json.dumps(errs)}")
     del theta, A
     torch.cuda.empty_cache()
     return launches, errs
+
+
+def default_vs_long(theta, A, lengths, seed, errs):
+    """The default backend's training step at the long batch against
+    ``pallas_long``'s on the same inputs: ``expected_alignment`` and the
+    gradient of ``<E, Z>`` for a random Z, float32 storage in both, and a
+    float64 run of the plain passes on the card as the reference.  Two
+    float32 formulations of the DP part by 1e-3 to 1e-2 of scale at this
+    length (PERF.md), more than the autograd checks' 1e-4, so each output
+    is held to the reference: the default's distance to it at most twice
+    ``pallas_long``'s, plus ATOL + RTOL of scale; the distances and the
+    default-vs-``pallas_long`` difference (of scale) are reported.  Then
+    the trainer's bf16 residuals: finite, the deviation reported."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_ref
+    from deepblast_torch.ops.menu import DTypeMenu
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(seed + 5)
+    Z = torch.randn(theta.shape, generator=g, device=theta.device)
+
+    def step(dtype=torch.float32, **kw):
+        t = theta.detach().to(dtype).requires_grad_()
+        a = A.detach().to(dtype).requires_grad_()
+        E = dp_ops.expected_alignment(t, a, lengths, **kw)
+        (E * Z.to(dtype)).sum().backward()
+        return [x.detach().double() for x in (E, t.grad, a.grad)]
+
+    passes = dp_ops._passes
+    dp_ops._passes = lambda t: dp_ref
+    try:
+        ref = step(torch.float64)
+    finally:
+        dp_ops._passes = passes
+    runs = {"pallas_long": step(backend="pallas_long"), "default": step(),
+            "default_bf16": step(dtypes=DTypeMenu.make(d="bfloat16"))}
+    out = {}
+    for i, name in enumerate(("E", "dtheta", "dA")):
+        scale = ref[i].abs().max().item()
+        dist = {k: (v[i] - ref[i]).abs().max().item() / scale
+                for k, v in runs.items()}
+        diff = (runs["default"][i] - runs["pallas_long"][i]).abs().max(
+            ).item() / scale
+        for k, v in (("default_vs_float64", dist["default"]),
+                     ("pallas_long_vs_float64", dist["pallas_long"]),
+                     ("default_bf16_vs_float64", dist["default_bf16"]),
+                     ("default_vs_pallas_long", diff)):
+            errs[k] = max(errs.get(k, 0.0), v)
+        out[name] = dict(scale=scale, default_vs_pallas_long=diff,
+                         **{f"{k}_vs_float64": v for k, v in dist.items()})
+        if not all(torch.isfinite(v[i]).all() for v in runs.values()) or \
+                dist["default"] > 2 * dist["pallas_long"] + RTOL + \
+                ATOL / scale:
+            raise AssertionError(f"default backend {name}: {out[name]}")
+    return json.dumps(out)
+
+
+def refusal_past_strips():
+    """One slot past the reverse passes' strips the default backend refuses
+    to train, and the adjoint backward refuses on its own, each naming
+    its limit and ``pallas_long``."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    most = dp_cuda.MAX_SLOTS["adjoint_backward"]
+    x = torch.zeros((1, most, 2), device="cuda")
+    n = torch.tensor([most], dtype=torch.int32, device="cuda")
+    m = torch.tensor([2], dtype=torch.int32, device="cuda")
+    t = x.clone().requires_grad_()
+    try:
+        dp_ops.expected_alignment(t, x, (n, m)).sum().backward()
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"the default backend trained S = {most + 1}")
+    s = dp_cuda.skew(x)
+    msg2 = _refuses("adjoint_backward", lambda: dp_cuda.adjoint_backward(
+        s, s, s, s, s, n, m))
+    for e in (msg, msg2):
+        if f"S = {most + 1} " not in e or f"S <= {most} " not in e or \
+                'backend="pallas_long"' not in e:
+            raise AssertionError(f"unclear refusal: {e}")
+    return msg2
 
 
 def long_times(seed, card):
@@ -1571,9 +1695,10 @@ def kernel_report(so):
 def cells_per_body(instance):
     """Cells one copy of an instance's code computes: T x D for a strip
     kernel (T its last template argument), else 1."""
-    if instance.startswith(("forward_kernel<", "backward_kernel<")):
+    if instance.startswith(STRIP_KERNELS):
         T = int(instance.rsplit(",", 1)[1].rstrip("> "))
-        return T * RING[T]
+        ring = ABWD_RING if instance.startswith("adjoint_") else RING
+        return T * ring[T]
     return 1
 
 
@@ -1706,6 +1831,19 @@ def phase_bench(seed, card):
             memory_format=torch.contiguous_format)}
     if not torch.equal(library["unskew"](), dp_cuda.unskew(E, N, M)):
         raise AssertionError("unskew: the strided copy differs")
+
+    # The skew's yardstick, two PyTorch calls and so no library_ms: a
+    # zeroed stream and a strided copy of the natural tensor into its band
+    def strided_skew(x):
+        out = torch.zeros((B, K, S), device=x.device)
+        torch.as_strided(out, (B, N, M), (K * S, S + 1, S), 1).copy_(x)
+        return out
+
+    if not torch.equal(strided_skew(theta), dp_cuda.skew(theta)):
+        raise AssertionError("skew: the strided copy differs")
+    yardstick = {"skew": cuda_ms(lambda: strided_skew(theta), 10),
+                 "skew_pair": cuda_ms(lambda: (strided_skew(theta),
+                                               strided_skew(A)), 10)}
     ms = {k: cuda_ms(fn, 10) for k, fn in kern.items()}
     plain_ms = {k: cuda_ms(fn, 1) for k, fn in plain.items()}
     library_ms = {k: cuda_ms(fn, 10) for k, fn in library.items()}
@@ -1722,6 +1860,9 @@ def phase_bench(seed, card):
         out[k] = dict(ms=ms[k], plain_ms=plain_ms[k], bound_ms=b_ms,
                       bound_by=by, library_ms=library_ms.get(k))
         lib = f", library {library_ms[k]:.4f} ms" if k in library_ms else ""
+        if k in yardstick:
+            lib = (f", torch.zeros + strided copy_ (two calls a stream) "
+                   f"{yardstick[k]:.4f} ms")
         log(f"phase bench: {k} {ms[k]:.4f} ms (plain {plain_ms[k]:.2f} ms"
             f"{lib}, bound {b_ms:.4f} ms by {by}: {nbytes[k]} bytes "
             f"{nbytes[k] / HBM_BYTES_PER_S * 1e3:.4f} ms, operations "
@@ -1775,11 +1916,14 @@ def phase_bench(seed, card):
 
 def log_registers(report):
     """Registers, stack and spills (ptxas) of the strip kernels' instances,
-    per kernel and strip width, and the most of any other kernel."""
+    per kernel and strip width, of the skew kernels, and the most of any
+    other kernel."""
     groups = {}
     for name, r in report.items():
-        if name.startswith(("forward_kernel<", "backward_kernel<")):
+        if name.startswith(STRIP_KERNELS):
             key = f"{name.split('<')[0]} T={name.rsplit(',', 1)[1][:-1].strip()}"
+        elif name.startswith("skew"):
+            key = name.split("<")[0]
         else:
             key = "other kernels"
         groups.setdefault(key, []).append(r)
@@ -1807,7 +1951,8 @@ FORM_INSTANCES = {
         "adjoint_forward_kernel<0, false, __nv_bfloat16, float>",
     "adjoint_forward D bf16 Za":
         "adjoint_forward_kernel<0, true, __nv_bfloat16, float>",
-    "adjoint_backward D bf16": "adjoint_backward_kernel<0, __nv_bfloat16, float>",
+    "adjoint_backward D bf16":
+        "adjoint_backward_kernel<0, __nv_bfloat16, float, 2>",
 }
 
 

@@ -61,8 +61,9 @@ def add_model_args(parser: argparse.ArgumentParser):
                         help="DP passes (default: pallas_bm's stored "
                              "differences); pallas and pallas_long store the "
                              "soft-argmax streams and train pairs past the "
-                             "default kernels' limit (on an H100: S ~ 2,900 "
-                             "slots; theirs ~9,600); scan is not ported"),
+                             "default kernels' limit (S = 6,144 slots; "
+                             "theirs ~9,600 on an H100); scan is not "
+                             "ported"),
     parser.add_argument("--finetune", type=bool, default=False)
     parser.add_argument("--mask-gaps", type=bool, default=True)
     parser.add_argument("--scheduler", type=str, default="cosine")

@@ -60,28 +60,33 @@
 // (chip_smoke.py kernel_report; PERF.md).
 //
 // The forward and the backward (the decode's whole DP, and the forward of
-// search) are designed for the H100 as follows.
+// search), and the adjoint backward of training, are designed for the H100
+// as follows.
 //  * Smoothed max on the band only.  On diagonal k only the slots
 //    [max(lo, k-m), min(n, k-lo)] hold a cell (about half of a square
 //    pair's stream); max3 -- three expf, a logf and an IEEE divide under
 //    softmax, ~100 issued instructions a cell at --fmad=false -- runs
 //    there alone.  The padding keeps a cheap path that still writes the
 //    plain version's value (forward: Dx, Dm by two subtractions, V = 0;
-//    backward: E = EA = 0, Q = 0, since Q only multiplies E there).  Rows
-//    past a ragged pair's terminal diagonal are a plain store loop.
+//    backward: E = EA = 0, Q = 0, since Q only multiplies E there; adjoint
+//    backward: Ed = 0, and Q, Qd only where E is non-zero).  Rows past a
+//    ragged pair's terminal diagonal are a plain store loop (except in
+//    the adjoint backward, whose given E may be non-zero there).
 //  * Inputs loaded ahead of the chain.  Their addresses depend on nothing
 //    in the DP, so each thread keeps the rows of the next D diagonals in
-//    flight in a register ring (D = 4, 2, 1 at strip width 2, 6, 20) and
+//    flight in a register ring (D = 4, 2, 1 at strip width 2, 6, 20; the
+//    adjoint backward, five input rows a diagonal, D = 2, 1) and
 //    issues row r+D as it starts row r; only the band's values (and A
 //    everywhere where Dm is stored) are read.  cp.async or TMA would save
 //    those registers, but the (B, K, S) rows are not 16-byte aligned at
 //    odd S, and 2-byte streams have no 2-byte cp.async.
 //  * Synchronisation local to a pair, and lighter.  Thread t owns the T
 //    consecutive slots [tT, tT+T) of every diagonal in registers (the V
-//    rows of the forward; the products Qx E, Qy E, Qm E of the backward),
+//    rows of the forward; the products Qx E, Qy E, Qm E of the backward;
+//    five products of the adjoint backward),
 //    so a block is ceil(S / T / 32) warps instead of S / 32: 9 warps at
 //    S = 513, two pairs on most SMs.  A diagonal needs one neighbour slot
-//    per strip (s0-1 in the forward, s0+T in the backward): by shuffle
+//    per strip (s0-1 in the forward, s0+T in the reverse passes): by shuffle
 //    inside a warp, and through a two-deep `edge` array and one named
 //    barrier (bar.sync 1) over the pair's warps between warps.
 //  * Every register row holds T slots, so one block of 1,024 threads holds
@@ -89,22 +94,28 @@
 //    for the forward), and only the widest strips come near the 64
 //    registers a thread has at 1,024 threads.
 // Every cell still rounds as ops/dp_ref.py: the same float operations in
-// the same order (the backward's products are formed one row early and
-// summed in the plain version's order), so every output is bit-identical.
+// the same order (the reverse passes' products are formed one row early
+// and summed in the plain version's order), so every output is
+// bit-identical.
 //
-// The other DP kernels (first version): one CTA per pair walks all K
-// diagonals in one launch; threads run along the slot axis (coalesced
-// loads and stores of each diagonal row), and the rolling DP rows live in
-// shared memory with one __syncthreads() per diagonal, so the only
-// device-memory traffic is each stream read once and each output written
-// once.  Every output slot is written (zeros, or finite residuals outside
-// the valid band), so no uninitialised memory can reach a Q * E or Qd * E
-// product (0 * NaN).  The rows a pair keeps in shared memory bound its
-// length: the adjoint backward holds 20 rows of S floats (80 S bytes), so
-// one CTA holds a pair up to S ~ 2,900 slots in the 227 KB an H100 block
-// can use.
+// The relayouts move each value once and do no arithmetic: the skew is a
+// tiled relayout through shared memory (coalesced reads of row segments,
+// coalesced writes of stream rows); the unskew (first version) reads the
+// stream with stride S.
 //
-// The Q-stream kernels lift that bound by moving a stream more: the
+// The adjoint forward and the Q-stream kernels (first version): one CTA
+// per pair walks all K diagonals in one launch; threads run along the
+// slot axis (coalesced loads and stores of each diagonal row), and the
+// rolling DP rows live in shared memory with one __syncthreads() per
+// diagonal, so the only device-memory traffic is each stream read once
+// and each output written once.  Every output slot is written (zeros, or
+// finite residuals outside the valid band), so no uninitialised memory
+// can reach a Q * E or Qd * E product (0 * NaN).  The rows a pair keeps
+// in shared memory bound its length: the adjoint forward holds 3 rows of
+// S floats, so one CTA holds a pair up to S ~ 19,000 slots in the 227 KB
+// an H100 block can use.
+//
+// The Q-stream kernels keep few rows by moving a stream more: the
 // forward stores the three soft-argmax streams Q (and the adjoint forward
 // the three Qd), and the reverse passes read Q[r+1], Q[r+2] straight from
 // device memory instead of carrying recomputed Q rows in shared memory.
@@ -164,16 +175,29 @@ template <typename T>
 __device__ __forceinline__ float ld(const T *p, size_t i, float inv) {
   return cvt(p[i], inv);
 }
-__device__ __forceinline__ void st(float *p, size_t i, float v, float) {
-  p[i] = v;
+// The stored form of v: `scale` quantizes an int16 store (bf16 rounds to
+// nearest even); the pointer only picks the type.
+__device__ __forceinline__ float enc(const float *, float v, float) {
+  return v;
 }
-__device__ __forceinline__ void st(bf16 *p, size_t i, float v, float) {
-  p[i] = __float2bfloat16_rn(v);
+__device__ __forceinline__ bf16 enc(const bf16 *, float v, float) {
+  return __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ void st(int16_t *p, size_t i, float v,
-                                   float scale) {
-  p[i] = (int16_t)floorf(fminf(fmaxf(v * scale, -32767.0f), 32767.0f) +
+__device__ __forceinline__ int16_t enc(const int16_t *, float v,
+                                       float scale) {
+  return (int16_t)floorf(fminf(fmaxf(v * scale, -32767.0f), 32767.0f) +
                          0.5f);
+}
+template <typename T>
+__device__ __forceinline__ void st(T *p, size_t i, float v, float scale) {
+  p[i] = enc(p, v, scale);
+}
+// the 16 bits of a 2-byte stored value
+__device__ __forceinline__ uint32_t bits16(bf16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t bits16(int16_t v) {
+  return (uint16_t)v;
 }
 
 // Smoothed max of (ax, am, ay) and its argmax (deepblast_torch/ops/smooth.py).
@@ -260,48 +284,101 @@ __device__ __forceinline__ bool cell_valid(int s, int k, int n, int m, int lo) {
   return s >= lo && j >= lo && s <= n && j <= m;
 }
 
-// out[b, r, s] = x[b, s-1, r-s+1] where that cell exists, else 0, stored
-// as TO (int16: quantized at `scale`); grid-stride over the stream.
+// The skew as a tiled relayout.  out[b, r, s] = x[b, s-1, r-s+1] where
+// that cell exists, else 0, stored as TO (int16: quantized at `scale`).
+// One CTA per tile of SKEW_R diagonals [r0, r0+R) x SKEW_C slots
+// [s0, s0+C) of one pair (blockIdx.x; diagonals fastest, so neighbouring
+// CTAs read neighbouring column segments of the same rows).  Slot s of
+// the tile holds natural row i = s-1, whose cells in the tile are the R
+// contiguous columns j in [r0-i, r0-i+R): a warp reads one such segment
+// per load (lane = diagonal offset), coalesced along j and masked to
+// [0, M), into a shared tile padded against bank conflicts; then the
+// block writes the tile's R stream rows coalesced along s, zeros where
+// no cell exists (slot 0, off the band).  The 2-byte forms store two
+// neighbouring slots as one 32-bit word (pairs start at an even element
+// of the stream; a slot whose partner lies in the next tile is stored
+// alone).  A tile with no cell at all writes zeros without loading.
+// Each input value is read once and each output value written once, so
+// the kernel moves the bytes of its bound; the read segments are 128
+// bytes at any alignment.
+constexpr int SKEW_R = 32, SKEW_C = 128, SKEW_THREADS = 256;
+
 template <typename TO>
-__device__ __forceinline__ void skew_body(const float *__restrict__ x, int B,
-                                          int N, int M, int K, int S,
+__device__ __forceinline__ void skew_body(const float *__restrict__ x, int N,
+                                          int M, int K, int S,
                                           TO *__restrict__ out, float scale) {
-  const size_t total = (size_t)B * K * S;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
-    int s = (int)(idx % S);
-    size_t t = idx / S;
-    int r = (int)(t % K);
-    int b = (int)(t / K);
-    int j = r - s + 1;
-    float v = 0.0f;
-    if (s >= 1 && j >= 0 && j < M)
-      v = x[((size_t)b * N + (s - 1)) * M + j];
-    st(out, idx, v, scale);
+  __shared__ float tile[SKEW_C][SKEW_R + 1];
+  const int tiles_r = (K + SKEW_R - 1) / SKEW_R;
+  const int tiles_s = (S + SKEW_C - 1) / SKEW_C;
+  const int r0 = (int)(blockIdx.x % tiles_r) * SKEW_R;
+  const int t = (int)(blockIdx.x / tiles_r);
+  const int s0 = (t % tiles_s) * SKEW_C;
+  const int b = t / tiles_s;
+  // column j = r - s + 1 of the tile's cells spans
+  // [r0 - s0 - C + 2, r0 + R - s0]
+  const bool cells = r0 + SKEW_R - s0 >= 0 && r0 - s0 - SKEW_C + 2 < M;
+  if (cells) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int w = 0; w < SKEW_C; w += SKEW_THREADS / 32) {
+      const int c = w + warp, s = s0 + c, j = r0 - s + 1 + lane;
+      float v = 0.0f;
+      if (s >= 1 && s < S && j >= 0 && j < M)
+        v = x[((size_t)b * N + (s - 1)) * M + j];
+      tile[c][lane] = v;
+    }
+    __syncthreads();
+  }
+  // positions a row: one slot each, or (2-byte forms) one aligned pair
+  // of slots each, the first and last possibly half outside the tile
+  constexpr int V = sizeof(TO) == 2 ? 2 : 1;
+  constexpr int P = V == 1 ? SKEW_C : SKEW_C / 2 + 1;
+  for (int idx = threadIdx.x; idx < SKEW_R * P; idx += SKEW_THREADS) {
+    const int rr = idx / P, q = idx - rr * P;
+    const int r = r0 + rr;
+    if (r >= K) break;
+    const size_t row = ((size_t)b * K + r) * S + s0;
+    if (V == 1) {
+      if (s0 + q < S) st(out, row + q, cells ? tile[q][rr] : 0.0f, scale);
+    } else {
+      const int c = 2 * q - (int)(row & 1);  // row + c is even
+      const bool lo_ok = c >= 0 && c < SKEW_C && s0 + c < S;
+      const bool hi_ok = c + 1 < SKEW_C && s0 + c + 1 < S;
+      const float lo = cells && lo_ok ? tile[c][rr] : 0.0f;
+      const float hi = cells && hi_ok ? tile[c + 1][rr] : 0.0f;
+      if (lo_ok && hi_ok) {
+        *(uint32_t *)(out + row + c) = bits16(enc(out, lo, scale)) |
+                                       (bits16(enc(out, hi, scale)) << 16);
+      } else {
+        if (lo_ok) st(out, row + c, lo, scale);
+        if (hi_ok) st(out, row + c + 1, hi, scale);
+      }
+    }
   }
 }
 
 template <typename TO>
-__global__ void skew_kernel(const float *__restrict__ x, int B, int N, int M,
-                            int K, int S, TO *__restrict__ out, float scale) {
-  skew_body(x, B, N, M, K, S, out, scale);
+__global__ void __launch_bounds__(SKEW_THREADS)
+    skew_kernel(const float *__restrict__ x, int N, int M, int K, int S,
+                TO *__restrict__ out, float scale) {
+  skew_body(x, N, M, K, S, out, scale);
 }
 
 // Both operands of a pair in one launch: blockIdx.y picks the operand, and
-// each half of the grid runs skew_kernel's loop over its own stream, so the
-// outputs are bit-identical to two skew_kernel launches.  The TPU fused its
-// two skews to overlap their DMA within one pallas_call
-// (skew_bm.py:167-180); here one launch puts both streams' blocks in flight
-// at once and saves a launch.
+// each half of the grid runs skew_kernel's tiles over its own stream, so
+// the outputs are bit-identical to two skew_kernel launches.  The TPU fused
+// its two skews to overlap their DMA within one pallas_call
+// (skew_bm.py:167-180); here one launch puts both streams' tiles in
+// flight at once and saves a launch.
 template <typename TO>
-__global__ void skew_pair_kernel(const float *__restrict__ x,
-                                 const float *__restrict__ y, int B, int N,
-                                 int M, int K, int S, TO *__restrict__ ox,
-                                 TO *__restrict__ oy, float scale) {
+__global__ void __launch_bounds__(SKEW_THREADS)
+    skew_pair_kernel(const float *__restrict__ x, const float *__restrict__ y,
+                     int N, int M, int K, int S, TO *__restrict__ ox,
+                     TO *__restrict__ oy, float scale) {
   if (blockIdx.y == 0)
-    skew_body(x, B, N, M, K, S, ox, scale);
+    skew_body(x, N, M, K, S, ox, scale);
   else
-    skew_body(y, B, N, M, K, S, oy, scale);
+    skew_body(y, N, M, K, S, oy, scale);
 }
 
 // out[b, r, c] = s[b, r+c, r+1]: every natural cell is written.  Threads
@@ -633,79 +710,146 @@ __global__ void adjoint_forward_kernel(const TD *__restrict__ dx,
   }
 }
 
-// Tangent of the backward: one CTA per pair, rows descending.  Per row it
-// recomputes Q from Dx/Dm and Qd = hessian3(Q, (Dxd, Dmd, 0)), and carries
-// in shared memory (20 x S floats): Ed and E rows r+2, r+1, r (3 x S
-// each), Qx, Qy, Qdx, Qdy rows r+1, r (2 x S each), Qm and Qdm rows r+2,
-// r+1, r (3 x S each).  E comes from the backward's stream.  It writes Ed
-// (masked; the terminal seed has zero tangent) and the fused gap adjoint
-// EdA = Ed (Qx + Qy) + E (Qdx + Qdy), as _abwd_train_kernel
-// (dp_bm_train.py:567-576).  Dx, Dm, Dxd, Dmd of TD; E read and Ed, EdA
-// stored as TE (float or bf16: the training expectations are unbounded).
-template <int OP, typename TD, typename TE>
-__global__ void adjoint_backward_kernel(const TD *__restrict__ dx,
-                                        const TD *__restrict__ dm,
-                                        const TD *__restrict__ dxd,
-                                        const TD *__restrict__ dmd,
-                                        const TE *__restrict__ E,
-                                        const int *__restrict__ ln,
-                                        const int *__restrict__ lm, int K,
-                                        int S, int lo,
-                                        TE *__restrict__ edo,
-                                        TE *__restrict__ edao) {
-  extern __shared__ float smem[];
-  float *ED = smem;
-  float *EE = smem + 3 * S;
-  float *QX = smem + 6 * S;
-  float *QY = smem + 8 * S;
-  float *QM = smem + 10 * S;
-  float *QDX = smem + 13 * S;
-  float *QDY = smem + 15 * S;
-  float *QDM = smem + 17 * S;
+// The adjoint backward's ring depth at strip width T: five input rows
+// (Dx, Dm, Dxd, Dmd, E) a ring slot, against the backward's two.
+__host__ __device__ constexpr int abwd_ring_for(int T) {
+  return T <= 2 ? 2 : 1;
+}
+
+// Tangent of the backward, a strip kernel like the backward: one CTA per
+// pair, diagonals descending, thread t owning the slots [tT, tT+T).
+// Registers, per strip slot: the products of the rows before that the
+// plain version sums (dp_ref.py:303-304),
+//   Ed[r] = shl(X[r+1]) + shl(M[r+2]) + Yd[r+1] + Yq[r+1]
+// with X = Qdx E + Qx Ed, M = Qdm E + Qm Ed, Yd = Qdy E and Yq = Qy Ed
+// (x1, m1, m2, yd1, yq1; Yd and Yq stay two values, as the plain sum
+// rounds them apart), and at the strip's right edge slot s0+T of X[r+1],
+// M[r+1] and M[r+2] (rx1, rm1, rm2), from the right lane by shuffle or
+// the right warp through `edge` and the pair's barrier.  Q = max3(Dx, Dm,
+// 0) and Qd = hessian3(Q, (Dxd, Dmd, 0)) are computed on the band, where
+// Ed lives, and wherever E is non-zero off it: the plain version reads E
+// at every slot, so off the band a product Qd E is 0 only when E is
+// (the dispatcher's E is, but the terminal slot, seeded with Et, lies off
+// the band in sw with n = 1 or m = 1, and a caller may pass any E); there
+// Dx, Dm, Dxd, Dmd are loaded on the spot, since the ring holds them on
+// the band only.  E is read at every slot, D rows ahead; Ed is stored
+// masked (the terminal seed has zero tangent), and the fused gap adjoint
+// EdA = Ed (Qx + Qy) + E (Qdx + Qdy) at every slot (0 where Q is not
+// computed: Ed and E are 0 there).  Every row is walked: E may be
+// non-zero past the terminal diagonal.  Dx, Dm, Dxd, Dmd of TD; E read
+// and Ed, EdA stored as TE (float or bf16: the training expectations are
+// unbounded).
+template <int OP, typename TD, typename TE, int T>
+__global__ void __launch_bounds__(1024)
+    adjoint_backward_kernel(const TD *__restrict__ dx,
+                            const TD *__restrict__ dm,
+                            const TD *__restrict__ dxd,
+                            const TD *__restrict__ dmd,
+                            const TE *__restrict__ E,
+                            const int *__restrict__ ln,
+                            const int *__restrict__ lm, int K, int S, int lo,
+                            TE *__restrict__ edo, TE *__restrict__ edao) {
+  constexpr int D = abwd_ring_for(T);
+  __shared__ float edge[2][2][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int s0 = threadIdx.x * T;
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 20 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = K - 1; r >= 0; --r) {
-    const int i1 = (r + 1) % 3, i2 = (r + 2) % 3, i0 = r % 3;
-    const int h1 = (r + 1) & 1, h0 = r & 1;
-    const float *ed1 = ED + i1 * S, *ed2 = ED + i2 * S;
-    const float *e1 = EE + i1 * S, *e2 = EE + i2 * S;
-    const float *qx1 = QX + h1 * S, *qy1 = QY + h1 * S;
-    const float *qdx1 = QDX + h1 * S, *qdy1 = QDY + h1 * S;
-    const float *qm2 = QM + i2 * S, *qdm2 = QDM + i2 * S;
-    float *edn = ED + i0 * S, *en = EE + i0 * S;
-    float *qxn = QX + h0 * S, *qyn = QY + h0 * S, *qmn = QM + i0 * S;
-    float *qdxn = QDX + h0 * S, *qdyn = QDY + h0 * S, *qdmn = QDM + i0 * S;
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float t1 = 0.0f, t2 = 0.0f;
-      if (s + 1 < S) {
-        t1 = qdx1[s + 1] * e1[s + 1] + qx1[s + 1] * ed1[s + 1];
-        t2 = qdm2[s + 1] * e2[s + 1] + qm2[s + 1] * ed2[s + 1];
+  float x1[T], m1[T], m2[T], yd1[T], yq1[T];
+  float rx1 = 0.0f, rm1 = 0.0f, rm2 = 0.0f;
+  TD pdx[D][T], pdm[D][T], pdxd[D][T], pdmd[D][T];
+  TE pe[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) x1[i] = m1[i] = m2[i] = yd1[i] = yq1[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d: E at every
+  // slot, the differences on the band
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q >= 0 && in_band(s, q + 2, n, m, lo);
+    const size_t at = base + (size_t)q * S + s;
+    pe[d][i] = q >= 0 && s < S ? E[at] : TE();
+    pdx[d][i] = band ? dx[at] : TD();
+    pdm[d][i] = band ? dm[at] : TD();
+    pdxd[d][i] = band ? dxd[at] : TD();
+    pdmd[d][i] = band ? dmd[at] : TD();
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, K - 1 - d, i);
+
+  for (int r0 = K - 1; r0 >= 0; r0 -= D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 - d;
+      if (r < 0) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float xn[T], mn[T];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int s = s0 + i;
+        const float e = cvt(pe[d][i], 0.0f);
+        float a = cvt(pdx[d][i], 0.0f), am = cvt(pdm[d][i], 0.0f);
+        float ad = cvt(pdxd[d][i], 0.0f), amd = cvt(pdmd[d][i], 0.0f);
+        fetch(d, r - D, i);
+        const bool band = in_band(s, k, n, m, lo);
+        const float xr = i + 1 < T ? x1[i + 1] : rx1;
+        const float mr = i + 1 < T ? m2[i + 1] : rm2;
+        const float ed = band ? xr + mr + yd1[i] + yq1[i] : 0.0f;
+        float x = 0.0f, mm = 0.0f, yd = 0.0f, yq = 0.0f, eda = 0.0f;
+        if (band || e != 0.0f) {
+          if (!band) {
+            a = ld(dx, row + s, 0.0f);
+            am = ld(dm, row + s, 0.0f);
+            ad = ld(dxd, row + s, 0.0f);
+            amd = ld(dmd, row + s, 0.0f);
+          }
+          float px, pm, py, hx, hm, hy;
+          max3<OP>(a, am, 0.0f, px, pm, py);
+          hessian3<OP>(px, pm, py, ad, amd, 0.0f, hx, hm, hy);
+          x = hx * e + px * ed;
+          mm = hm * e + pm * ed;
+          yd = hy * e;
+          yq = py * ed;
+          eda = ed * (px + py) + e * (hx + hy);
+        }
+        if (s < S) {
+          st(edo, row + s, ed, 0.0f);
+          st(edao, row + s, eda, 0.0f);
+        }
+        xn[i] = x;
+        mn[i] = mm;
+        yd1[i] = yd;
+        yq1[i] = yq;
       }
-      float ed = t1 + t2 + qdy1[s] * e1[s] + qy1[s] * ed1[s];
-      ed = cell_valid(s, k, n, m, lo) ? ed : 0.0f;
-      st(edo, row + s, ed, 0.0f);
-      edn[s] = ed;
-      float px, pm, py, hx, hm, hy;
-      max3<OP>(ld(dx, row + s, 0.0f), ld(dm, row + s, 0.0f), 0.0f, px, pm,
-               py);
-      hessian3<OP>(px, pm, py, ld(dxd, row + s, 0.0f),
-                   ld(dmd, row + s, 0.0f), 0.0f, hx, hm, hy);
-      float e = ld(E, row + s, 0.0f);
-      en[s] = e;
-      st(edao, row + s, ed * (px + py) + e * (hx + hy), 0.0f);
-      qxn[s] = px;
-      qmn[s] = pm;
-      qyn[s] = py;
-      qdxn[s] = hx;
-      qdmn[s] = hm;
-      qdyn[s] = hy;
+      // X[r], M[r] at s0+T: the right lane's first slot, or the right
+      // warp's (0 past the last slot)
+      float rx = __shfl_down_sync(0xffffffffu, xn[0], 1);
+      float rm = __shfl_down_sync(0xffffffffu, mn[0], 1);
+      if (lane == 0) {
+        edge[r & 1][0][warp] = xn[0];
+        edge[r & 1][1][warp] = mn[0];
+      }
+      pair_barrier();
+      if (lane == 31) {
+        const bool last = warp + 1 == nwarps;
+        rx = last ? 0.0f : edge[r & 1][0][warp + 1];
+        rm = last ? 0.0f : edge[r & 1][1][warp + 1];
+      }
+      rx1 = rx;
+      rm2 = rm1;
+      rm1 = rm;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        x1[i] = xn[i];
+        m2[i] = m1[i];
+        m1[i] = mn[i];
+      }
     }
-    __syncthreads();
   }
 }
 
@@ -945,6 +1089,13 @@ cudaError_t launch_strip(Kern kern, int T, int B, int S, cudaStream_t st,
   return cudaGetLastError();
 }
 
+// CTAs of the skew: one per tile of each pair (0 when there is no slot)
+unsigned skew_tiles(int B, int K, int S) {
+  if (B <= 0 || K <= 0 || S <= 0) return 0;
+  return (unsigned)B * ((K + SKEW_R - 1) / SKEW_R) *
+         ((S + SKEW_C - 1) / SKEW_C);
+}
+
 int grid_for(size_t total) {
   size_t want = (total + 255) / 256;
   int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
@@ -1027,7 +1178,8 @@ int grid_for(size_t total) {
 
 // DP_PART selects the entries of one object when the library is built by
 // several nvcc processes at once (ops/dp_cuda.py build): 1 the forward, 2
-// the backward, 0 the rest; without it every entry is compiled.
+// the backward, 3 the adjoint backward, 0 the rest; without it every entry
+// is compiled.
 #ifndef DP_PART
 #define DP_PART_IS(p) 1
 #else
@@ -1041,21 +1193,26 @@ extern "C" {
 int dp_skew(const float *x, int B, int N, int M, void *out, int out_dt,
             float scale, void *stream) {
   int K = N + M - 1, S = N + 1;
+  unsigned blocks = skew_tiles(B, K, S);
+  if (!blocks) return (int)cudaSuccess;
   DP_SWITCH_ANY(out_dt, TO,
-                skew_kernel<TO><<<grid_for((size_t)B * K * S), 256, 0,
+                skew_kernel<TO><<<blocks, SKEW_THREADS, 0,
                                   (cudaStream_t)stream>>>(
-                    x, B, N, M, K, S, (TO *)out, scale);
+                    x, N, M, K, S, (TO *)out, scale);
                 return (int)cudaGetLastError())
 }
 
-// Both skews of a pair in one launch: grid (blocks, 2).
+// Both skews of a pair in one launch: grid (tiles, 2).
 int dp_skew_pair(const float *x, const float *y, int B, int N, int M,
                  void *ox, void *oy, int out_dt, float scale, void *stream) {
   int K = N + M - 1, S = N + 1;
-  dim3 grid(grid_for((size_t)B * K * S), 2);
+  unsigned blocks = skew_tiles(B, K, S);
+  if (!blocks) return (int)cudaSuccess;
+  dim3 grid(blocks, 2);
   DP_SWITCH_ANY(out_dt, TO,
-                skew_pair_kernel<TO><<<grid, 256, 0, (cudaStream_t)stream>>>(
-                    x, y, B, N, M, K, S, (TO *)ox, (TO *)oy, scale);
+                skew_pair_kernel<TO><<<grid, SKEW_THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+                    x, y, N, M, K, S, (TO *)ox, (TO *)oy, scale);
                 return (int)cudaGetLastError())
 }
 
@@ -1168,6 +1325,9 @@ int dp_adjoint_forward(const void *dx, const void *dm, int d_dt,
               (TD *)dmdo))))
 }
 
+#endif
+
+#if DP_PART_IS(3)
 // Dx, Dm, Dxd, Dmd of storage d_dt; E in and Ed, EdA out of storage e_dt.
 int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
                         const void *dmd, int d_dt, const void *E, int e_dt,
@@ -1178,13 +1338,18 @@ int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
       d_dt, TD,
       DP_SWITCH_FLOAT(
           e_dt, TE,
-          return (int)launch_rows(
-              adjoint_backward_kernel<OP, TD, TE>, 20, B, S, st,
-              (const TD *)dx, (const TD *)dm, (const TD *)dxd,
-              (const TD *)dmd, (const TE *)E, ln, lm, K, S, lo, (TE *)edo,
-              (TE *)edao))))
+          DP_SWITCH_BACKWARD_STRIP(
+              S, T,
+              return (int)launch_strip(
+                  adjoint_backward_kernel<OP, TD, TE, T>, T, B, S, st,
+                  (const TD *)dx, (const TD *)dm, (const TD *)dxd,
+                  (const TD *)dmd, (const TE *)E, ln, lm, K, S, lo,
+                  (TE *)edo, (TE *)edao)))))
 }
 
+#endif
+
+#if DP_PART_IS(0)
 int dp_forward_q(const float *th, const float *ad, const int *ln,
                  const int *lm, int B, int K, int S, int lo, int op,
                  float *vt, float *qxo, float *qmo, float *qyo,

@@ -35,7 +35,7 @@ residual that only its own reverse passes read):
   stores the three soft-argmax streams Q and the reverse passes read them,
   which keeps fewer rows per pair on chip, so pairs longer than the
   default kernels take (S up to ~9,600 slots on an H100, where the default
-  adjoint backward stops at ~2,900) still run; no score-only forward
+  reverse passes stop at 6,144) still run; no score-only forward
   (:func:`alignment_score` runs the Q forward and keeps ``vt``) and no
   stream accessor (:func:`expected_alignment_stream` raises, as
   ``dp.py:371-373``).  The TPU's two names differ only in their

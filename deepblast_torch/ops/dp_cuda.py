@@ -46,10 +46,10 @@ is cast.  The Q-stream wrappers take float32 only.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
 launches on PyTorch's current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`LAUNCHES`.  The forward and
-the backward keep a pair's rows in the registers of at most 1,024 threads
-(:data:`MAX_SLOTS`), every other DP kernel :data:`SMEM_ROWS` rows of S
-floats in shared memory; a pair padded past what the kernel holds on the
+error, and adds one to its entry in :data:`LAUNCHES`.  The forward, the
+backward and the adjoint backward keep a pair's rows in the registers of
+at most 1,024 threads (:data:`MAX_SLOTS`), every other DP kernel
+:data:`SMEM_ROWS` rows of S floats in shared memory; a pair padded past what the kernel holds on the
 device raises a ``ValueError`` naming the limit before anything is
 launched.  The plain versions with the same
 signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
@@ -81,9 +81,10 @@ SOURCE = os.path.join(_PKG, "csrc", "dp_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: the source's DP_PART objects (1 the forward, 2 the backward, 0 the
-#: rest), compiled by one nvcc each, all at once, then linked
-PARTS = 3
+#: the source's DP_PART objects (1 the forward, 2 the backward, 3 the
+#: adjoint backward, 0 the rest), compiled by one nvcc each, all at once,
+#: then linked
+PARTS = 4
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 # storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
@@ -99,13 +100,13 @@ LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
 
 #: rows of S floats each shared-memory DP kernel keeps in shared memory
 #: (the ``rows`` of its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
-SMEM_ROWS = {"adjoint_forward": 3, "adjoint_backward": 20, "forward_q": 3,
-             "backward_q": 3, "adjoint_forward_q": 3, "adjoint_backward_q": 6}
+SMEM_ROWS = {"adjoint_forward": 3, "forward_q": 3, "backward_q": 3,
+             "adjoint_forward_q": 3, "adjoint_backward_q": 6}
 #: the most slots a pair may have in the kernels that keep its rows in
 #: registers: 1,024 threads of the widest strip (``DP_SWITCH_FORWARD_STRIP``
 #: and ``DP_SWITCH_BACKWARD_STRIP`` in ``csrc/dp_kernels.cu``)
 MAX_SLOTS = {"forward": 1024 * 20, "forward_score": 1024 * 20,
-             "backward": 1024 * 6}
+             "backward": 1024 * 6, "adjoint_backward": 1024 * 6}
 _Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
               "adjoint_backward_q")
 

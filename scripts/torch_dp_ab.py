@@ -8,14 +8,16 @@ Each root is a checkout of the port (for example ``git archive`` of a
 commit unpacked under ``_archive/``).  One child process per (root, turn)
 imports that root's ``deepblast_torch``, builds its kernels into the root's
 own ``_build/`` (the first turn only), and times with CUDA events: the
-forward, the score-only forward and the backward in every storage form the
-main paths run, the decode (pair skew + forward + backward) in float32,
-bf16 residuals and the fast menu, and the differentiable DP step in float32
-and bf16 residuals.  The roots run in the order BEFORE, AFTER, AFTER,
-BEFORE (``--turns`` repeats of that order), so that drift of the card falls
-on both.  Every child checks that its kernels' outputs equal the first
-root's on the same inputs (bit for bit), prints one JSON object, and the
-parent prints, per timing, the least time of each root over its turns and
+single skew, the pair skew in float32, bf16 and int16, the forward, the
+score-only forward and the backward in every storage form the main paths
+run, the adjoint backward in float32 and bf16 residuals, the decode (pair
+skew + forward + backward) in float32, bf16 residuals and the fast menu,
+and the differentiable DP step in float32 and bf16 residuals.  The roots
+run in the order BEFORE, AFTER, AFTER, BEFORE (``--turns`` repeats of that
+order), so that drift of the card falls on both.  Every child checks that
+its kernels' outputs equal the first root's on the same inputs (bit for
+bit, but for the sign of a zero), prints one JSON object, and the parent
+prints, per timing, the least time of each root over its turns and
 their ratio, with the card's name and power limit.
 """
 
@@ -58,6 +60,17 @@ def child(root, out, ref):
         return th, a, dx, dm
 
     data = {k: streams(m) for k, m in menus.items()}
+    zt = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+
+    def adjoint_inputs(k):
+        """E (the training backward's) and Dxd, Dmd of menu k."""
+        _, _, dx, dm = data[k]
+        E, _ = dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=menus[k], **kw)
+        _, dxd, dmd = dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm,
+                                              dtypes=menus[k], **kw)
+        return E, dxd, dmd
+
+    adj = {k: adjoint_inputs(k) for k in ("f32", "d_bf16")}
     torch.cuda.empty_cache()
     target = (torch.rand((B, N, M), generator=g, device="cuda")
               < 1.0 / N).float()
@@ -75,6 +88,17 @@ def child(root, out, ref):
         return lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=menus[k],
                                         **o, **kw)
 
+    def abwd(k):
+        _, _, dx, dm = data[k]
+        E, dxd, dmd = adj[k]
+        return lambda: dp_cuda.adjoint_backward(dx, dm, dxd, dmd, E, ln, lm,
+                                                dtypes=menus[k], **kw)
+
+    def pair(k):
+        m = menus[k] or DTypeMenu.make()
+        return lambda: dp_cuda.skew_pair(theta, A, m.stream_dtype,
+                                         m.stream_scale)
+
     def decode(k):
         def run():
             th, a, dx, dm = streams(menus[k])
@@ -90,6 +114,11 @@ def child(root, out, ref):
         return run
 
     fns = {
+        "skew f32": lambda: dp_cuda.skew(theta),
+        "skew_pair f32": pair("f32"),
+        "skew_pair bf16": lambda: dp_cuda.skew_pair(theta, A,
+                                                    torch.bfloat16),
+        "skew_pair int16": pair("i16"),
         "forward f32": fwd("f32"), "forward D bf16": fwd("d_bf16"),
         "forward in int16": fwd("i16"),
         "forward in int16 D bf16": fwd("i16_d_bf16"),
@@ -99,14 +128,19 @@ def child(root, out, ref):
         "backward f32 gap": bwd("f32", want_gap=True),
         "backward D bf16 gap": bwd("d_bf16", want_gap=True),
         "backward D bf16 E int16 (fast decode)": bwd("fast", decode=True),
+        "adjoint_backward f32": abwd("f32"),
+        "adjoint_backward D bf16": abwd("d_bf16"),
         "decode f32": decode("f32"), "decode d_bf16": decode("d_bf16"),
         "decode fast": decode("fast"),
         "dp_step f32": step("f32"), "dp_step d_bf16": step("d_bf16"),
     }
 
     def fingerprint(t):
-        """A position-weighted sum of the stored bits: equal fingerprints
-        are equal tensors but for a collision."""
+        """A position-weighted sum of the stored bits, a zero's sign
+        dropped: equal fingerprints are tensors equal by value but for a
+        collision."""
+        if t.is_floating_point():
+            t = t + 0.0                       # -0.0 + 0.0 = +0.0
         bits = t.contiguous().view(torch.int16 if t.element_size() == 2
                                    else torch.int32).reshape(-1).long()
         w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1

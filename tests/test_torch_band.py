@@ -1,6 +1,6 @@
-"""The invariant the CUDA forward and backward kernels rely on, on the CPU:
-evaluating the smoothed max only on each diagonal's band gives the plain
-passes' outputs bit for bit.
+"""The invariant the CUDA strip kernels rely on, on the CPU: evaluating
+the smoothed max only on each diagonal's band gives the plain passes'
+outputs bit for bit.
 
 ``band_forward`` and ``band_backward`` below restate ``ops/dp_ref.py``'s
 forward and backward the way ``csrc/dp_kernels.cu`` computes them, one pair
@@ -11,8 +11,18 @@ it off the band); off it the forward's V is 0 and the backward's Q is 0;
 the backward carries the products ``Qx E``, ``Qy E``, ``Qm E`` of the rows
 before and sums ``E = shl(Qx1 E1) + shl(Qm2 E2) + Qy1 E1`` in the plain
 order; rows past the terminal diagonal are a store loop (forward:
-``Dx = 0 - 0``, ``Dm = (0 - A) - 0``; backward: zeros).  Tolerance: none
-(``torch.equal``), since every cell takes the same float32 operations.
+``Dx = 0 - 0``, ``Dm = (0 - A) - 0``; backward: zeros).
+
+``band_adjoint_backward`` restates the adjoint backward's strip kernel: Q
+and ``Qd = hessian3(Q, (Dxd, Dmd, 0))`` only on the band and wherever E is
+non-zero off it (the terminal slot of sw with n = 1 or m = 1, or any E a
+caller passes), every row walked; it carries the products
+``X = Qdx E + Qx Ed``, ``M = Qdm E + Qm Ed``, ``Yd = Qdy E`` and
+``Yq = Qy Ed`` of the rows before and sums
+``Ed = shl(X1) + shl(M2) + Yd1 + Yq1`` in the plain order.  It is held to
+the plain pass on an E from the plain backward (zero off the band) and on
+an E that is noise at every slot.  Tolerance: none (``torch.equal``),
+since every cell takes the same float32 operations.
 """
 
 import numpy as np
@@ -130,3 +140,57 @@ def test_band_only_passes_equal_plain(B, N, M, mode, operator):
     got_e = band_backward(dxs, dms, ln, lm, Et, mode, operator)
     for g, w in zip(got_e, want_e):
         assert torch.equal(g, w)
+
+
+def band_adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, mode, operator):
+    B, K, S = dxs.shape
+    lo = MODE_BOUNDS[mode][3]
+    zero = torch.zeros(())
+    Ed, EdA = torch.empty_like(dxs), torch.empty_like(dxs)
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        x1 = m1 = m2 = yd1 = yq1 = torch.zeros(S)
+        for r in reversed(range(K)):
+            band = _band(S, r + 2, n, m, lo)
+            e = E[b, r]
+            ed = torch.where(band, _shl(x1) + _shl(m2) + yd1 + yq1, zero)
+            need = band | (e != 0)
+            q = [torch.zeros(S) for _ in range(3)]
+            qd = [torch.zeros(S) for _ in range(3)]
+            z = torch.zeros_like(dxs[b, r, need])
+            _, qn = smooth.max3(operator, dxs[b, r, need], dms[b, r, need],
+                                z)
+            qdn = smooth.hessian3(operator, qn, (dxds[b, r, need],
+                                                 dmds[b, r, need], z))
+            for full, part in zip(q + qd, list(qn) + list(qdn)):
+                full[need] = part
+            (px, pm, py), (hx, hm, hy) = q, qd
+            Ed[b, r] = ed
+            EdA[b, r] = torch.where(need, ed * (px + py) + e * (hx + hy),
+                                    zero)
+            x1 = torch.where(need, hx * e + px * ed, zero)
+            m2, m1 = m1, torch.where(need, hm * e + pm * ed, zero)
+            yd1 = torch.where(need, hy * e, zero)
+            yq1 = torch.where(need, py * ed, zero)
+    return Ed, EdA
+
+
+@pytest.mark.parametrize("B,N,M", SHAPES)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_band_adjoint_backward_equals_plain(B, N, M, mode, operator):
+    th_s, A_s, ln, lm, Et = _problem(B * N + M + 1, B, N, M)
+    rng = np.random.default_rng(B + N + M)
+    zt_s = skew(torch.tensor(rng.standard_normal((B, N, M)),
+                             dtype=torch.float32))
+    noise = torch.tensor(rng.standard_normal(th_s.shape), dtype=torch.float32)
+    kw = dict(mode=mode, operator=operator)
+    _, dxs, dms = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    E, _ = dp_ref.backward(dxs, dms, ln, lm, Et, want_gap=True, **kw)
+    _, dxds, dmds = dp_ref.adjoint_forward(dxs, dms, zt_s, None, ln, lm, **kw)
+    for e in (E, noise):
+        want = dp_ref.adjoint_backward(dxs, dms, dxds, dmds, e, ln, lm, **kw)
+        got = band_adjoint_backward(dxs, dms, dxds, dmds, e, ln, lm, mode,
+                                    operator)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

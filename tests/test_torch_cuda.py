@@ -6,29 +6,33 @@ with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerance: those of ``chip_smoke.check_kernels`` and
 ``chip_smoke.check_autograd``, which these tests call so that the smoke
-and the tests hold the kernels to one check: skew and unskew exact;
-forward (Vt, Dx, Dm), score-only forward, backward (E, EA), adjoint
-forward (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) rtol 1e-4 / atol
+and the tests hold the kernels to one check: skew, unskew and adjoint
+backward (Ed, EdA) exact; forward (Vt, Dx, Dm), score-only forward,
+backward (E, EA) and adjoint forward (vtd, Dxd, Dmd) rtol 1e-4 / atol
 1e-5 (fp32; the kernels round each cell as the plain version does, so
 only transcendental ulps can differ); tracebacks identical; autograd
 through the kernels = through the plain passes on the card (same
 tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
 The Q-stream kernels of the ``pallas_long`` backend are held to the same
-checks (``chip_smoke.check_q_kernels``), also past the default kernels'
-shared-memory limit, where the default backend must refuse with an error
-that names the limit.  Every storage form of the default kernels (the
+checks (``chip_smoke.check_q_kernels``), also past the shared-memory
+limit the default adjoint backward had before it kept its rows in
+registers, where the default backend now trains and matches them.  Every
+storage form of the default kernels (the
 menus of ``chip_smoke.MENUS``: bf16 and int16 inputs, bf16 residuals,
 bf16 and int16 expectations) and the pair skew are held to their plain
 versions by ``chip_smoke.check_menu_kernels`` (the same tolerance, stored
 values compared as float32; the relayouts exactly, the pair = two single
 skews), and a stream of another type than its menu gives it raises.
-The strip kernels (the forward, the score-only forward and the backward)
-are held bit for bit (max abs diff 0.0) to their plain versions at the
-shapes of their design's edges (``chip_smoke.EDGE_SHAPES``: N = 1, M = 1,
-S not a multiple of the strip, n < m and n > m, S past 1,024 slots, whole
-diagonals of padding, the wider strips, S at each kernel's limit) in
-float32 and every storage form (``chip_smoke.check_passes``), and one slot
-past its limit each wrapper raises the error that names it.
+The redesigned kernels (the skew and the pair skew, tiled; the strip
+kernels: the forward, the score-only forward, the backward and the
+adjoint backward, the last on the training E and on an E that is noise
+at every slot) are held bit for bit (max abs diff 0.0) to their plain
+versions at the shapes of their design's edges (``chip_smoke.EDGE_SHAPES``:
+N = 1, M = 1, S not a multiple of the strip or the tile, n < m and n > m,
+S past 1,024 slots, whole diagonals of padding, the wider strips, S at
+each kernel's limit) in float32 and every storage form
+(``chip_smoke.check_passes``), the skew also at the long path's shapes,
+and one slot past its limit each wrapper raises the error that names it.
 """
 
 import numpy as np
@@ -87,9 +91,9 @@ def test_autograd_through_kernels(cuda, mode, operator):
 
 
 def test_kernels_past_48kb_of_shared_memory(cuda):
-    """S = 701 slots: the backward (10 rows, 28 KB) stays under 48 KB of
-    shared memory, the adjoint backward (20 rows, 56 KB) needs the
-    opt-in."""
+    """S = 701 slots, where the adjoint backward's first version (20 rows
+    of shared memory, 56 KB) needed the opt-in past 48 KB: every kernel
+    at a pair of 22 warps of strips of 2."""
     theta, A, ln, lm = _problem(5, 2, 700, 90, cuda)
     errs = {}
     chip_smoke.check_kernels(theta, A, ln, lm, "nw", "softmax", errs)
@@ -168,22 +172,35 @@ def test_autograd_through_q_kernels(cuda, mode):
 
 
 def test_q_kernels_past_the_default_limit(cuda):
-    """S = 3,001 slots: the Q kernels (at most 6 rows, 72 KB) run and equal
-    their plain versions; the default adjoint backward (20 rows, 240 KB)
-    exceeds an H100 block's 227 KB, and training through the default
-    backend raises the limit error naming backend="pallas_long"."""
+    """S = 3,001 slots, past the 2,905 the default adjoint backward held in
+    shared memory before it kept its rows in registers: the Q kernels (at
+    most 6 rows, 72 KB) run and equal their plain versions, and training
+    through the default backend now runs and gives pallas_long's
+    expected alignment and gradient (each to 1e-4 of its largest
+    magnitude, as the autograd checks against another rounding); one slot
+    past the reverse passes' strips (S = 6,145) the default backend
+    refuses, naming the limit and backend="pallas_long"."""
     theta, A, ln, lm = _problem(17, 2, 3000, 40, cuda)
     errs = {}
     chip_smoke.check_q_kernels(theta, A, ln, lm, "nw", "softmax", errs)
     assert set(errs) == set(chip_smoke.Q_KERNELS)
-    t = theta.clone().requires_grad_()
-    with pytest.raises(ValueError, match=r'S = 3001 .*S <= 2905 .*'
+    out = {}
+    for backend in (None, "pallas_long"):
+        t = theta.clone().requires_grad_()
+        E = dp_ops.expected_alignment(t, A, (ln, lm), backend=backend)
+        E.sum().backward()
+        out[backend] = (E.detach(), t.grad)
+    for got, want in zip(out[None], out["pallas_long"]):
+        assert torch.isfinite(got).all()
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= ATOL + RTOL * scale
+    x = torch.zeros((1, 6144, 2), device=cuda)
+    n = torch.tensor([6144], dtype=torch.int32, device=cuda)
+    m = torch.tensor([2], dtype=torch.int32, device=cuda)
+    t = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match=r'S = 6145 .*S <= 6144 .*'
                                          r'backend="pallas_long"'):
-        dp_ops.expected_alignment(t, A, (ln, lm)).sum().backward()
-    t = theta.clone().requires_grad_()
-    E = dp_ops.expected_alignment(t, A, (ln, lm), backend="pallas_long")
-    E.sum().backward()
-    assert torch.isfinite(t.grad).all()
+        dp_ops.expected_alignment(t, x, (n, m)).sum().backward()
 
 
 def test_q_kernels_refuse_past_their_limit(cuda):
@@ -335,7 +352,9 @@ def test_strip_kernels_at_edges(cuda, B, N, M, short, mode, operator):
     theta, A, ln, lm = _edge(B * N + M, B, N, M, short)
     errs = {}
     chip_smoke.check_passes(theta, A, ln, lm, mode, operator, None, errs)
-    assert errs == {"forward": 0.0, "forward_score": 0.0, "backward": 0.0}
+    assert errs == {k: 0.0 for k in ("skew", "skew_pair", "forward",
+                                     "forward_score", "backward",
+                                     "adjoint_backward")}
 
 
 @pytest.mark.parametrize("B,N,M,short", _EDGES)
@@ -355,8 +374,8 @@ def test_strip_kernels_at_edges_menus(cuda, B, N, M, short, menu):
                                                 ("sw", "hardmax", "fast")])
 def test_strip_kernels_at_their_limits(cuda, B, N, M, short, mode, operator,
                                        menu):
-    """S = 6,144 (the backward's 1,024 strips of 6) and S = 20,480 (the
-    forward's 1,024 strips of 20, where the backward refuses)."""
+    """S = 6,144 (the reverse passes' 1,024 strips of 6) and S = 20,480
+    (the forward's 1,024 strips of 20, where the reverse passes refuse)."""
     theta, A, ln, lm = _edge(N, B, N, M, short)
     menu = menu and DTypeMenu.make(**chip_smoke.MENUS[menu])
     errs = {}
@@ -376,6 +395,27 @@ def test_strip_kernels_refuse_past_their_limits(cuda):
                                              rf"S <= {most} "):
             if name == "backward":
                 dp_cuda.backward(s, s, n, m, torch.ones(1, device=cuda))
+            elif name == "adjoint_backward":
+                dp_cuda.adjoint_backward(s, s, s, s, s, n, m)
             else:
                 getattr(dp_cuda, name)(s, s, n, m)
         assert dp_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,N,M", [(8, 4096, 4096), (2, 3899, 3757)])
+def test_skew_at_long_shapes(cuda, B, N, M):
+    """The tiled skew at the long path's shapes (the 8 x 4096 x 4096 decode
+    and a long training batch, K and S not multiples of the tile), bit
+    for bit against the plain relayout; the pair, in every storage form,
+    at the training batch."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(N)
+    x = torch.randn((B, N, M), generator=g, device=cuda)
+    assert torch.equal(dp_cuda.skew(x), plain_skew(x))
+    if B == 8:
+        return
+    y = torch.randn((B, N, M), generator=g, device=cuda) * 40.0
+    for out_dtype, scale in ((None, None), (torch.bfloat16, None),
+                             (torch.int16, 2047.9375)):
+        for got, z in zip(dp_cuda.skew_pair(x, y, out_dtype, scale), (x, y)):
+            assert torch.equal(got, plain_skew(z, out_dtype, scale))

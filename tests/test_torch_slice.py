@@ -5,8 +5,11 @@ the port's checkpoint and search CLI; and the guards that keep the port
 free of JAX and off a silent CPU path.
 
 Tolerances: ``align`` state strings identical; ``score_pairs`` rtol 1e-5
-(fp32 model, the same operations in two libraries); the search CLI's
-4-decimal output against ``score_pairs`` to its rounding.
+(fp32 model, the same operations in two libraries; sparsemax 2e-5, read
+1.2e-5: its threshold ``tau`` sums and divides the sorted arguments); the
+search CLI's 4-decimal output against ``score_pairs`` to its rounding.
+The model is nw and softmax; every mode and operator is held to JAX at
+the model level too, on pairs that include 1 x 8 and 8 x 1.
 """
 
 import ast
@@ -38,6 +41,9 @@ PAIRS = [
     ("YACSGGCGQNFRTMSEFNEHMIRLVH", "LICPKHTRDCGKVFKRNSSLRVHEH"),
     ("LNCKEIKKYCEMSFRNPDDIRKHRGAIH", "YTCSSCNESLRTAWCLNKHLR"),
 ]
+# the pairs of the mode x operator matrix: one residue against eight, both
+# ways, beside PAIRS (two scored, one aligned: each JAX align traces anew)
+EDGE_PAIRS = [("W", "HECDRKTC"), ("HECDRKTC", "W")]
 MODEL = dict(lm_type="prot_t5", embedding_dim=32, hidden_dim=16, layers=2,
              k_size=5, layer_type="cnn", alignment_mode="needleman-wunsch",
              operator="softmax")
@@ -85,6 +91,29 @@ def test_score_pairs_matches_jax(models):
     got = tmodel.score_pairs(batch)
     assert got.dtype == torch.float32 and got.shape == (len(PAIRS),)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["needleman-wunsch", "smith-waterman"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_modes_and_operators_match_jax(models, mode, operator):
+    """``align`` and ``score_pairs`` of the fixture's weights under every
+    alignment mode and operator."""
+    jbase, tbase = models
+    cfg = dict(MODEL, alignment_mode=mode, operator=operator)
+    jmodel = jtrainer.DeepBLAST(
+        jtrainer.DeepBLASTConfig(backend="scan", **cfg), lm=jbase.lm)
+    jmodel.state = jbase.state
+    tmodel = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(**cfg),
+                                lm=tbase.lm, device="cpu")
+    tmodel.aligner.load_state_dict(tbase.aligner.state_dict())
+    for x, y in PAIRS[:1] + EDGE_PAIRS:
+        assert tmodel.align(x, y) == jmodel.align(x, y), (x, y)
+    batch = _batch(PAIRS[:2] + EDGE_PAIRS, tmodel.tokenizer, pad_to=32)
+    want = np.asarray(jmodel.score_pairs(
+        jmodel.state, {k: jnp.asarray(v) for k, v in batch.items()}))
+    got = tmodel.score_pairs(batch).numpy()
+    np.testing.assert_allclose(
+        got, want, rtol=2e-5 if operator == "sparsemax" else 1e-5)
 
 
 def test_checkpoint_and_search_cli(models, tmp_path):
