@@ -14,11 +14,12 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              kernel against its plain PyTorch version on the card, ragged
              (B, N, M) = (16, 200, 150), nw and sw x softmax / sparsemax /
              hardmax, outputs allocated over NaN-filled memory:
-             skew, unskew and adjoint backward (Ed, EdA) exact; forward
-             (Vt, Dx, Dm), score-only forward (Vt), backward (E, and E with
-             EA), adjoint forward with and without Za (vtd, Dxd, Dmd) to
-             rtol 1e-4 / atol 1e-5 (fp32, transcendental ulps accumulated
-             over the diagonal walk); tracebacks identical; autograd of
+             skew, unskew, adjoint forward with and without Za (vtd, Dxd,
+             Dmd) and adjoint backward (Ed, EdA) exact; forward (Vt, Dx,
+             Dm), score-only forward (Vt), backward (E, and E with EA) to
+             rtol 1e-4 / atol 1e-5 (fp32; they read 0.0, and are held
+             exactly at the edge shapes below); tracebacks identical;
+             autograd of
              ``alignment_score`` (two orders) and ``expected_alignment``
              through the kernels = through the plain passes on the card
              (same tolerance) and = on the CPU (each output to 1e-4 of its
@@ -27,16 +28,19 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              residuals, bf16 and int16 expectations, bf16 cotangents) of
              every default kernel, and the pair skew, against the plain
              passes under the same menu (``check_menu_kernels``: the
-             relayouts and the adjoint backward exactly, the pair = two
+             relayouts and the adjoint passes exactly, the pair = two
              single skews, stored values as float32 to the same
              tolerance).  Then the redesigned kernels (skew, pair skew,
-             forward, score-only forward, backward, adjoint backward on
-             the training E and on an E that is noise at every slot) bit
-             for bit (0.0) against their plain versions at the shapes of
-             their design's edges (``EDGE_SHAPES``, up to S = 20,480, where
-             the reverse passes refuse), in float32 and every storage menu
+             unskew of every stream form, forward, score-only forward,
+             backward, adjoint forward with and without Za, adjoint
+             backward on the training E and on an E that is noise at
+             every slot) bit for bit (0.0) against their plain versions at
+             the shapes of their design's edges (``EDGE_SHAPES``, up to S
+             = 20,480, where the reverse passes refuse and the forward
+             passes run), in float32 and every storage menu
              (``check_edges``; the whole matrix is
-             ``tests/test_torch_cuda.py``'s).
+             ``tests/test_torch_cuda.py``'s); one slot further the adjoint
+             forward refuses, naming its limit.
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
              of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
@@ -205,8 +209,8 @@ BENCH_INSTANCES = {
     "forward_score": "forward_kernel<0, false, float, float, 2>",
     "backward": "backward_kernel<0, false, float, float, 2>",
     "backward_gap": "backward_kernel<0, true, float, float, 2>",
-    "adjoint_forward": "adjoint_forward_kernel<0, false, float, float>",
-    "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float>",
+    "adjoint_forward": "adjoint_forward_kernel<0, false, float, float, 2>",
+    "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float, 2>",
     "adjoint_backward": "adjoint_backward_kernel<0, float, float, 2>",
     "forward_q": "forward_q_kernel<0>",
     "backward_q": "backward_q_kernel<false>",
@@ -216,18 +220,19 @@ BENCH_INSTANCES = {
     "adjoint_backward_q": "adjoint_backward_q_kernel",
 }
 # cells one pass of a strip kernel's unrolled row loop computes: T slots x
-# the D rows of its register ring (ring_for and, for the adjoint backward,
-# abwd_ring_for in csrc/dp_kernels.cu)
+# the D rows of its register ring (ring_for and, for the adjoint passes,
+# afwd_ring_for and abwd_ring_for in csrc/dp_kernels.cu)
 RING = {2: 4, 6: 2, 20: 1}
+AFWD_RING = {2: 2, 6: 1, 20: 1}
 ABWD_RING = {2: 2, 6: 1}
 STRIP_KERNELS = ("forward_kernel<", "backward_kernel<",
-                 "adjoint_backward_kernel<")
+                 "adjoint_forward_kernel<", "adjoint_backward_kernel<")
 # (B, N, M, short): shapes at the strip kernels' (and the skew's tiles')
 # edges, lengths ragged with pair 0 full and, with `short`, the last pair
 # n = max(1, N // 50) (whole diagonals of padding): N = 1 and M = 1; S not
 # a multiple of the strip or the tile; n < m and n > m; S past 1,024
 # slots; the 6-slot strip; S at the reverse passes' limit (1,024 x 6) and
-# at the forward's (1,024 x 20), where the reverse passes refuse
+# at the forward passes' (1,024 x 20), where the reverse passes refuse
 EDGE_SHAPES = [(1, 1, 1, False), (3, 1, 37, False), (3, 37, 1, False),
                (2, 67, 300, True), (2, 300, 67, True),
                (3, 1100, 60, True), (2, 2500, 40, True),
@@ -382,7 +387,7 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
 def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     """The training kernels against their plain versions: unskew exactly,
     backward with the gap output, the adjoint forward with and without a
-    Za stream, the adjoint backward (bit for bit); random cotangents."""
+    Za stream and the adjoint backward bit for bit; random cotangents."""
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew, unskew
     B, N, M = theta.shape
@@ -410,7 +415,7 @@ def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
         vtd_k, dxd_k, dmd_k = dp_cuda.adjoint_forward(dx, dm, zt_s, za, ln,
                                                       lm, **kw)
         for got, want in ((vtd_k, vtd_p), (dxd_k, dxd_p), (dmd_k, dmd_p)):
-            _close("adjoint_forward", got, want, errs)
+            _exact("adjoint_forward", got, want, errs)
 
     Ed_p, EdA_p = dp_ref.adjoint_backward(dx, dm, dxd_p, dmd_p, E, ln, lm,
                                           **kw)
@@ -437,8 +442,8 @@ def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
     backward with the gap output (training E) and without it (the decode's
     E, int16 under an int16 ``e``), the unskew of each E (exactly), the
     adjoint forward with and without Za on cotangents of the menu's
-    cotangent type, the adjoint backward (bit for bit); tracebacks of the
-    decode's E identical.  Stored values compared as float32 (int16 E in
+    cotangent type and the adjoint backward (bit for bit); tracebacks of
+    the decode's E identical.  Stored values compared as float32 (int16 E in
     units of 1/32767), to RTOL / ATOL."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
@@ -512,7 +517,7 @@ def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
         _poison(dxd_p, dmd_p)
         out_k = dp_cuda.adjoint_forward(dx_p, dm_p, zt_s, za, ln, lm, **kw)
         for got, want in zip(out_k, (vtd_p, dxd_p, dmd_p)):
-            _close("adjoint_forward", _wide(got), _wide(want), errs)
+            _exact("adjoint_forward", got, want, errs)
         del out_k
     Ed_p, EdA_p = dp_ref.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E_train,
                                           ln, lm, **kw)
@@ -556,16 +561,25 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
     """The redesigned kernels under one storage menu (None: float32)
     against their plain versions bit for bit, outputs over NaN-filled
     memory: the skew and the pair skew to the menu's stream type; the
-    strip kernels -- the forward (Vt, Dx, Dm), the score-only forward, the
-    backward (training E with EA, E alone, the decode's E), the adjoint
-    backward (Ed, EdA) on the training E and on an E that is noise at every
-    slot; tracebacks of the decode's E identical.  Past the reverse passes'
-    strips (S > ``MAX_SLOTS``) the backward and the adjoint backward must
-    refuse, naming their limit."""
+    unskew of the menu's input stream, its residual Dx and each of its E
+    forms; the strip kernels -- the forward (Vt, Dx, Dm), the score-only
+    forward, the adjoint forward (vtd, Dxd, Dmd) with and without Za on
+    cotangents of the menu's type, the backward (training E with EA, E
+    alone, the decode's E), the adjoint backward (Ed, EdA) on the training
+    E and on an E that is noise at every slot; tracebacks of the decode's E
+    identical.  Past the reverse passes' strips (S > ``MAX_SLOTS``) the
+    backward and the adjoint backward must refuse, naming their limit."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.menu import as_menu
-    from deepblast_torch.ops.skew import skew
+    from deepblast_torch.ops.skew import skew, unskew
+
+    def check_unskew(s):
+        want = unskew(s, N, M)
+        _poison(want)
+        _exact("unskew", dp_cuda.unskew(s, N, M), want, errs)
+
+    N, M = theta.shape[1:]
     kw = dict(mode=mode, operator=operator, dtypes=menu)
     m = as_menu(menu)
     th_s = skew(theta, m.stream_dtype, m.stream_scale)
@@ -583,8 +597,26 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
         _exact("forward", got, want, errs)
     _exact("forward_score", dp_cuda.forward_score(th_s, A_s, ln, lm, **kw),
            dp_ref.forward_score(th_s, A_s, ln, lm, **kw), errs)
-    Et = torch.ones_like(vt_p)
+    check_unskew(th_s)
+    check_unskew(dx_p)
     S = th_s.shape[2]
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(S + theta.shape[2])
+    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
+                m.cotangent_dtype)
+    noise = torch.randn(dx_p.shape, generator=g, device=theta.device)
+    za_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
+                m.cotangent_dtype)
+    for za in (za_s, None):
+        vtd_p, dxd_p, dmd_p = dp_ref.adjoint_forward(dx_p, dm_p, zt_s, za, ln,
+                                                     lm, **kw)
+        _poison(dxd_p, dmd_p)
+        for got, want in zip(dp_cuda.adjoint_forward(dx_p, dm_p, zt_s, za, ln,
+                                                     lm, **kw),
+                             (vtd_p, dxd_p, dmd_p)):
+            _exact("adjoint_forward", got, want, errs)
+    del za_s
+    Et = torch.ones_like(vt_p)
     if S > dp_cuda.MAX_SLOTS["backward"]:
         _refuses("backward", lambda: dp_cuda.backward(dx_p, dm_p, ln, lm, Et,
                                                       **kw))
@@ -603,6 +635,8 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
         if gap:
             _exact("backward", EA_k, EA_p, errs)
             E_train = E_p
+        if gap or decode:
+            check_unskew(E_p)
     E_kh, E_ph = E_k.cpu(), E_p.cpu()
     del E_k, EA_k, E_p, EA_p
     for b, (n, mm) in enumerate(zip(ln.tolist(), lm.tolist())):
@@ -610,13 +644,6 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
                 dp_ops.traceback_stream(E_ph, n, mm, b):
             raise AssertionError(f"traceback of pair {b} differs")
 
-    g = torch.Generator(device=theta.device)
-    g.manual_seed(S + theta.shape[2])
-    zt_s = skew(torch.randn(theta.shape, generator=g, device=theta.device),
-                m.cotangent_dtype)
-    _, dxd_p, dmd_p = dp_ref.adjoint_forward(dx_p, dm_p, zt_s, None, ln, lm,
-                                             **kw)
-    noise = torch.randn(dx_p.shape, generator=g, device=theta.device)
     for E in (E_train, noise.to(E_train.dtype)):
         Ed_p, EdA_p = dp_ref.adjoint_backward(dx_p, dm_p, dxd_p, dmd_p, E, ln,
                                               lm, **kw)
@@ -659,6 +686,13 @@ def check_edges(g, errs):
             check_passes(theta, A, ln, lm, mode, op, menu, errs)
         del theta, A
     torch.cuda.empty_cache()
+    from deepblast_torch.ops import dp_cuda
+    S = dp_cuda.MAX_SLOTS["adjoint_forward"] + 1
+    s = torch.zeros((1, 2, S), device="cuda")
+    n = torch.tensor([S - 1], dtype=torch.int32, device="cuda")
+    m = torch.tensor([2], dtype=torch.int32, device="cuda")
+    _refuses("adjoint_forward",
+             lambda: dp_cuda.adjoint_forward(s, s, s, s, n, m))
 
 
 def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
@@ -847,11 +881,13 @@ def phase_kernels(seed):
     edge_errs, t0 = {}, time.time()
     check_edges(g, edge_errs)
     torch.cuda.synchronize()
-    log("phase kernels: skew, skew_pair, forward, score-only forward, "
-        "backward and adjoint backward bit-identical to plain at the strip "
+    log("phase kernels: skew, skew_pair, unskew, forward, score-only "
+        "forward, adjoint forward, backward and adjoint backward "
+        "bit-identical to plain at the strip "
         f"edges {EDGE_SHAPES} in float32 (every storage menu up to 301 "
         "slots); the "
-        "backward and the adjoint backward refuse S = 20,480 naming their "
+        "backward and the adjoint backward refuse S = 20,480 and the "
+        "adjoint forward S = 20,481, naming their "
         f"limit; {time.time() - t0:.1f} s; max abs diff "
         f"{json.dumps(edge_errs)}")
     for k, v in edge_errs.items():
@@ -1697,7 +1733,8 @@ def cells_per_body(instance):
     kernel (T its last template argument), else 1."""
     if instance.startswith(STRIP_KERNELS):
         T = int(instance.rsplit(",", 1)[1].rstrip("> "))
-        ring = ABWD_RING if instance.startswith("adjoint_") else RING
+        ring = ABWD_RING if instance.startswith("adjoint_backward") else \
+            AFWD_RING if instance.startswith("adjoint_forward") else RING
         return T * ring[T]
     return 1
 
@@ -1916,13 +1953,13 @@ def phase_bench(seed, card):
 
 def log_registers(report):
     """Registers, stack and spills (ptxas) of the strip kernels' instances,
-    per kernel and strip width, of the skew kernels, and the most of any
+    per kernel and strip width, of the relayouts, and the most of any
     other kernel."""
     groups = {}
     for name, r in report.items():
         if name.startswith(STRIP_KERNELS):
             key = f"{name.split('<')[0]} T={name.rsplit(',', 1)[1][:-1].strip()}"
-        elif name.startswith("skew"):
+        elif name.startswith(("skew", "unskew")):
             key = name.split("<")[0]
         else:
             key = "other kernels"
@@ -1948,9 +1985,9 @@ FORM_INSTANCES = {
     "backward D bf16 E int16 (fast decode)":
         "backward_kernel<0, false, __nv_bfloat16, short, 2>",
     "adjoint_forward D bf16":
-        "adjoint_forward_kernel<0, false, __nv_bfloat16, float>",
+        "adjoint_forward_kernel<0, false, __nv_bfloat16, float, 2>",
     "adjoint_forward D bf16 Za":
-        "adjoint_forward_kernel<0, true, __nv_bfloat16, float>",
+        "adjoint_forward_kernel<0, true, __nv_bfloat16, float, 2>",
     "adjoint_backward D bf16":
         "adjoint_backward_kernel<0, __nv_bfloat16, float, 2>",
 }

@@ -60,60 +60,62 @@
 // (chip_smoke.py kernel_report; PERF.md).
 //
 // The forward and the backward (the decode's whole DP, and the forward of
-// search), and the adjoint backward of training, are designed for the H100
-// as follows.
+// search), and the two adjoint passes of training, are designed for the
+// H100 as follows.
 //  * Smoothed max on the band only.  On diagonal k only the slots
 //    [max(lo, k-m), min(n, k-lo)] hold a cell (about half of a square
 //    pair's stream); max3 -- three expf, a logf and an IEEE divide under
 //    softmax, ~100 issued instructions a cell at --fmad=false -- runs
 //    there alone.  The padding keeps a cheap path that still writes the
 //    plain version's value (forward: Dx, Dm by two subtractions, V = 0;
-//    backward: E = EA = 0, Q = 0, since Q only multiplies E there; adjoint
-//    backward: Ed = 0, and Q, Qd only where E is non-zero).  Rows past a
-//    ragged pair's terminal diagonal are a plain store loop (except in
-//    the adjoint backward, whose given E may be non-zero there).
+//    adjoint forward: Dxd, Dmd likewise, Vd = 0; backward: E = EA = 0,
+//    Q = 0, since Q only multiplies E there; adjoint backward: Ed = 0, and
+//    Q, Qd only where E is non-zero).  Rows past a ragged pair's terminal
+//    diagonal are a plain store loop (except in the adjoint backward,
+//    whose given E may be non-zero there).
 //  * Inputs loaded ahead of the chain.  Their addresses depend on nothing
 //    in the DP, so each thread keeps the rows of the next D diagonals in
 //    flight in a register ring (D = 4, 2, 1 at strip width 2, 6, 20; the
-//    adjoint backward, five input rows a diagonal, D = 2, 1) and
-//    issues row r+D as it starts row r; only the band's values (and A
-//    everywhere where Dm is stored) are read.  cp.async or TMA would save
-//    those registers, but the (B, K, S) rows are not 16-byte aligned at
-//    odd S, and 2-byte streams have no 2-byte cp.async.
+//    adjoint forward, three or four input rows a diagonal, D = 2, 1, 1;
+//    the adjoint backward, five, D = 2, 1) and issues row r+D as it starts
+//    row r; only the band's values (and A or Za everywhere where Dm or
+//    Dmd is stored) are read.  cp.async or TMA would save those
+//    registers, but the (B, K, S) rows are not 16-byte aligned at odd S,
+//    and 2-byte streams have no 2-byte cp.async.
 //  * Synchronisation local to a pair, and lighter.  Thread t owns the T
 //    consecutive slots [tT, tT+T) of every diagonal in registers (the V
-//    rows of the forward; the products Qx E, Qy E, Qm E of the backward;
-//    five products of the adjoint backward),
-//    so a block is ceil(S / T / 32) warps instead of S / 32: 9 warps at
-//    S = 513, two pairs on most SMs.  A diagonal needs one neighbour slot
-//    per strip (s0-1 in the forward, s0+T in the reverse passes): by shuffle
-//    inside a warp, and through a two-deep `edge` array and one named
-//    barrier (bar.sync 1) over the pair's warps between warps.
+//    rows of the forward and the Vd rows of the adjoint forward; the
+//    products Qx E, Qy E, Qm E of the backward; five products of the
+//    adjoint backward), so a block is ceil(S / T / 32) warps instead of
+//    S / 32: 9 warps at S = 513, two pairs on most SMs.  A diagonal needs
+//    one neighbour slot per strip (s0-1 in the forward passes, s0+T in
+//    the reverse passes): by shuffle inside a warp, and through a
+//    two-deep `edge` array and one named barrier (bar.sync 1) over the
+//    pair's warps between warps.
 //  * Every register row holds T slots, so one block of 1,024 threads holds
 //    1,024 T slots; T grows with S (2 up to 2,048 slots, then 6, then 20
-//    for the forward), and only the widest strips come near the 64
+//    for the forward passes), and only the widest strips come near the 64
 //    registers a thread has at 1,024 threads.
 // Every cell still rounds as ops/dp_ref.py: the same float operations in
 // the same order (the reverse passes' products are formed one row early
 // and summed in the plain version's order), so every output is
 // bit-identical.
 //
-// The relayouts move each value once and do no arithmetic: the skew is a
-// tiled relayout through shared memory (coalesced reads of row segments,
-// coalesced writes of stream rows); the unskew (first version) reads the
-// stream with stride S.
+// The relayouts move each value once and do no arithmetic: the skew and
+// the unskew are tiled relayouts through shared memory, each the other's
+// inverse (coalesced accesses of stream rows along the slots, coalesced
+// accesses of natural row segments along the columns; the unskew reads
+// only the stream's cells).
 //
-// The adjoint forward and the Q-stream kernels (first version): one CTA
-// per pair walks all K diagonals in one launch; threads run along the
-// slot axis (coalesced loads and stores of each diagonal row), and the
-// rolling DP rows live in shared memory with one __syncthreads() per
-// diagonal, so the only device-memory traffic is each stream read once
-// and each output written once.  Every output slot is written (zeros, or
-// finite residuals outside the valid band), so no uninitialised memory
-// can reach a Q * E or Qd * E product (0 * NaN).  The rows a pair keeps
-// in shared memory bound its length: the adjoint forward holds 3 rows of
-// S floats, so one CTA holds a pair up to S ~ 19,000 slots in the 227 KB
-// an H100 block can use.
+// The Q-stream kernels (first version): one CTA per pair walks all K
+// diagonals in one launch; threads run along the slot axis (coalesced
+// loads and stores of each diagonal row), and the rolling DP rows live in
+// shared memory with one __syncthreads() per diagonal, so the only
+// device-memory traffic is each stream read once and each output written
+// once.  Every output slot is written (zeros, or finite values outside the
+// valid band), so no uninitialised memory can reach a Q * E or Qd * E
+// product (0 * NaN).  The rows a pair keeps in shared memory bound its
+// length.
 //
 // The Q-stream kernels keep few rows by moving a stream more: the
 // forward stores the three soft-argmax streams Q (and the adjoint forward
@@ -144,7 +146,7 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (ops/dp_cuda.py compiles
-//        the three DP_PART objects in parallel and links them)
+//        the five DP_PART objects in parallel and links them)
 // No fast math (the traceback compares E values exactly), and no FMA
 // contraction, so each cell rounds as the plain PyTorch version does.
 // Each C entry returns cudaGetLastError() of its launch.
@@ -381,24 +383,98 @@ __global__ void __launch_bounds__(SKEW_THREADS)
     skew_body(y, N, M, K, S, oy, scale);
 }
 
-// out[b, r, c] = s[b, r+c, r+1]: every natural cell is written.  Threads
-// run along c, so the writes are coalesced and the reads have stride S in
-// the stream (uncoalesced: one 32-byte sector per 4-byte value).  Tiling
-// through shared memory (read a band of diagonals coalesced, write rows
-// coalesced) is the later fix.  A bf16 stream is widened, an int16 one
-// dequantized by `inv` (1 / 32767); the output is always float.
+// The unskew as a tiled relayout, the skew's access pattern reversed:
+// out[b, i, j] = s[b, i+j, i+1] for every natural cell, float (a bf16
+// stream widened, an int16 one dequantized by `inv`, 1 / 32767, as cvt
+// does).  One CTA per tile of UNSKEW_ROWS natural rows [i0, i0+C) x
+// UNSKEW_COLS columns [j0, j0+R) of one pair (blockIdx.x; columns
+// fastest, so neighbouring CTAs write neighbouring segments of the same
+// rows).  The tile's cells lie on the C+R-1 diagonals r in
+// [i0+j0, i0+j0+C+R-2], each diagonal's cells a run of at most R
+// consecutive slots of its stream row: slot offset c in [0, R) of
+// diagonal r is slot r - j0 - R + 2 + c, natural (i, j) = (r - j0 - R + 1
+// + c, j0 + R - 1 - c).  The block reads each run coalesced (lane = slot),
+// only the slots that hold a cell of the tile, into a shared tile padded
+// to R+2 columns (a run's lanes step one row down and one column left, so
+// they fall on distinct banks); the 2-byte forms read aligned pairs of
+// slots, one 32-bit word where both halves hold a cell, as the skew stores
+// them (the pair's parity is taken from the address, so any 2-byte-aligned
+// stream works).  Then each warp writes natural rows of the tile, R
+// columns from j0, coalesced (lane = column) and masked to [0, M).  Every
+// natural cell lies in exactly one tile, so it is read once and written
+// once, and the stream's padding is never loaded: the kernel moves
+// B N M values in and B N M floats out, the bytes of its bound.  Natural
+// tiles write aligned segments and read runs at any alignment (the
+// skew's pattern reversed); at 256 x 512 x 512 they beat tiles of 32
+// diagonals x 128 slots, which write at any alignment, by 13%
+// (PERF.md).
+constexpr int UNSKEW_COLS = 32, UNSKEW_ROWS = 128;
+
+// a stored 2-byte value from its 16 bits
+template <typename T>
+__device__ __forceinline__ T from_bits16(uint32_t v);
+template <>
+__device__ __forceinline__ bf16 from_bits16<bf16>(uint32_t v) {
+  return __ushort_as_bfloat16((unsigned short)v);
+}
+template <>
+__device__ __forceinline__ int16_t from_bits16<int16_t>(uint32_t v) {
+  return (int16_t)(uint16_t)v;
+}
+
 template <typename TI>
-__global__ void unskew_kernel(const TI *__restrict__ s, int B, int K, int S,
-                              int N, int M, float inv,
-                              float *__restrict__ out) {
-  const size_t total = (size_t)B * N * M;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
-    int c = (int)(idx % M);
-    size_t t = idx / M;
-    int r = (int)(t % N);
-    int b = (int)(t / N);
-    out[idx] = ld(s, ((size_t)b * K + (r + c)) * S + (r + 1), inv);
+__global__ void __launch_bounds__(SKEW_THREADS)
+    unskew_kernel(const TI *__restrict__ s, int N, int M, int K, int S,
+                  float inv, float *__restrict__ out) {
+  constexpr int R = UNSKEW_COLS, C = UNSKEW_ROWS;
+  __shared__ float tile[C][R + 2];
+  const int tiles_j = (M + R - 1) / R;
+  const int tiles_i = (N + C - 1) / C;
+  const int j0 = (int)(blockIdx.x % tiles_j) * R;
+  const int t = (int)(blockIdx.x / tiles_j);
+  const int i0 = (t % tiles_i) * C;
+  const int b = t / tiles_i;
+  // slot offset c of diagonal r holds a cell of the tile
+  auto cell = [&](int r, int c) {
+    const int i = r - j0 - R + 1 + c, j = j0 + R - 1 - c;
+    return c >= 0 && c < R && i >= i0 && i < i0 + C && i < N && j < M;
+  };
+  auto put = [&](int r, int c, float v) {
+    tile[r - j0 - R + 1 + c - i0][R - 1 - c] = v;
+  };
+  // positions a run: one slot each, or (2-byte forms) one aligned pair of
+  // slots each, the first and last possibly half outside the run
+  constexpr int V = sizeof(TI) == 2 ? 2 : 1;
+  constexpr int P = V == 1 ? R : R / 2 + 1;
+  for (int idx = threadIdx.x; idx < (C + R - 1) * P; idx += SKEW_THREADS) {
+    const int d = idx / P, q = idx - d * P;
+    const int r = i0 + j0 + d;
+    if (r >= K) break;
+    // element of slot offset 0 (its slot may precede the stream row)
+    const long long at = ((long long)b * K + r) * S + (r - j0 - R + 2);
+    if constexpr (V == 1) {
+      if (cell(r, q)) put(r, q, ld(s, (size_t)(at + q), inv));
+    } else {
+      const int c =
+          2 * q - (int)((((uintptr_t)s >> 1) + (uintptr_t)at) & 1);
+      const bool lo_ok = cell(r, c), hi_ok = cell(r, c + 1);
+      if (lo_ok && hi_ok) {
+        const uint32_t w = *(const uint32_t *)(s + at + c);
+        put(r, c, cvt(from_bits16<TI>(w & 0xffffu), inv));
+        put(r, c + 1, cvt(from_bits16<TI>(w >> 16), inv));
+      } else {
+        if (lo_ok) put(r, c, ld(s, (size_t)(at + c), inv));
+        if (hi_ok) put(r, c + 1, ld(s, (size_t)(at + c + 1), inv));
+      }
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int ii = warp; ii < C && i0 + ii < N; ii += SKEW_THREADS / 32) {
+    const size_t row = ((size_t)b * N + i0 + ii) * M + j0;
+#pragma unroll
+    for (int jj = lane; jj < R; jj += 32)
+      if (j0 + jj < M) out[row + jj] = tile[ii][jj];
   }
 }
 
@@ -650,63 +726,128 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// Tangent of the forward along (Zt, Za): one CTA per pair, diagonals
-// ascending, Vd rows r-1, r-2 and r in shared memory (3 x S), Q recomputed
-// from Dx/Dm; the term order is _afwd_train_kernel's (dp_bm_train.py:
-// 425-430).  Without kHasZa there is no Za stream at all (a zero gap
-// cotangent, the training decode path).  Dxd and Dmd are written for every
-// slot; Vd is zero outside the band, so they stay finite there.  Dx, Dm
-// read and Dxd, Dmd stored as TD; the cotangents Zt, Za of TZ (never
-// int16: they are unbounded).
-template <int OP, bool kHasZa, typename TD, typename TZ>
-__global__ void adjoint_forward_kernel(const TD *__restrict__ dx,
-                                       const TD *__restrict__ dm,
-                                       const TZ *__restrict__ zt,
-                                       const TZ *__restrict__ za,
-                                       const int *__restrict__ ln,
-                                       const int *__restrict__ lm, int K,
-                                       int S, int lo,
-                                       float *__restrict__ vtd,
-                                       TD *__restrict__ dxdo,
-                                       TD *__restrict__ dmdo) {
-  extern __shared__ float smem[];
+// The adjoint forward's ring depth at strip width T: three input rows (Dx,
+// Dm, Zt) a ring slot, four with Za, against the forward's two.  A ring of
+// 4 at strips of 2 spills in the float32 and Za instances (PERF.md).
+__host__ __device__ constexpr int afwd_ring_for(int T) {
+  return T <= 2 ? 2 : 1;
+}
+
+// Tangent of the forward along (Zt, Za), a strip kernel like the forward
+// whose recurrence it differentiates (V becomes Vd, theta and A become Zt
+// and Za): one CTA per pair, diagonals ascending, thread t owning the
+// slots [tT, tT+T).  Registers: Vd rows r-1 and r-2 of the strip (v1, v2)
+// and, at its left edge, slot s0-1 of both (l1, l2), from the left lane by
+// shuffle or the left warp through `edge` and the pair's barrier.
+// Q = max3(Dx, Dm, 0) and Vd run on the band only (Vd is 0 off it, as the
+// plain version masks it); the term order is _afwd_train_kernel's
+// (dp_bm_train.py:425-430), Vd = Zt [+ Za] + Vd[r-1] + Qx Dxd + Qm Dmd on
+// the unrounded differences.  Dxd = shr(Vd[r-1]) - Vd[r-1] and
+// Dmd = shr(Vd[r-2]) [- Za] - Vd[r-1] are stored at every slot, as TD.
+// Row r of Dx, Dm and Zt is loaded D rows ahead on the band only, Za at
+// every slot (Dmd needs it).  Rows past n+m have Vd[r-1] = Vd[r-2] = 0: a
+// plain store loop writes their Dxd = 0 - 0 and Dmd = (0 - Za) - 0.
+// Without kHasZa there is no Za stream at all (a zero gap cotangent, the
+// training path).  The cotangents Zt, Za of TZ (never int16: they are
+// unbounded).
+template <int OP, bool kHasZa, typename TD, typename TZ, int T>
+__global__ void __launch_bounds__(1024)
+    adjoint_forward_kernel(const TD *__restrict__ dx,
+                           const TD *__restrict__ dm,
+                           const TZ *__restrict__ zt,
+                           const TZ *__restrict__ za,
+                           const int *__restrict__ ln,
+                           const int *__restrict__ lm, int K, int S, int lo,
+                           float *__restrict__ vtd, TD *__restrict__ dxdo,
+                           TD *__restrict__ dmdo) {
+  constexpr int D = afwd_ring_for(T);
+  __shared__ float edge[2][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = threadIdx.x * T;
   const int b = blockIdx.x;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = 0; r < K; ++r) {
-    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
-    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
-    float *vn = smem + (r % 3) * S;              // row r
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float px, pm, py;
-      max3<OP>(ld(dx, row + s, 0.0f), ld(dm, row + s, 0.0f), 0.0f, px, pm,
-               py);
-      float v1s = v1[s];
-      float v1l = s > 0 ? v1[s - 1] : 0.0f;
-      float v2l = s > 0 ? v2[s - 1] : 0.0f;
-      float dxd = v1l - v1s;
-      float zts = ld(zt, row + s, 0.0f);
-      float v;
-      if (kHasZa) {
-        float zas = ld(za, row + s, 0.0f);
-        float dmd = v2l - zas - v1s;
-        st(dmdo, row + s, dmd, 0.0f);
-        v = zts + zas + v1s + px * dxd + pm * dmd;
-      } else {
-        float dmd = v2l - v1s;
-        st(dmdo, row + s, dmd, 0.0f);
-        v = zts + v1s + px * dxd + pm * dmd;
+  const int rows = min(K, n + m + 1);
+  float v1[T], v2[T], l1 = 0.0f, l2 = 0.0f;
+  TD px_[D][T], pm_[D][T];
+  TZ pz[D][T], pa[D][T];  // pa: Za, unused without it
+#pragma unroll
+  for (int i = 0; i < T; ++i) v1[i] = v2[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q < rows && in_band(s, q + 2, n, m, lo);
+    const size_t at = base + (size_t)q * S + s;
+    px_[d][i] = band ? dx[at] : TD();
+    pm_[d][i] = band ? dm[at] : TD();
+    pz[d][i] = band ? zt[at] : TZ();
+    if constexpr (kHasZa) pa[d][i] = q < rows && s < S ? za[at] : TZ();
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, d, i);
+
+  for (int r0 = 0; r0 < rows; r0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 + d;
+      if (r >= rows) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float vn[T];
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        const int s = s0 + i;
+        const float a = cvt(px_[d][i], 0.0f), am = cvt(pm_[d][i], 0.0f);
+        const float z = cvt(pz[d][i], 0.0f);
+        const float zas = kHasZa ? cvt(pa[d][i], 0.0f) : 0.0f;
+        fetch(d, r + D, i);
+        const float v1l = i ? v1[i - 1] : l1;
+        const float v2l = i ? v2[i - 1] : l2;
+        const float dxd = v1l - v1[i];
+        const float dmd = kHasZa ? v2l - zas - v1[i] : v2l - v1[i];
+        if (s < S) {
+          st(dxdo, row + s, dxd, 0.0f);
+          st(dmdo, row + s, dmd, 0.0f);
+        }
+        float v = 0.0f;
+        if (in_band(s, k, n, m, lo)) {
+          float px, pm, py;
+          max3<OP>(a, am, 0.0f, px, pm, py);
+          v = kHasZa ? z + zas + v1[i] + px * dxd + pm * dmd
+                     : z + v1[i] + px * dxd + pm * dmd;
+          if (s == n && k == n + m) vtd[b] = v;
+        }
+        vn[i] = v;
       }
-      st(dxdo, row + s, dxd, 0.0f);
-      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
-      if (s == n && k == n + m) vtd[b] = v;
-      vn[s] = v;
+      // Vd[r][s0-1]: the left lane's last slot, or the left warp's
+      float left = __shfl_up_sync(0xffffffffu, vn[T - 1], 1);
+      if (lane == 31) edge[r & 1][warp] = vn[T - 1];
+      pair_barrier();
+      if (lane == 0) left = warp ? edge[r & 1][warp - 1] : 0.0f;
+      l2 = l1;
+      l1 = left;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        v2[i] = v1[i];
+        v1[i] = vn[i];
+      }
     }
-    __syncthreads();
+  }
+  const float zero = 0.0f;
+  for (int r = rows; r < K; ++r) {
+    const size_t row = base + (size_t)r * S;
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      const int s = s0 + i;
+      if (s < S) {
+        st(dxdo, row + s, zero - zero, 0.0f);
+        st(dmdo, row + s,
+           kHasZa ? zero - ld(za, row + s, 0.0f) - zero : zero - zero, 0.0f);
+      }
+    }
   }
 }
 
@@ -1059,10 +1200,11 @@ int threads_for(int S) {
   return t > 1024 ? 1024 : t;
 }
 
-// One CTA per pair, threads along the slots, `rows` rolling rows of S floats
-// in dynamic shared memory; opts in to more than the default 48 KB when the
-// rows need it.  ops/dp_cuda.py SMEM_ROWS holds the same row counts and
-// refuses, before the launch, a pair whose rows exceed the device's limit.
+// The Q-stream kernels' launch: one CTA per pair, threads along the slots,
+// `rows` rolling rows of S floats in dynamic shared memory; opts in to more
+// than the default 48 KB when the rows need it.  ops/dp_cuda.py SMEM_ROWS
+// holds the same row counts and refuses, before the launch, a pair whose
+// rows exceed the device's limit.
 template <typename Kern, typename... A>
 cudaError_t launch_rows(Kern kern, int rows, int B, int S, cudaStream_t st,
                         A... args) {
@@ -1096,10 +1238,12 @@ unsigned skew_tiles(int B, int K, int S) {
          ((S + SKEW_C - 1) / SKEW_C);
 }
 
-int grid_for(size_t total) {
-  size_t want = (total + 255) / 256;
-  int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  return blocks < 1 ? 1 : blocks;
+// CTAs of the unskew: one per natural tile of each pair (0 when there is
+// no cell)
+unsigned unskew_tiles(int B, int N, int M) {
+  if (B <= 0 || N <= 0 || M <= 0) return 0;
+  return (unsigned)B * ((N + UNSKEW_ROWS - 1) / UNSKEW_ROWS) *
+         ((M + UNSKEW_COLS - 1) / UNSKEW_COLS);
 }
 
 }  // namespace
@@ -1178,8 +1322,8 @@ int grid_for(size_t total) {
 
 // DP_PART selects the entries of one object when the library is built by
 // several nvcc processes at once (ops/dp_cuda.py build): 1 the forward, 2
-// the backward, 3 the adjoint backward, 0 the rest; without it every entry
-// is compiled.
+// the backward, 3 the adjoint backward, 4 the adjoint forward, 0 the rest;
+// without it every entry is compiled.
 #ifndef DP_PART
 #define DP_PART_IS(p) 1
 #else
@@ -1219,10 +1363,12 @@ int dp_skew_pair(const float *x, const float *y, int B, int N, int M,
 // s of storage s_dt (int16: dequantized by `inv`); out float.
 int dp_unskew(const void *s, int s_dt, float inv, int B, int K, int S, int N,
               int M, float *out, void *stream) {
+  unsigned blocks = unskew_tiles(B, N, M);
+  if (!blocks) return (int)cudaSuccess;
   DP_SWITCH_ANY(s_dt, TI,
-                unskew_kernel<TI><<<grid_for((size_t)B * N * M), 256, 0,
+                unskew_kernel<TI><<<blocks, SKEW_THREADS, 0,
                                     (cudaStream_t)stream>>>(
-                    (const TI *)s, B, K, S, N, M, inv, out);
+                    (const TI *)s, N, M, K, S, inv, out);
                 return (int)cudaGetLastError())
 }
 
@@ -1294,7 +1440,7 @@ int dp_backward(const void *dx, const void *dm, int d_dt, const int *ln,
 
 #endif
 
-#if DP_PART_IS(0)
+#if DP_PART_IS(4)
 // Dx, Dm (and Dxd, Dmd out) of storage d_dt, Zt and Za of storage z_dt;
 // za == nullptr: no gap cotangent, the kernel without a Za stream.
 int dp_adjoint_forward(const void *dx, const void *dm, int d_dt,
@@ -1308,21 +1454,25 @@ int dp_adjoint_forward(const void *dx, const void *dm, int d_dt,
         d_dt, TD,
         DP_SWITCH_FLOAT(
             z_dt, TZ,
-            return (int)launch_rows(
-                adjoint_forward_kernel<OP, true, TD, TZ>, 3, B, S, st,
-                (const TD *)dx, (const TD *)dm, (const TZ *)zt,
-                (const TZ *)za, ln, lm, K, S, lo, vtd, (TD *)dxdo,
-                (TD *)dmdo))))
+            DP_SWITCH_FORWARD_STRIP(
+                S, T,
+                return (int)launch_strip(
+                    adjoint_forward_kernel<OP, true, TD, TZ, T>, T, B, S, st,
+                    (const TD *)dx, (const TD *)dm, (const TZ *)zt,
+                    (const TZ *)za, ln, lm, K, S, lo, vtd, (TD *)dxdo,
+                    (TD *)dmdo)))))
   }
   DP_SWITCH_OP(DP_SWITCH_FLOAT(
       d_dt, TD,
       DP_SWITCH_FLOAT(
           z_dt, TZ,
-          return (int)launch_rows(
-              adjoint_forward_kernel<OP, false, TD, TZ>, 3, B, S, st,
-              (const TD *)dx, (const TD *)dm, (const TZ *)zt,
-              (const TZ *)nullptr, ln, lm, K, S, lo, vtd, (TD *)dxdo,
-              (TD *)dmdo))))
+          DP_SWITCH_FORWARD_STRIP(
+              S, T,
+              return (int)launch_strip(
+                  adjoint_forward_kernel<OP, false, TD, TZ, T>, T, B, S, st,
+                  (const TD *)dx, (const TD *)dm, (const TZ *)zt,
+                  (const TZ *)nullptr, ln, lm, K, S, lo, vtd, (TD *)dxdo,
+                  (TD *)dmdo)))))
 }
 
 #endif

@@ -46,12 +46,13 @@ is cast.  The Q-stream wrappers take float32 only.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
 launches on PyTorch's current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`LAUNCHES`.  The forward, the
-backward and the adjoint backward keep a pair's rows in the registers of
-at most 1,024 threads (:data:`MAX_SLOTS`), every other DP kernel
-:data:`SMEM_ROWS` rows of S floats in shared memory; a pair padded past what the kernel holds on the
-device raises a ``ValueError`` naming the limit before anything is
-launched.  The plain versions with the same
+error, and adds one to its entry in :data:`LAUNCHES`.  The default
+backend's DP kernels (the forward, the score-only forward, the backward
+and the two adjoint passes) keep a pair's rows in the registers of at
+most 1,024 threads (:data:`MAX_SLOTS`), the Q-stream kernels
+:data:`SMEM_ROWS` rows of S floats in shared memory; a pair padded past
+what the kernel holds on the device raises a ``ValueError`` naming the
+limit before anything is launched.  The plain versions with the same
 signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
 """
 
@@ -82,9 +83,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: the source's DP_PART objects (1 the forward, 2 the backward, 3 the
-#: adjoint backward, 0 the rest), compiled by one nvcc each, all at once,
-#: then linked
-PARTS = 4
+#: adjoint backward, 4 the adjoint forward, 0 the rest), compiled by one
+#: nvcc each, all at once, then linked
+PARTS = 5
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 # storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
@@ -98,17 +99,18 @@ LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
             "adjoint_backward_q": 0}
 
-#: rows of S floats each shared-memory DP kernel keeps in shared memory
-#: (the ``rows`` of its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
-SMEM_ROWS = {"adjoint_forward": 3, "forward_q": 3, "backward_q": 3,
-             "adjoint_forward_q": 3, "adjoint_backward_q": 6}
-#: the most slots a pair may have in the kernels that keep its rows in
-#: registers: 1,024 threads of the widest strip (``DP_SWITCH_FORWARD_STRIP``
-#: and ``DP_SWITCH_BACKWARD_STRIP`` in ``csrc/dp_kernels.cu``)
+#: rows of S floats each Q-stream kernel keeps in shared memory (the
+#: ``rows`` of its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
+SMEM_ROWS = {"forward_q": 3, "backward_q": 3, "adjoint_forward_q": 3,
+             "adjoint_backward_q": 6}
+#: the most slots a pair may have in the strip kernels, which keep its rows
+#: in registers: 1,024 threads of the widest strip
+#: (``DP_SWITCH_FORWARD_STRIP`` for the forward passes,
+#: ``DP_SWITCH_BACKWARD_STRIP`` for the reverse ones, in
+#: ``csrc/dp_kernels.cu``)
 MAX_SLOTS = {"forward": 1024 * 20, "forward_score": 1024 * 20,
-             "backward": 1024 * 6, "adjoint_backward": 1024 * 6}
-_Q_KERNELS = ("forward_q", "backward_q", "adjoint_forward_q",
-              "adjoint_backward_q")
+             "adjoint_forward": 1024 * 20, "backward": 1024 * 6,
+             "adjoint_backward": 1024 * 6}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -145,7 +147,9 @@ def _run(procs):
 def build():
     """Compile the kernels if no library for this source and these flags
     exists yet; returns the path of the shared library.  The source's
-    :data:`PARTS` objects compile in parallel.  ptxas's report (registers,
+    :data:`PARTS` objects compile in parallel: each strip kernel's entry,
+    with the most template instances, in an object of its own, the
+    relayouts and the Q kernels in one more.  ptxas's report (registers,
     spills and stack of every kernel instance) is kept beside the library
     as ``<library>.ptxas``."""
     with open(SOURCE, "rb") as f:
@@ -249,8 +253,8 @@ def _check_smem(name, S, device):
     does not fit in a block: its rows in shared memory, or its strips in
     the registers of 1,024 threads."""
     limit = max_smem(device)
-    q_most = limit // (max(SMEM_ROWS[k] for k in _Q_KERNELS) * 4)
-    if name in _Q_KERNELS or S > q_most:
+    q_most = limit // (max(SMEM_ROWS.values()) * 4)
+    if name in SMEM_ROWS or S > q_most:
         hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
                 "queue A item 4)")
     else:

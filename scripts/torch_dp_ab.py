@@ -8,11 +8,13 @@ Each root is a checkout of the port (for example ``git archive`` of a
 commit unpacked under ``_archive/``).  One child process per (root, turn)
 imports that root's ``deepblast_torch``, builds its kernels into the root's
 own ``_build/`` (the first turn only), and times with CUDA events: the
-single skew, the pair skew in float32, bf16 and int16, the forward, the
-score-only forward and the backward in every storage form the main paths
-run, the adjoint backward in float32 and bf16 residuals, the decode (pair
-skew + forward + backward) in float32, bf16 residuals and the fast menu,
-and the differentiable DP step in float32 and bf16 residuals.  The roots
+single skew, the pair skew in float32, bf16 and int16, the unskew of a
+float32, bf16 and int16 E, the forward, the score-only forward and the
+backward in every storage form the main paths run, the adjoint forward in
+float32, bf16 residuals and bf16 residuals with a Za stream, the adjoint
+backward in float32 and bf16 residuals, the decode (pair skew + forward +
+backward) in float32, bf16 residuals and the fast menu, and the
+differentiable DP step in float32 and bf16 residuals.  The roots
 run in the order BEFORE, AFTER, AFTER, BEFORE (``--turns`` repeats of that
 order), so that drift of the card falls on both.  Every child checks that
 its kernels' outputs equal the first root's on the same inputs (bit for
@@ -74,6 +76,13 @@ def child(root, out, ref):
     torch.cuda.empty_cache()
     target = (torch.rand((B, N, M), generator=g, device="cuda")
               < 1.0 / N).float()
+    za = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+    # the unskew's inputs: the training E in each stored form
+    E = adj["f32"][0]
+    E_forms = {"f32": E,
+               "bf16": dp_cuda.skew(dp_cuda.unskew(E, N, M), torch.bfloat16),
+               "int16": dp_cuda.skew(dp_cuda.unskew(E, N, M), torch.int16,
+                                     32767.0)}
     gmask = torch.ones((B, N, M), dtype=torch.bool, device="cuda")
     t_req = theta.clone().requires_grad_()
     a_req = A.clone().requires_grad_()
@@ -87,6 +96,12 @@ def child(root, out, ref):
         _, _, dx, dm = data[k]
         return lambda: dp_cuda.backward(dx, dm, ln, lm, Et, dtypes=menus[k],
                                         **o, **kw)
+
+    def afwd(k, with_za=False):
+        _, _, dx, dm = data[k]
+        return lambda: dp_cuda.adjoint_forward(
+            dx, dm, zt, za if with_za else None, ln, lm, dtypes=menus[k],
+            **kw)
 
     def abwd(k):
         _, _, dx, dm = data[k]
@@ -128,6 +143,12 @@ def child(root, out, ref):
         "backward f32 gap": bwd("f32", want_gap=True),
         "backward D bf16 gap": bwd("d_bf16", want_gap=True),
         "backward D bf16 E int16 (fast decode)": bwd("fast", decode=True),
+        "unskew f32": lambda: dp_cuda.unskew(E_forms["f32"], N, M),
+        "unskew bf16": lambda: dp_cuda.unskew(E_forms["bf16"], N, M),
+        "unskew int16": lambda: dp_cuda.unskew(E_forms["int16"], N, M),
+        "adjoint_forward f32": afwd("f32"),
+        "adjoint_forward D bf16": afwd("d_bf16"),
+        "adjoint_forward D bf16 Za": afwd("d_bf16", True),
         "adjoint_backward f32": abwd("f32"),
         "adjoint_backward D bf16": abwd("d_bf16"),
         "decode f32": decode("f32"), "decode d_bf16": decode("d_bf16"),

@@ -21,8 +21,17 @@ caller passes), every row walked; it carries the products
 ``Yq = Qy Ed`` of the rows before and sums
 ``Ed = shl(X1) + shl(M2) + Yd1 + Yq1`` in the plain order.  It is held to
 the plain pass on an E from the plain backward (zero off the band) and on
-an E that is noise at every slot.  Tolerance: none (``torch.equal``),
-since every cell takes the same float32 operations.
+an E that is noise at every slot.
+
+``band_adjoint_forward`` restates the adjoint forward's strip kernel, the
+forward's design run as a tangent: ``Q = max3(Dx, Dm, 0)`` and ``Vd`` only
+on the band (``Vd = 0`` off it), ``Dxd = shr(Vd1) - Vd1`` and
+``Dmd = shr(Vd2) [- Za] - Vd1`` stored at every slot, ``Vd = Zt [+ Za] +
+Vd1 + Qx Dxd + Qm Dmd`` in the plain order, and a store loop past row
+``n + m`` (``Dxd = 0 - 0``, ``Dmd = (0 - Za) - 0`` or ``0 - 0``).  It is
+held to the plain pass with and without Za on the plain forward's Dx, Dm
+and seeded cotangents.  Tolerance: none (``torch.equal``), since every
+cell takes the same float32 operations.
 """
 
 import numpy as np
@@ -192,5 +201,61 @@ def test_band_adjoint_backward_equals_plain(B, N, M, mode, operator):
         want = dp_ref.adjoint_backward(dxs, dms, dxds, dmds, e, ln, lm, **kw)
         got = band_adjoint_backward(dxs, dms, dxds, dmds, e, ln, lm, mode,
                                     operator)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def band_adjoint_forward(dxs, dms, zt_s, za_s, ln, lm, mode, operator):
+    B, K, S = dxs.shape
+    lo = MODE_BOUNDS[mode][2]
+    vtd = torch.zeros(B)
+    dxds, dmds = torch.empty_like(dxs), torch.empty_like(dxs)
+    zero = torch.zeros(S)
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        rows = min(K, n + m + 1)
+        v1 = v2 = torch.zeros(S)
+        for r in range(rows):
+            dxd = _shr(v1) - v1
+            if za_s is None:
+                dmd = _shr(v2) - v1
+            else:
+                dmd = _shr(v2) - za_s[b, r] - v1
+            dxds[b, r], dmds[b, r] = dxd, dmd
+            band = _band(S, r + 2, n, m, lo)
+            _, (qx, qm, _) = smooth.max3(operator, dxs[b, r, band],
+                                         dms[b, r, band],
+                                         torch.zeros_like(dxd[band]))
+            v = torch.zeros(S)
+            if za_s is None:
+                v[band] = (zt_s[b, r, band] + v1[band] + qx * dxd[band]
+                           + qm * dmd[band])
+            else:
+                v[band] = (zt_s[b, r, band] + za_s[b, r, band] + v1[band]
+                           + qx * dxd[band] + qm * dmd[band])
+            if r + 2 == n + m and bool(band[n]):
+                vtd[b] = v[n]
+            v2, v1 = v1, v
+        for r in range(rows, K):
+            dxds[b, r] = zero - zero
+            dmds[b, r] = zero - zero if za_s is None \
+                else zero - za_s[b, r] - zero
+    return vtd, dxds, dmds
+
+
+@pytest.mark.parametrize("B,N,M", SHAPES)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", ["softmax", "sparsemax", "hardmax"])
+def test_band_adjoint_forward_equals_plain(B, N, M, mode, operator):
+    th_s, A_s, ln, lm, _ = _problem(B * N + M + 2, B, N, M)
+    rng = np.random.default_rng(B * M + N)
+    zt_s, za_s = (skew(torch.tensor(rng.standard_normal((B, N, M)),
+                                    dtype=torch.float32)) for _ in range(2))
+    kw = dict(mode=mode, operator=operator)
+    _, dxs, dms = dp_ref.forward(th_s, A_s, ln, lm, **kw)
+    for za in (None, za_s):
+        want = dp_ref.adjoint_forward(dxs, dms, zt_s, za, ln, lm, **kw)
+        got = band_adjoint_forward(dxs, dms, zt_s, za, ln, lm, mode,
+                                   operator)
         for g, w in zip(got, want):
             assert torch.equal(g, w)

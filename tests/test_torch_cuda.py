@@ -6,11 +6,11 @@ with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Tolerance: those of ``chip_smoke.check_kernels`` and
 ``chip_smoke.check_autograd``, which these tests call so that the smoke
-and the tests hold the kernels to one check: skew, unskew and adjoint
-backward (Ed, EdA) exact; forward (Vt, Dx, Dm), score-only forward,
-backward (E, EA) and adjoint forward (vtd, Dxd, Dmd) rtol 1e-4 / atol
+and the tests hold the kernels to one check: skew, unskew, adjoint
+forward (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) exact; forward
+(Vt, Dx, Dm), score-only forward and backward (E, EA) rtol 1e-4 / atol
 1e-5 (fp32; the kernels round each cell as the plain version does, so
-only transcendental ulps can differ); tracebacks identical; autograd
+only transcendental ulps could differ); tracebacks identical; autograd
 through the kernels = through the plain passes on the card (same
 tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
 The Q-stream kernels of the ``pallas_long`` backend are held to the same
@@ -23,10 +23,11 @@ bf16 and int16 expectations) and the pair skew are held to their plain
 versions by ``chip_smoke.check_menu_kernels`` (the same tolerance, stored
 values compared as float32; the relayouts exactly, the pair = two single
 skews), and a stream of another type than its menu gives it raises.
-The redesigned kernels (the skew and the pair skew, tiled; the strip
-kernels: the forward, the score-only forward, the backward and the
-adjoint backward, the last on the training E and on an E that is noise
-at every slot) are held bit for bit (max abs diff 0.0) to their plain
+The redesigned kernels (the skew, the pair skew and the unskew, tiled;
+the strip kernels: the forward, the score-only forward, the adjoint
+forward with and without Za, the backward and the adjoint backward, the
+last on the training E and on an E that is noise at every slot) are
+held bit for bit (max abs diff 0.0) to their plain
 versions at the shapes of their design's edges (``chip_smoke.EDGE_SHAPES``:
 N = 1, M = 1, S not a multiple of the strip or the tile, n < m and n > m,
 S past 1,024 slots, whole diagonals of padding, the wider strips, S at
@@ -352,8 +353,9 @@ def test_strip_kernels_at_edges(cuda, B, N, M, short, mode, operator):
     theta, A, ln, lm = _edge(B * N + M, B, N, M, short)
     errs = {}
     chip_smoke.check_passes(theta, A, ln, lm, mode, operator, None, errs)
-    assert errs == {k: 0.0 for k in ("skew", "skew_pair", "forward",
-                                     "forward_score", "backward",
+    assert errs == {k: 0.0 for k in ("skew", "skew_pair", "unskew",
+                                     "forward", "forward_score",
+                                     "adjoint_forward", "backward",
                                      "adjoint_backward")}
 
 
@@ -375,7 +377,8 @@ def test_strip_kernels_at_edges_menus(cuda, B, N, M, short, menu):
 def test_strip_kernels_at_their_limits(cuda, B, N, M, short, mode, operator,
                                        menu):
     """S = 6,144 (the reverse passes' 1,024 strips of 6) and S = 20,480
-    (the forward's 1,024 strips of 20, where the reverse passes refuse)."""
+    (the forward passes' 1,024 strips of 20, where the reverse passes
+    refuse)."""
     theta, A, ln, lm = _edge(N, B, N, M, short)
     menu = menu and DTypeMenu.make(**chip_smoke.MENUS[menu])
     errs = {}
@@ -397,6 +400,8 @@ def test_strip_kernels_refuse_past_their_limits(cuda):
                 dp_cuda.backward(s, s, n, m, torch.ones(1, device=cuda))
             elif name == "adjoint_backward":
                 dp_cuda.adjoint_backward(s, s, s, s, s, n, m)
+            elif name == "adjoint_forward":
+                dp_cuda.adjoint_forward(s, s, s, s, n, m)
             else:
                 getattr(dp_cuda, name)(s, s, n, m)
         assert dp_cuda.LAUNCHES == before

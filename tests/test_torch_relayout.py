@@ -13,17 +13,31 @@ slots ``s < S``.  The 2-byte forms store aligned pairs of slots: position
 parity of the row's first element, so a pair starts at an even element;
 a slot whose partner lies outside the tile is stored alone.  The
 restatement also checks that every output element is written exactly
-once and that every stored pair is aligned.  Tolerance: none
-(``torch.equal``), in float32, bfloat16 and int16, at tiles that do not
-divide K or S and at the kernel's own 32 x 128 tile.
+once and that every stored pair is aligned.
+
+``tiled_unskew`` restates ``unskew_kernel``, whose tiles lie in natural
+space: C natural rows ``[i0, i0+C)`` by R columns ``[j0, j0+R)`` of one
+pair.  The tile's cells lie on the diagonals ``r`` in ``[i0+j0,
+i0+j0+C+R-2]``; slot offset ``c`` in ``[0, R)`` of diagonal ``r`` is slot
+``r - j0 - R + 2 + c``, natural cell ``(r - j0 - R + 1 + c, j0 + R - 1 -
+c)``.  Each diagonal's run is read over the offsets that hold a cell of
+the tile (the padding is never read), the 2-byte forms as the skew's
+aligned pairs (one word where both halves hold a cell, else the half
+that does), into the ``(C, R)`` tile; then each natural row of the tile
+writes its R columns from ``j0``, masked to ``[0, M)``.  The
+restatement checks that every natural cell is read once and written
+once, that only loaded tile entries are written, and that every pair
+read as one word is aligned.  Tolerance: none (``torch.equal``), in
+float32, bfloat16 and int16, at tiles that do not divide N or M and at
+the kernels' own tiles.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deepblast_torch.ops.menu import quantize
-from deepblast_torch.ops.skew import skew
+from deepblast_torch.ops.menu import E_SCALE, dequantize, quantize
+from deepblast_torch.ops.skew import skew, unskew
 
 # (B, N, M, R, C): N = 1, M = 1, N < M, N > M, K and S not multiples of
 # the tile (a small one, and the kernel's 32 x 128 at S past one tile)
@@ -33,6 +47,9 @@ CASES = [(1, 1, 1, 4, 6), (2, 1, 17, 4, 6), (3, 17, 1, 4, 6),
          (2, 130, 70, 32, 128)]
 FORMS = [(torch.float32, None), (torch.bfloat16, None),
          (torch.int16, 2047.9375)]
+# the unskew's tile, columns x rows (UNSKEW_COLS x UNSKEW_ROWS in
+# csrc/dp_kernels.cu)
+UNSKEW_TILE = (32, 128)
 
 
 def _store(v, out_dtype, scale):
@@ -87,4 +104,79 @@ def test_tiled_skew_equals_plain(B, N, M, R, C, out_dtype, scale):
     want = skew(x, None if out_dtype == torch.float32 else out_dtype, scale)
     got = tiled_skew(x, out_dtype, scale, R, C)
     assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+def _load(v):
+    """A stream value as the unskew reads it: float32, bf16 widened, int16
+    dequantized at 1 / 32767."""
+    if v.dtype == torch.int16:
+        return dequantize(v, 1.0 / E_SCALE)
+    return v.float()
+
+
+def tiled_unskew(s, N, M, R=32, C=128):
+    B, K, S = s.shape
+    flat = s.reshape(-1)
+    out = torch.full((B * N * M,), float("nan"))
+    reads = torch.zeros(B * N * M, dtype=torch.int64)
+    writes = torch.zeros(B * N * M, dtype=torch.int64)
+    pairs = s.element_size() == 2
+    for b in range(B):
+        for i0 in range(0, N, C):
+            for j0 in range(0, M, R):
+                tile = torch.full((C, R), float("nan"))
+                for r in range(i0 + j0, min(K, i0 + j0 + C + R - 1)):
+                    at = (b * K + r) * S + (r - j0 - R + 2)
+
+                    def cell(c):
+                        i, j = r - j0 - R + 1 + c, j0 + R - 1 - c
+                        return ((c >= 0) & (c < R) & (i >= i0) & (i < i0 + C)
+                                & (i < N) & (j < M))
+
+                    if not pairs:
+                        c = torch.arange(R)
+                        idx = [c[cell(c)]]
+                    else:
+                        c = 2 * torch.arange(R // 2 + 1) - at % 2
+                        lo, hi = cell(c), cell(c + 1)
+                        assert ((at + c[lo & hi]) % 2 == 0).all()
+                        idx = [c[lo], c[hi] + 1]
+                    for cc in idx:
+                        i, j = r - j0 - R + 1 + cc, j0 + R - 1 - cc
+                        tile[i - i0, j - j0] = _load(flat[at + cc])
+                        reads[(b * N + i) * M + j] += 1
+                for ii in range(min(C, N - i0)):
+                    j = j0 + torch.arange(R)
+                    ok = j < M
+                    at = (b * N + i0 + ii) * M + j[ok]
+                    assert not torch.isnan(tile[ii, ok]).any()
+                    out[at] = tile[ii, ok]
+                    writes[at] += 1
+    assert (reads == 1).all() and (writes == 1).all()
+    return out.reshape(B, N, M)
+
+
+# (B, N, M, R, C) for the unskew: R columns x C rows, tiles that do not
+# divide N or M (small ones, and the kernel's own past one tile each way)
+UNSKEW_CASES = [(1, 1, 1, 4, 6), (2, 1, 17, 4, 6), (3, 17, 1, 4, 6),
+                (2, 5, 9, 4, 6), (2, 40, 11, 4, 6), (2, 11, 40, 6, 4),
+                (1, 1, 1, *UNSKEW_TILE), (2, 40, 11, *UNSKEW_TILE),
+                (1, 70, 300, *UNSKEW_TILE), (2, 130, 70, *UNSKEW_TILE),
+                (1, 300, 67, *UNSKEW_TILE), (2, 129, 33, *UNSKEW_TILE)]
+
+
+@pytest.mark.parametrize("B,N,M,R,C", UNSKEW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int16])
+def test_tiled_unskew_equals_plain(B, N, M, R, C, dtype):
+    rng = np.random.default_rng(B * M + N)
+    x = torch.tensor(rng.standard_normal((B, N, M)), dtype=torch.float32)
+    if dtype == torch.int16:               # an expectation stream
+        s = skew(x.abs() / (1.0 + x.abs()), torch.int16, float(E_SCALE))
+    else:
+        s = skew(x, None if dtype == torch.float32 else dtype)
+    want = unskew(s, N, M)
+    got = tiled_unskew(s, N, M, R, C)
+    assert got.dtype == want.dtype == torch.float32
     assert torch.equal(got, want)
