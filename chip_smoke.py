@@ -212,12 +212,12 @@ BENCH_INSTANCES = {
     "adjoint_forward": "adjoint_forward_kernel<0, false, float, float, 2>",
     "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float, 2>",
     "adjoint_backward": "adjoint_backward_kernel<0, float, float, 2>",
-    "forward_q": "forward_q_kernel<0>",
+    "forward_q": "forward_q_kernel<0, false>",
     "backward_q": "backward_q_kernel<false>",
     "backward_q_gap": "backward_q_kernel<true>",
     "adjoint_forward_q": "adjoint_forward_q_kernel<0, false>",
     "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true>",
-    "adjoint_backward_q": "adjoint_backward_q_kernel",
+    "adjoint_backward_q": "adjoint_backward_q_kernel<false>",
 }
 # cells one pass of a strip kernel's unrolled row loop computes: T slots x
 # the D rows of its register ring (ring_for and, for the adjoint passes,
@@ -227,6 +227,13 @@ AFWD_RING = {2: 2, 6: 1, 20: 1}
 ABWD_RING = {2: 2, 6: 1}
 STRIP_KERNELS = ("forward_kernel<", "backward_kernel<",
                  "adjoint_forward_kernel<", "adjoint_backward_kernel<")
+# the split Q kernels, <op, kCluster> and <kCluster>: strips of 2 x D
+# cells a pass too (Q_FWD_RING, q_abwd_ring)
+SPLIT_KERNELS = ("forward_q_kernel<", "adjoint_backward_q_kernel<")
+# slots S at the split Q kernels' edges: a stream of one slot, one cell,
+# one warp of strips of 2 (a CTA of the smaller splits) -1 (odd), 0 and
+# +1, a CTA of 1,024 threads of strips of 2 -1, 0 and +1
+SPLIT_EDGE_SLOTS = (1, 2, 63, 64, 65, 2047, 2048, 2049)
 # (B, N, M, short): shapes at the strip kernels' (and the skew's tiles')
 # edges, lengths ragged with pair 0 full and, with `short`, the last pair
 # n = max(1, N // 50) (whole diagonals of padding): N = 1 and M = 1; S not
@@ -544,14 +551,18 @@ def _exact(name, got, want, errs):
 
 def _refuses(name, call):
     """``call`` must raise the ``ValueError`` that names the limit of
-    ``name`` (``dp_cuda.MAX_SLOTS``) before launching."""
+    ``name`` (``dp_cuda.MAX_SLOTS``, or ``dp_cuda.CLUSTER_SLOTS`` and then
+    also the ``pallas_long`` step's, backward_q and adjoint_forward_q)
+    before launching."""
     from deepblast_torch.ops import dp_cuda
     before = dict(dp_cuda.LAUNCHES)
+    split = name in dp_cuda.CLUSTER_SLOTS
+    most = (dp_cuda.CLUSTER_SLOTS if split else dp_cuda.MAX_SLOTS)[name]
     try:
         call()
     except ValueError as e:
-        if f"S <= {dp_cuda.MAX_SLOTS[name]} " not in str(e) or \
-                dp_cuda.LAUNCHES != before:
+        if f"S <= {most} " not in str(e) or dp_cuda.LAUNCHES != before or \
+                split and "backward_q and adjoint_forward_q" not in str(e):
             raise AssertionError(f"unclear refusal of {name}: {e}")
         return str(e)
     raise AssertionError(f"{name} took a pair past its limit")
@@ -697,10 +708,13 @@ def check_edges(g, errs):
 
 def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
     """Every Q-stream kernel against its plain version on the same inputs
-    (outputs over NaN-filled memory): the forward (Vt, Qx, Qm, Qy), the
-    backward with and without the gap output, the adjoint forward with and
-    without a Za stream (vtd, Qd), the adjoint backward (Ed, EdA); random
-    cotangents; tracebacks of E identical."""
+    (outputs over NaN-filled memory): the split kernels bit for bit -- the
+    forward (Vt, Qx, Qm, Qy) and the adjoint backward (Ed, EdA, on the
+    backward's E and on an E that is noise at every slot) -- at the
+    cluster size the wrapper picks; the backward with and without the gap
+    output and the adjoint forward with and without a Za stream (vtd, Qd)
+    to rtol 1e-4 / atol 1e-5; random cotangents; tracebacks of E
+    identical."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew
@@ -710,7 +724,7 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
     _poison(*qs)
     vt_k, *qs_k = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
     for got, want in zip((vt_k, *qs_k), (vt_p, *qs)):
-        _close("forward_q", got, want, errs)
+        _exact("forward_q", got, want, errs)
     del qs_k
 
     Et = torch.ones_like(vt_p)
@@ -744,13 +758,134 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         del qds_k
     del zt_s, za_s
 
-    Ed_p, EdA_p = dp_ref.adjoint_backward_q(*qs, *qds, E_p, ln, lm,
-                                            mode=mode)
-    _poison(Ed_p, EdA_p)
-    Ed_k, EdA_k = dp_cuda.adjoint_backward_q(*qs, *qds, E_p, ln, lm,
+    noise = torch.randn(E_p.shape, generator=g, device=theta.device)
+    for E in (E_p, noise):
+        Ed_p, EdA_p = dp_ref.adjoint_backward_q(*qs, *qds, E, ln, lm,
+                                                mode=mode)
+        _poison(Ed_p, EdA_p)
+        Ed_k, EdA_k = dp_cuda.adjoint_backward_q(*qs, *qds, E, ln, lm,
+                                                 mode=mode)
+        _exact("adjoint_backward_q", Ed_k, Ed_p, errs)
+        _exact("adjoint_backward_q", EdA_k, EdA_p, errs)
+
+
+class forced_cluster:
+    """Within the block the split Q kernels launch with clusters of C CTAs
+    (``dp_cuda._cluster_size`` patched; the wrapper's checks that C CTAs
+    hold the pair and that the device launches them still apply)."""
+
+    def __init__(self, C):
+        self.C = C
+
+    def __enter__(self):
+        from deepblast_torch.ops import dp_cuda
+        self.rule = dp_cuda._cluster_size
+        dp_cuda._cluster_size = lambda *args: self.C
+
+    def __exit__(self, *exc):
+        from deepblast_torch.ops import dp_cuda
+        dp_cuda._cluster_size = self.rule
+
+
+def split_problem(g, S, mode, operator):
+    """The split kernels' inputs and their plain outputs at S slots: three
+    pairs of (S - 1) x 3 (S = 1: streams of one slot, pairs of length 0),
+    lengths ragged with pair 0 full and the last pair of
+    ``max(1, (S - 1) // 50)`` rows; the adjoint backward on the backward's
+    E and on noise."""
+    from deepblast_torch.ops import dp_ref
+    from deepblast_torch.ops.skew import skew
+    B, N, M = 3, S - 1, 3
+    if N:
+        theta, A, ln, lm = edge_problem(g, B, N, M, True)
+        th_s, A_s = skew(theta), skew(A)
+    else:
+        th_s = torch.randn((B, M, 1), generator=g, device="cuda")
+        A_s = torch.randn((B, M, 1), generator=g, device="cuda") - 1.0
+        ln = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        lm = torch.full((B,), M, dtype=torch.int32, device="cuda")
+    kw = dict(mode=mode, operator=operator)
+    fwd = dp_ref.forward_q(th_s, A_s, ln, lm, **kw)
+    qs = fwd[1:]
+    E, _ = dp_ref.backward_q(*qs, ln, lm, torch.ones((B,), device="cuda"),
+                             mode=mode)
+    zt = torch.randn(th_s.shape, generator=g, device="cuda")
+    _, *qds = dp_ref.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
+    noise = torch.randn(th_s.shape, generator=g, device="cuda")
+    abwd = [(e, dp_ref.adjoint_backward_q(*qs, *qds, e, ln, lm, mode=mode))
+            for e in (E, noise)]
+    return th_s, A_s, ln, lm, fwd, qds, abwd
+
+
+def check_split(th_s, A_s, ln, lm, fwd, qds, abwd, mode, operator, C, errs):
+    """The split kernels with clusters of C CTAs (None: the wrapper's rule)
+    against the plain outputs ``fwd`` (vt, Q) and ``abwd`` ((E, (Ed, EdA))
+    pairs) bit for bit, outputs over NaN-filled memory; returns the
+    launches' splits (``dp_cuda.SPLITS``)."""
+    from contextlib import nullcontext
+    from deepblast_torch.ops import dp_cuda
+    with forced_cluster(C) if C else nullcontext():
+        _poison(*fwd[1:])
+        got = dp_cuda.forward_q(th_s, A_s, ln, lm, mode=mode,
+                                operator=operator)
+        for a, b in zip(got, fwd):
+            _exact("forward_q", a, b, errs)
+        del got
+        for e, want in abwd:
+            _poison(*want)
+            got = dp_cuda.adjoint_backward_q(*fwd[1:], *qds, e, ln, lm,
                                              mode=mode)
-    _close("adjoint_backward_q", Ed_k, Ed_p, errs)
-    _close("adjoint_backward_q", EdA_k, EdA_p, errs)
+            for a, b in zip(got, want):
+                _exact("adjoint_backward_q", a, b, errs)
+    return {k: dict(v) for k, v in dp_cuda.SPLITS.items()}
+
+
+def check_split_edges(g, errs):
+    """The split kernels at every cluster size of ``dp_cuda.Q_CLUSTERS``,
+    each forced, at ``SPLIT_EDGE_SLOTS`` (nw softmax, sw sparsemax, nw
+    hardmax in turn)."""
+    from deepblast_torch.ops import dp_cuda
+    pairs = [("nw", "softmax"), ("sw", "sparsemax"), ("nw", "hardmax")]
+    for i, S in enumerate(SPLIT_EDGE_SLOTS):
+        mode, op = pairs[i % 3]
+        prob = split_problem(g, S, mode, op)
+        for C in dp_cuda.Q_CLUSTERS:
+            if C * 1024 * dp_cuda.Q_STRIP >= S:
+                check_split(*prob, mode, op, C, errs)
+        del prob
+
+
+def check_split_limit(g, errs):
+    """The split kernels at the wrapper's own choice at their limit (S =
+    ``dp_cuda.CLUSTER_SLOTS``: one pair of 32,767 x 1, nw softmax, the
+    backward's E) bit for bit; one slot past it each refuses, naming its
+    limit and the ``pallas_long`` step's.  Returns the splits at the limit
+    and the refusals."""
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.ops.skew import skew
+    most = dp_cuda.CLUSTER_SLOTS["forward_q"]
+    x = torch.randn((1, most - 1, 1), generator=g, device="cuda")
+    th_s, A_s = skew(x), skew(x - 1.0)
+    del x
+    n = torch.tensor([most - 1], dtype=torch.int32, device="cuda")
+    m = torch.tensor([1], dtype=torch.int32, device="cuda")
+    fwd = dp_ref.forward_q(th_s, A_s, n, m)
+    qs = fwd[1:]
+    E, _ = dp_ref.backward_q(*qs, n, m, torch.ones((1,), device="cuda"))
+    zt = torch.randn(E.shape, generator=g, device="cuda")
+    _, *qds = dp_ref.adjoint_forward_q(*qs, zt, None, n, m)
+    del zt
+    abwd = [(E, dp_ref.adjoint_backward_q(*qs, *qds, E, n, m))]
+    split = check_split(th_s, A_s, n, m, fwd, qds, abwd, "nw", "softmax",
+                        None, errs)
+    del th_s, A_s, fwd, qs, qds, E, abwd
+    torch.cuda.empty_cache()
+    s = torch.zeros((1, 2, most + 1), device="cuda")
+    n = torch.tensor([most], dtype=torch.int32, device="cuda")
+    msgs = [_refuses("forward_q", lambda: dp_cuda.forward_q(s, s, n, m)),
+            _refuses("adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
+                s, s, s, s, s, s, s, n, m))]
+    return split, msgs
 
 
 # autograd outputs of check_autograd that only the forward and backward
@@ -1201,7 +1336,20 @@ def phase_long(seed, card):
     torch.cuda.synchronize()
     log("phase long: Q kernels = plain at (16, 200, 150) nw/sw x "
         "softmax/sparsemax/hardmax, tracebacks identical; autograd through "
-        f"them = plain and = CPU; max abs diff {json.dumps(errs)}")
+        f"them = plain and = CPU; max abs diff {json.dumps(errs)}; "
+        f"{split_line()}")
+    t0 = time.time()
+    check_split_edges(g, errs)
+    split, refusals = check_split_limit(g, errs)
+    torch.cuda.synchronize()
+    log(f"phase long: forward_q and adjoint_backward_q bit for bit = plain "
+        f"at every cluster size {dp_cuda.Q_CLUSTERS} (forced) at S = "
+        f"{SPLIT_EDGE_SLOTS}, and at their limit S = "
+        f"{dp_cuda.CLUSTER_SLOTS['forward_q']} ({split_line(split)}); one "
+        f"slot further they refuse: {refusals[1]} ({time.time() - t0:.1f} s)")
+    past = long_step_past(g, errs)
+    log(f"phase long: a pallas_long training step past the first Q "
+        f"adjoint backward's limit (S = 9,685): {past}")
 
     rng = np.random.default_rng(seed + 2)
     rows = [homolog_row(rng, f"s{i}", 1000, 1500, LONG_LEN) for i in range(2)]
@@ -1303,7 +1451,7 @@ def phase_long(seed, card):
         f"({len(x)}, {len(y)}) {t_align:.2f} s; score_pairs "
         f"{tuple(xt.shape)} x {yt.shape[1]} {t_score:.2f} s [{card}]; "
         f"launches {json.dumps(launches)}; of which the pallas call "
-        f"{json.dumps(pallas)}")
+        f"{json.dumps(pallas)}; last launches {split_line()}")
 
     default = default_vs_long(theta, A, lengths, seed, errs)
     refusal = refusal_past_strips()
@@ -1321,6 +1469,66 @@ def phase_long(seed, card):
     del theta, A
     torch.cuda.empty_cache()
     return launches, errs
+
+
+def split_line(splits=None):
+    """Each split Q kernel's last launch (``dp_cuda.SPLITS``): pairs,
+    slots, cluster size, threads a CTA, CTAs (the SMs busy at one CTA an
+    SM) and the clusters of that size the device holds at once."""
+    from deepblast_torch.ops import dp_cuda
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for k, v in (splits or dp_cuda.SPLITS).items():
+        if v:
+            ctas = v["B"] * v["C"]
+            out.append(f"{k} B={v['B']} S={v['S']}: C={v['C']}, "
+                       f"{v['threads']} threads, {ctas} CTAs ("
+                       f"{min(ctas, sms)} of {sms} SMs at one CTA an SM), "
+                       f"{v['clusters']} clusters at once")
+    return "; ".join(out)
+
+
+def long_step_past(g, errs):
+    """One ``pallas_long`` training step (``expected_alignment`` and the
+    gradient of <E, Z> for a random Z) on a pair of 9,800 x 40 (S = 9,801,
+    past the 9,685 slots the first Q adjoint backward held) through the
+    kernels, against the same step through the plain passes on the card:
+    E and both gradients bit for bit."""
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    N, M = 9800, 40
+    theta, A, _, _ = dp_problem(g, 1, N, M, ragged=False)
+    Z = torch.randn(theta.shape, generator=g, device="cuda")
+    lens = (torch.tensor([N], dtype=torch.int32, device="cuda"),
+            torch.tensor([M], dtype=torch.int32, device="cuda"))
+
+    def step():
+        t = theta.clone().requires_grad_()
+        a = A.clone().requires_grad_()
+        E = dp_ops.expected_alignment(t, a, lens, backend="pallas_long")
+        (E * Z).sum().backward()
+        return E.detach(), t.grad, a.grad
+
+    t0 = time.time()
+    before = dict(dp_cuda.LAUNCHES)
+    kern = step()
+    torch.cuda.synchronize()
+    t_kern = time.time() - t0
+    ran = {k: dp_cuda.LAUNCHES[k] - before[k] for k in Q_KERNELS}
+    line = split_line()
+    passes = dp_ops._passes
+    dp_ops._passes = lambda t: dp_ref
+    try:
+        plain = step()
+    finally:
+        dp_ops._passes = passes
+    for name, a, b in zip(("E", "dtheta", "dA"), kern, plain):
+        _exact("pallas_long_step", a, b, errs)
+    if any(v == 0 for v in ran.values()):
+        raise AssertionError(f"the step past S = 9,685 skipped a Q kernel: "
+                             f"{ran}")
+    return (f"(1, {N}, {M}) E, dtheta, dA = the plain passes' bit for bit, "
+            f"{t_kern:.2f} s; Q launches {json.dumps(ran)}; {line}")
 
 
 def default_vs_long(theta, A, lengths, seed, errs):
@@ -1447,6 +1655,7 @@ def long_times(seed, card):
     peak = torch.cuda.max_memory_allocated()
     for k, v in ms.items():
         log(f"phase long: {k} at ({B}, {N}, {N}) {v:.4f} ms [{card}]")
+    log(f"phase long: at ({B}, {N}, {N}) {split_line()}")
     log(f"phase long: expected_alignment pallas_long at ({B}, {N}, {N}) nw "
         f"softmax fp32 (skew x2 + forward_q + backward_q + unskew): "
         f"{decode_ms:.4f} ms = {B / decode_ms * 1e3:.2f} alignments/s; "
@@ -1731,6 +1940,9 @@ def kernel_report(so):
 def cells_per_body(instance):
     """Cells one copy of an instance's code computes: T x D for a strip
     kernel (T its last template argument), else 1."""
+    if instance.startswith(SPLIT_KERNELS):
+        cluster = instance.endswith("true>")
+        return 2 * (2 if instance.startswith("forward") or cluster else 1)
     if instance.startswith(STRIP_KERNELS):
         T = int(instance.rsplit(",", 1)[1].rstrip("> "))
         ring = ABWD_RING if instance.startswith("adjoint_backward") else \
@@ -1959,6 +2171,9 @@ def log_registers(report):
     for name, r in report.items():
         if name.startswith(STRIP_KERNELS):
             key = f"{name.split('<')[0]} T={name.rsplit(',', 1)[1][:-1].strip()}"
+        elif name.startswith(SPLIT_KERNELS):
+            key = (f"{name.split('<')[0]} "
+                   f"{'cluster' if name.endswith('true>') else 'one CTA'}")
         elif name.startswith(("skew", "unskew")):
             key = name.split("<")[0]
         else:

@@ -107,26 +107,23 @@
 // accesses of natural row segments along the columns; the unskew reads
 // only the stream's cells).
 //
-// The Q-stream kernels (first version): one CTA per pair walks all K
-// diagonals in one launch; threads run along the slot axis (coalesced
-// loads and stores of each diagonal row), and the rolling DP rows live in
-// shared memory with one __syncthreads() per diagonal, so the only
-// device-memory traffic is each stream read once and each output written
-// once.  Every output slot is written (zeros, or finite values outside the
-// valid band), so no uninitialised memory can reach a Q * E or Qd * E
-// product (0 * NaN).  The rows a pair keeps in shared memory bound its
-// length.
-//
 // The Q-stream kernels keep few rows by moving a stream more: the
 // forward stores the three soft-argmax streams Q (and the adjoint forward
 // the three Qd), and the reverse passes read Q[r+1], Q[r+2] straight from
-// device memory instead of carrying recomputed Q rows in shared memory.
-// Only the value-like rows stay there: 3 x S floats in the forward, the
-// backward and the adjoint forward, 6 x S (Ed and E) in the adjoint
-// backward, so one CTA holds a pair up to S ~ 9,600 slots.  Per cell they
-// move forward 2 in / 3 out, backward 3 in / 1 or 2 out, adjoint forward
-// 4-5 in / 3 out, adjoint backward 7 in / 2 out: the same byte bound
-// regime, with one more stream per pass than the default kernels.
+// device memory instead of recomputing Q.  Per cell they move forward 2
+// in / 3 out, backward 3 in / 1 or 2 out, adjoint forward 4-5 in / 3 out,
+// adjoint backward 7 in / 2 out: the same byte bound regime, with one more
+// stream per pass than the default kernels.  Every output slot is written
+// (zeros, or finite values outside the valid band), so no uninitialised
+// memory can reach a Q * E or Qd * E product (0 * NaN).
+//  * forward_q_kernel and adjoint_backward_q_kernel split each pair
+//    across the CTAs of a thread-block cluster, rows in registers (the
+//    note before forward_q_kernel): a pair holds S <= 32,768 slots.
+//  * backward_q_kernel and adjoint_forward_q_kernel (first versions): one
+//    CTA per pair walks all K diagonals, threads along the slot axis
+//    (coalesced loads and stores of each diagonal row), the rolling rows
+//    (3 x S floats) in shared memory with one __syncthreads() per
+//    diagonal, so a pair holds S <= 19,370 slots on an H100.
 //
 // Storage menu (deepblast_torch/ops/menu.py; deepblast_tpu/ops/dp_bm.py
 // DTypeMenu): the streams of the default kernels and the relayouts are
@@ -149,7 +146,8 @@
 //        the five DP_PART objects in parallel and links them)
 // No fast math (the traceback compares E values exactly), and no FMA
 // contraction, so each cell rounds as the plain PyTorch version does.
-// Each C entry returns cudaGetLastError() of its launch.
+// Each C entry returns cudaGetLastError() of its launch (the split Q
+// kernels' entries the error of cudaLaunchKernelEx, or that).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -998,49 +996,209 @@ __global__ void __launch_bounds__(1024)
 // Q-stream kernels (the pallas / pallas_long backends)
 // ---------------------------------------------------------------------------
 
-// One CTA per pair, diagonals ascending, V rows r-1, r-2, r in shared
-// memory (3 x S).  The direct form of _fwd_kernel (dp_pallas.py:197-217):
-// (val, Q) = max3(A + shr(V[r-1]), shr(V[r-2]), A + V[r-1]),
-// V[r] = theta + val, masked.  Q is written for every slot (unmasked, as
-// MASK_Q = False there; finite, since V is zero outside the band).
-template <int OP>
-__global__ void forward_q_kernel(const float *__restrict__ th,
-                                 const float *__restrict__ ad,
-                                 const int *__restrict__ ln,
-                                 const int *__restrict__ lm, int K, int S,
-                                 int lo, float *__restrict__ vt,
-                                 float *__restrict__ qxo,
-                                 float *__restrict__ qmo,
-                                 float *__restrict__ qyo) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// The split Q kernels (forward_q_kernel and adjoint_backward_q_kernel): a
+// pair's slots split across the C CTAs of a thread-block cluster, the DP
+// rows in registers.  What bounds them on the H100: on paper bytes (the
+// forward moves 2 streams in and 3 out, the adjoint backward 7 in and 2
+// out), in practice the chain of K dependent diagonals of a pair: each
+// diagonal costs one barrier and one dependent max3 (or product) chain,
+// so the design spreads a pair over SMs and keeps the chain short (at 8
+// x 4096 x 4096 a diagonal takes ~1.3 us, about a third of it the
+// cluster barrier, the rest the strip's two dependent slots; PERF.md).
+// Where the first versions lost their time: one CTA walked all K
+// diagonals of a pair, so at the long path's B = 2-8 pairs 124-130 of
+// 132 SMs sat idle and each diagonal (up to 4,097 smoothed maxima) was
+// issued by one SM, from rows in shared memory behind one
+// __syncthreads() a diagonal, its loads not issued ahead.
+//  * B clusters of C CTAs (C = 1, 2, 4, 8 or 16, chosen by ops/dp_cuda.py
+//    _cluster_size: about 132 / B, and at least enough CTAs for the pair's
+//    slots), launched with cudaLaunchKernelEx and a cluster dimension.  CTA
+//    c of a cluster owns the contiguous slots [c Sc, (c+1) Sc) of every
+//    diagonal, Sc = T x its threads (q_threads: whole warps); its thread
+//    t the T = Q_STRIP slots from s0 = c Sc + t T, in registers, as in the
+//    strip kernels.  CTAs whose slots lie past S (or a ragged pair's n)
+//    compute zeros but take every barrier.
+//  * The dependence between CTAs is one slot a diagonal: the forward's
+//    cell 0 needs V[r-1] and V[r-2] at s0-1, from the CTA on the left; the
+//    adjoint backward's last cell needs X[r+1] and M[r+2] at s0+T, from
+//    the CTA on the right.  The producing thread stores its edge value
+//    into the neighbour's shared memory (mapa + st.shared::cluster, a
+//    distributed shared-memory store); inside a CTA it comes by shuffle
+//    in a warp and through `edge` between warps.
+//  * One split cluster barrier a diagonal.  A thread computes its T-1
+//    slots that need no neighbour first, stores its edge value, waits
+//    (barrier.cluster.wait.acquire) for the barrier of the diagonal before,
+//    reads its neighbour's edge, computes its last slot and arrives
+//    (barrier.cluster.arrive.release); the wait overlaps the other slots.
+//    Since a thread stores the edge of r before it waits on the barrier of
+//    r-1, a neighbour may still be reading the edge of r-2: the edge rings
+//    are Q_EDGE_RING = 3 diagonals deep (a thread has passed the barrier of
+//    r-2, so every reader has read r-3, whose slot it overwrites).  With
+//    one CTA a pair (C = 1) the same schedule runs on the block's named
+//    barrier at the wait (the kCluster = false instances).
+//  * Lifetime: a cluster barrier before the walk (every CTA of the cluster
+//    is running before its shared memory is stored into) and a wait on the
+//    last diagonal's barrier after it (no CTA exits while a neighbour may
+//    still store into it).  Every thread of every CTA arrives at every
+//    barrier, so a CTA of padding cannot deadlock the cluster.
+//  * Co-scheduling: a cluster of 16 CTAs needs the non-portable cluster
+//    size and free SMs in one GPC; the wrapper asks
+//    cudaOccupancyMaxActiveClusters for the size it picks and walks down to
+//    a smaller one (never below what the pair needs) or raises.
+//  * No 16-byte copies: (B, K, S) rows are not 16-byte aligned at odd S, so
+//    the input rows of the next diagonals are in flight in a register ring,
+//    as in the strip kernels.
+// A pair holds S <= 32,768 slots: 16 CTAs of 1,024 threads of strips of
+// 2 (ops/dp_cuda.py CLUSTER_SLOTS).
+constexpr int Q_STRIP = 2, Q_EDGE_RING = 3;
+// Input rows in flight (the register ring): the forward 2 (its two input
+// rows a diagonal; a ring of 4 spilled and was 6% slower at the bench
+// shape), the adjoint backward (seven a diagonal) 2 in a cluster, 1 with
+// one CTA a pair (64 registers and spills at 2, and 27% slower at the
+// bench shape; in clusters 2 is 2% faster; PERF.md).
+constexpr int Q_FWD_RING = 2;
+__host__ __device__ constexpr int q_abwd_ring(bool cluster) {
+  return cluster ? 2 : 1;
+}
+
+// Cluster primitives (PTX, sm_90).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the shared::cluster address of `p`, a shared variable of this CTA, in
+// the CTA of rank `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void *p, int rank) {
+  uint32_t out, a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(a), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void cluster_store(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+// The split Q kernels' wait: the cluster barrier's, or, one CTA a pair, the
+// block's named barrier (whose arrive is part of it).
+template <bool kCluster>
+__device__ __forceinline__ void q_wait() {
+  if (kCluster)
+    cluster_wait();
+  else
+    pair_barrier();
+}
+template <bool kCluster>
+__device__ __forceinline__ void q_arrive() {
+  if (kCluster) cluster_arrive();
+}
+
+// Forward, diagonals ascending: the direct form of _fwd_kernel
+// (dp_pallas.py:197-217), (val, Q) = max3(A + shr(V[r-1]), shr(V[r-2]),
+// A + V[r-1]), V[r] = theta + val masked.  Registers: V rows r-1 and r-2 of
+// the strip (v1, v2) and, at its left edge, slot s0-1 of both (l1, l2).
+// Q is written at every slot (dp_pallas.py MASK_Q = False, :68, :208):
+// the reverse passes multiply Q by E and Ed wherever those are non-zero,
+// and off-band slots next to the band see non-zero V neighbours, so Q
+// there is no function of A alone -- the strip kernels' "smoothed max on
+// the band only" does not carry over, and every slot of every diagonal
+// runs max3 (the gain comes from the SMs the split puts to work, the rows
+// in registers and the lighter barrier).  A is loaded at every slot,
+// theta only where the cell is valid (V is masked there), D rows ahead.
+template <int OP, bool kCluster>
+__global__ void __launch_bounds__(1024)
+    forward_q_kernel(const float *__restrict__ th,
+                     const float *__restrict__ ad,
+                     const int *__restrict__ ln, const int *__restrict__ lm,
+                     int K, int S, int lo, int C, float *__restrict__ vt,
+                     float *__restrict__ qxo, float *__restrict__ qmo,
+                     float *__restrict__ qyo) {
+  // slot 0 of a strip waits for the barrier, the others do not
+  constexpr int T = Q_STRIP, D = Q_FWD_RING, R = Q_EDGE_RING;
+  __shared__ float edge[R][32];  // lane 31 of warp w, for warp w+1
+  __shared__ float xedge[R];     // the left CTA's last slot, stored by it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x % C, b = blockIdx.x / C;
+  const int s0 = (c * (int)blockDim.x + (int)threadIdx.x) * T;
+  const bool last = threadIdx.x + 1 == blockDim.x;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = 0; r < K; ++r) {
-    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
-    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
-    float *vn = smem + (r % 3) * S;              // row r
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float a = ad[row + s];
-      float v1s = v1[s];
-      float v1l = s > 0 ? v1[s - 1] : 0.0f;
-      float v2l = s > 0 ? v2[s - 1] : 0.0f;
-      float px, pm, py;
-      float val = max3<OP>(a + v1l, v2l, a + v1s, px, pm, py);
-      qxo[row + s] = px;
-      qmo[row + s] = pm;
-      qyo[row + s] = py;
-      float v = th[row + s] + val;
-      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
-      if (s == n && k == n + m) vt[b] = v;
-      vn[s] = v;
-    }
-    __syncthreads();
+  const uint32_t right =
+      kCluster && c + 1 < C ? cluster_map(&xedge[0], c + 1) : 0u;
+  float v1[T], v2[T], l1 = 0.0f, l2 = 0.0f, up = 0.0f;
+  float pa[D][T], pt[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) v1[i] = v2[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const size_t at = base + (size_t)q * S + s;
+    pa[d][i] = q < K && s < S ? ad[at] : 0.0f;
+    pt[d][i] = q < K && cell_valid(s, q + 2, n, m, lo) ? th[at] : 0.0f;
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, d, i);
+  if (kCluster) {
+    cluster_arrive();
+    cluster_wait();
   }
+
+  for (int r0 = 0; r0 < K; r0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 + d;
+      if (r >= K) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float vn[T];
+      // slot s0+i of row r, its left neighbours V[r-1], V[r-2] at s0+i-1
+      auto cell = [&](int i, float v1l, float v2l) {
+        const int s = s0 + i;
+        const float a = pa[d][i], t = pt[d][i];
+        fetch(d, r + D, i);
+        float px, pm, py;
+        const float val = max3<OP>(a + v1l, v2l, a + v1[i], px, pm, py);
+        if (s < S) {
+          qxo[row + s] = px;
+          qmo[row + s] = pm;
+          qyo[row + s] = py;
+        }
+        const float v = cell_valid(s, k, n, m, lo) ? t + val : 0.0f;
+        if (s == n && k == n + m) vt[b] = v;
+        vn[i] = v;
+      };
+#pragma unroll
+      for (int i = T - 1; i >= 1; --i) cell(i, v1[i - 1], v2[i - 1]);
+      // V[r][s0+T-1] to the right: by shuffle, to the next warp, to the
+      // next CTA
+      const float nup = __shfl_up_sync(0xffffffffu, vn[T - 1], 1);
+      if (lane == 31) edge[r % R][warp] = vn[T - 1];
+      if (kCluster && last && c + 1 < C)
+        cluster_store(right + (uint32_t)(r % R) * 4u, vn[T - 1]);
+      if (r > 0) {
+        q_wait<kCluster>();
+        // V[r-1][s0-1]
+        l1 = lane ? up
+                  : (warp ? edge[(r - 1) % R][warp - 1]
+                          : (kCluster && c ? xedge[(r - 1) % R] : 0.0f));
+      }
+      cell(0, l1, l2);
+      q_arrive<kCluster>();
+      up = nup;
+      l2 = l1;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        v2[i] = v1[i];
+        v1[i] = vn[i];
+      }
+    }
+  }
+  if (kCluster) cluster_wait();
 }
 
 // One CTA per pair, rows descending, E rows r+2, r+1, r in shared memory
@@ -1143,56 +1301,171 @@ __global__ void adjoint_forward_q_kernel(
   }
 }
 
-// Tangent of the Q backward: one CTA per pair, rows descending, Ed and E
-// rows r+2, r+1, r in shared memory (6 x S); Q and Qd of rows r+1 and r+2
-// read from the streams (zero past the last row).  _adj_bwd_kernel's order
+// Tangent of the Q backward, rows descending: _adj_bwd_kernel's order
 // (dp_pallas.py:510-533) and _adjoint_backward_v2's fused
-// EdA = Ed (Qx + Qy) + E (Qdx + Qdy) (:603-609).
-__global__ void adjoint_backward_q_kernel(
-    const float *__restrict__ qx, const float *__restrict__ qm,
-    const float *__restrict__ qy, const float *__restrict__ qdx,
-    const float *__restrict__ qdm, const float *__restrict__ qdy,
-    const float *__restrict__ E, const int *__restrict__ ln,
-    const int *__restrict__ lm, int K, int S, int lo,
-    float *__restrict__ edo, float *__restrict__ edao) {
-  extern __shared__ float smem[];
-  float *ED = smem;
-  float *EE = smem + 3 * S;
-  const int b = blockIdx.x;
+// EdA = Ed (Qx + Qy) + E (Qdx + Qdy) (:603-609), split across the cluster
+// like the forward.  It reads Q and Qd and recomputes nothing.  The first
+// version kept three rows of Ed and three of the given E in shared memory
+// and read each Q/Qd row up to three times (as row r, r+1 and r+2); here
+// E, Q and Qd are each read once, D rows ahead, and the products of rows
+// r+1 and r+2 that the plain version sums are carried in registers:
+//   Ed[r] = shl(X[r+1]) + shl(M[r+2]) + Yd[r+1] + Yq[r+1]
+// with X = Qdx E + Qx Ed, M = Qdm E + Qm Ed, Yd = Qdy E and Yq = Qy Ed
+// (x1, m1, m2, yd1, yq1; Yd and Yq stay two values, as the plain sum
+// rounds them apart), and at the strip's right edge slot s0+T of X[r+1]
+// and M[r+2] (rx, rmb), from the right lane by shuffle, the right warp
+// through `edge`, or the right CTA, which stores them into `xedge`.  Ed
+// is masked to the band; E may be non-zero anywhere (the terminal slot
+// of sw with n = 1 or m = 1 lies off the band, and a caller may pass any
+// E), so EdA is kept at every slot and the products wherever E or Ed is
+// non-zero: E is loaded at every slot, Q and Qd on the band ahead of the
+// chain and off it only where E is non-zero, on the spot.  Where both are
+// zero the kernel stores EdA = 0 and carries zero products without
+// reading Q or Qd; the plain version forms 0 * (Qx + Qy) + 0 * (Qdx +
+// Qdy), a zero that may be -0.0, which compares equal (torch.equal,
+// chip_smoke._exact).  Every row is walked: E may be non-zero past the
+// terminal diagonal.
+template <bool kCluster>
+__global__ void __launch_bounds__(1024)
+    adjoint_backward_q_kernel(const float *__restrict__ qx,
+                              const float *__restrict__ qm,
+                              const float *__restrict__ qy,
+                              const float *__restrict__ qdx,
+                              const float *__restrict__ qdm,
+                              const float *__restrict__ qdy,
+                              const float *__restrict__ E,
+                              const int *__restrict__ ln,
+                              const int *__restrict__ lm, int K, int S,
+                              int lo, int C, float *__restrict__ edo,
+                              float *__restrict__ edao) {
+  // the last slot of a strip waits for the barrier, the others do not
+  constexpr int T = Q_STRIP, D = q_abwd_ring(kCluster), R = Q_EDGE_RING;
+  __shared__ float edge[R][2][32];  // X, M of lane 0 of warp w, for w-1
+  __shared__ float xedge[R][2];     // the right CTA's first slot, stored by it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int c = blockIdx.x % C, b = blockIdx.x / C;
+  const int s0 = (c * (int)blockDim.x + (int)threadIdx.x) * T;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 6 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = K - 1; r >= 0; --r) {
-    const int i1 = (r + 1) % 3, i2 = (r + 2) % 3, i0 = r % 3;
-    const float *ed1 = ED + i1 * S, *ed2 = ED + i2 * S;
-    const float *e1 = EE + i1 * S, *e2 = EE + i2 * S;
-    float *edn = ED + i0 * S, *en = EE + i0 * S;
-    const bool has1 = r + 1 < K, has2 = r + 2 < K;
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    const size_t row1 = row + S, row2 = row + 2 * (size_t)S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float t1 = 0.0f, t2 = 0.0f, qdy1 = 0.0f, qy1 = 0.0f;
-      if (has1) {
-        if (s + 1 < S)
-          t1 = qdx[row1 + s + 1] * e1[s + 1] + qx[row1 + s + 1] * ed1[s + 1];
-        qdy1 = qdy[row1 + s];
-        qy1 = qy[row1 + s];
-      }
-      if (has2 && s + 1 < S)
-        t2 = qdm[row2 + s + 1] * e2[s + 1] + qm[row2 + s + 1] * ed2[s + 1];
-      float ed = t1 + t2 + qdy1 * e1[s] + qy1 * ed1[s];
-      ed = cell_valid(s, k, n, m, lo) ? ed : 0.0f;
-      edo[row + s] = ed;
-      edn[s] = ed;
-      float e = E[row + s];
-      en[s] = e;
-      edao[row + s] = ed * (qx[row + s] + qy[row + s]) +
-                      e * (qdx[row + s] + qdy[row + s]);
-    }
-    __syncthreads();
+  const uint32_t left =
+      kCluster && c > 0 ? cluster_map(&xedge[0][0], c - 1) : 0u;
+  float x1[T], m1[T], m2[T], yd1[T], yq1[T];
+  float rx = 0.0f, rma = 0.0f, rmb = 0.0f, dx = 0.0f, dm = 0.0f;
+  float pe[D][T], px_[D][T], pm_[D][T], py_[D][T], hx_[D][T], hm_[D][T],
+      hy_[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) x1[i] = m1[i] = m2[i] = yd1[i] = yq1[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d: E at every
+  // slot, Q and Qd on the band
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q >= 0 && in_band(s, q + 2, n, m, lo);
+    const size_t at = base + (size_t)q * S + s;
+    pe[d][i] = q >= 0 && s < S ? E[at] : 0.0f;
+    px_[d][i] = band ? qx[at] : 0.0f;
+    pm_[d][i] = band ? qm[at] : 0.0f;
+    py_[d][i] = band ? qy[at] : 0.0f;
+    hx_[d][i] = band ? qdx[at] : 0.0f;
+    hm_[d][i] = band ? qdm[at] : 0.0f;
+    hy_[d][i] = band ? qdy[at] : 0.0f;
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, K - 1 - d, i);
+  if (kCluster) {
+    cluster_arrive();
+    cluster_wait();
   }
+
+  for (int r0 = K - 1; r0 >= 0; r0 -= D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 - d;
+      if (r < 0) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float xn[T], mn[T];
+      // slot s0+i of row r, its right neighbours X[r+1], M[r+2] at s0+i+1
+      auto cell = [&](int i, float xr, float mr) {
+        const int s = s0 + i;
+        const float e = pe[d][i];
+        float ax = px_[d][i], am = pm_[d][i], ay = py_[d][i];
+        float hx = hx_[d][i], hm = hm_[d][i], hy = hy_[d][i];
+        fetch(d, r - D, i);
+        const bool band = in_band(s, k, n, m, lo);
+        const float ed = band ? xr + mr + yd1[i] + yq1[i] : 0.0f;
+        float x = 0.0f, mm = 0.0f, yd = 0.0f, yq = 0.0f, eda = 0.0f;
+        if (band || e != 0.0f) {
+          if (!band) {
+            const size_t at = row + s;
+            ax = qx[at];
+            am = qm[at];
+            ay = qy[at];
+            hx = qdx[at];
+            hm = qdm[at];
+            hy = qdy[at];
+          }
+          x = hx * e + ax * ed;
+          mm = hm * e + am * ed;
+          yd = hy * e;
+          yq = ay * ed;
+          eda = ed * (ax + ay) + e * (hx + hy);
+        }
+        if (s < S) {
+          edo[row + s] = ed;
+          edao[row + s] = eda;
+        }
+        xn[i] = x;
+        mn[i] = mm;
+        yd1[i] = yd;
+        yq1[i] = yq;
+      };
+#pragma unroll
+      for (int i = 0; i + 1 < T; ++i) cell(i, x1[i + 1], m2[i + 1]);
+      // X[r], M[r] at s0 to the left: by shuffle, to the previous warp, to
+      // the previous CTA
+      const float ndx = __shfl_down_sync(0xffffffffu, xn[0], 1);
+      const float ndm = __shfl_down_sync(0xffffffffu, mn[0], 1);
+      if (lane == 0) {
+        edge[r % R][0][warp] = xn[0];
+        edge[r % R][1][warp] = mn[0];
+      }
+      if (kCluster && threadIdx.x == 0 && c > 0) {
+        cluster_store(left + (uint32_t)(r % R) * 8u, xn[0]);
+        cluster_store(left + (uint32_t)(r % R) * 8u + 4u, mn[0]);
+      }
+      rmb = rma;  // M[r+2] at s0+T
+      if (r + 1 < K) {
+        q_wait<kCluster>();
+        // X[r+1], M[r+1] at s0+T (0 past the last slot)
+        if (lane < 31) {
+          rx = dx;
+          rma = dm;
+        } else if (warp + 1 < nwarps) {
+          rx = edge[(r + 1) % R][0][warp + 1];
+          rma = edge[(r + 1) % R][1][warp + 1];
+        } else {
+          const bool next = kCluster && c + 1 < C;
+          rx = next ? xedge[(r + 1) % R][0] : 0.0f;
+          rma = next ? xedge[(r + 1) % R][1] : 0.0f;
+        }
+      }
+      cell(T - 1, rx, rmb);
+      q_arrive<kCluster>();
+      dx = ndx;
+      dm = ndm;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        x1[i] = xn[i];
+        m2[i] = m1[i];
+        m1[i] = mn[i];
+      }
+    }
+  }
+  if (kCluster) cluster_wait();
 }
 
 int threads_for(int S) {
@@ -1200,7 +1473,8 @@ int threads_for(int S) {
   return t > 1024 ? 1024 : t;
 }
 
-// The Q-stream kernels' launch: one CTA per pair, threads along the slots,
+// The launch of the Q kernels not yet split (backward_q_kernel,
+// adjoint_forward_q_kernel): one CTA per pair, threads along the slots,
 // `rows` rolling rows of S floats in dynamic shared memory; opts in to more
 // than the default 48 KB when the rows need it.  ops/dp_cuda.py SMEM_ROWS
 // holds the same row counts and refuses, before the launch, a pair whose
@@ -1229,6 +1503,82 @@ cudaError_t launch_strip(Kern kern, int T, int B, int S, cudaStream_t st,
   int threads = ((S + T - 1) / T + 31) / 32 * 32;
   kern<<<B, threads, 0, st>>>(args...);
   return cudaGetLastError();
+}
+
+// Threads a CTA of the split Q kernels: the pair's S slots over C CTAs of
+// strips of Q_STRIP, rounded up to whole warps (ops/dp_cuda.py
+// _q_threads).
+int q_threads(int S, int C) {
+  const int per = C * Q_STRIP * 32;
+  return (S + per - 1) / per * 32;
+}
+
+// The split Q kernels' launch: B clusters of C CTAs, one cluster a pair
+// (consecutive blockIdx.x, so CTA c of pair b is b C + c and its rank in
+// the cluster is c), through cudaLaunchKernelEx with a cluster dimension
+// attribute; C > 8 needs the non-portable cluster size.  C = 1 launches
+// the kCluster = false instance without the attribute.
+template <typename... P>
+cudaLaunchConfig_t q_config(void (*kern)(P...), int C, int B, int S,
+                            cudaStream_t st, cudaLaunchAttribute *attr,
+                            cudaError_t *err) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)C);
+  cfg.blockDim = dim3((unsigned)q_threads(S, C));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  *err = C > 8 ? cudaFuncSetAttribute(
+                     kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+               : cudaSuccess;
+  return cfg;
+}
+
+template <typename... P, typename... A>
+cudaError_t launch_cluster(void (*kern)(P...), int C, int B, int S,
+                           cudaStream_t st, A... args) {
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  cudaLaunchConfig_t cfg = q_config(kern, C, B, S, st, attr, &err);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of C CTAs of `kern` the device can hold at once (the
+// blocks a multiprocessor holds x the multiprocessors, for C = 1); 0 means
+// a launch of that size would fail.  A negative value is a CUDA error.
+template <typename... P>
+int max_clusters(void (*kern)(P...), int C, int S) {
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  cudaLaunchConfig_t cfg = q_config(kern, C, 1, S, 0, attr, &err);
+  int n = 0;
+  if (err == cudaSuccess) {
+    if (C > 1) {
+      err = cudaOccupancyMaxActiveClusters(&n, (const void *)kern, &cfg);
+    } else {
+      int dev = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kern, (int)cfg.blockDim.x, 0);
+      if (err == cudaSuccess) err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      n *= sms;
+    }
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
 }
 
 // CTAs of the skew: one per tile of each pair (0 when there is no slot)
@@ -1320,10 +1670,23 @@ unsigned unskew_tiles(int B, int N, int M) {
   DP_STRIP_CASE(S, 6, T, __VA_ARGS__)              \
   return (int)cudaErrorInvalidValue;
 
+// The split Q kernels' instance for cluster size C: KCL, a cluster launch,
+// for C > 1; C is 1..16.
+#define DP_SWITCH_Q_CLUSTER(C, KCL, ...)           \
+  if ((C) < 1 || (C) > 16)                         \
+    return (int)cudaErrorInvalidValue;             \
+  if ((C) == 1) {                                  \
+    constexpr bool KCL = false;                    \
+    __VA_ARGS__;                                   \
+  } else {                                         \
+    constexpr bool KCL = true;                     \
+    __VA_ARGS__;                                   \
+  }
+
 // DP_PART selects the entries of one object when the library is built by
 // several nvcc processes at once (ops/dp_cuda.py build): 1 the forward, 2
-// the backward, 3 the adjoint backward, 4 the adjoint forward, 0 the rest;
-// without it every entry is compiled.
+// the backward, 3 the adjoint backward, 4 the adjoint forward, 5 the split
+// Q kernels, 0 the rest; without it every entry is compiled.
 #ifndef DP_PART
 #define DP_PART_IS(p) 1
 #else
@@ -1500,16 +1863,6 @@ int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
 #endif
 
 #if DP_PART_IS(0)
-int dp_forward_q(const float *th, const float *ad, const int *ln,
-                 const int *lm, int B, int K, int S, int lo, int op,
-                 float *vt, float *qxo, float *qmo, float *qyo,
-                 void *stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(return (int)launch_rows(forward_q_kernel<OP>, 3, B, S, st, th,
-                                       ad, ln, lm, K, S, lo, vt, qxo, qmo,
-                                       qyo))
-}
-
 // eao == nullptr: E only; else also EA = E (Qx + Qy).
 int dp_backward_q(const float *qx, const float *qm, const float *qy,
                   const int *ln, const int *lm, const float *et, int B, int K,
@@ -1538,16 +1891,6 @@ int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
                        vtd, qdxo, qdmo, qdyo)))
 }
 
-int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,
-                          const float *qdx, const float *qdm,
-                          const float *qdy, const float *E, const int *ln,
-                          const int *lm, int B, int K, int S, int lo,
-                          float *edo, float *edao, void *stream) {
-  return (int)launch_rows(adjoint_backward_q_kernel, 6, B, S,
-                          (cudaStream_t)stream, qx, qm, qy, qdx, qdm, qdy, E,
-                          ln, lm, K, S, lo, edo, edao);
-}
-
 // The most dynamic shared memory a block of `device` may opt in to, in
 // bytes, or -1 if the query fails.
 int dp_max_smem(int device) {
@@ -1556,6 +1899,50 @@ int dp_max_smem(int device) {
                              device) != cudaSuccess)
     return -1;
   return v;
+}
+
+#endif
+
+#if DP_PART_IS(5)
+// The split Q kernels: B clusters of C CTAs (C in 1..16, chosen by
+// ops/dp_cuda.py).
+int dp_forward_q(const float *th, const float *ad, const int *ln,
+                 const int *lm, int B, int K, int S, int lo, int op, int C,
+                 float *vt, float *qxo, float *qmo, float *qyo,
+                 void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || K <= 0) return (int)cudaSuccess;
+  DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+      C, KCL,
+      return (int)launch_cluster(forward_q_kernel<OP, KCL>, C, B, S, st, th,
+                                 ad, ln, lm, K, S, lo, C, vt, qxo, qmo,
+                                 qyo)))
+}
+
+int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,
+                          const float *qdx, const float *qdm,
+                          const float *qdy, const float *E, const int *ln,
+                          const int *lm, int B, int K, int S, int lo, int C,
+                          float *edo, float *edao, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || K <= 0) return (int)cudaSuccess;
+  DP_SWITCH_Q_CLUSTER(
+      C, KCL,
+      return (int)launch_cluster(adjoint_backward_q_kernel<KCL>, C, B, S, st,
+                                 qx, qm, qy, qdx, qdm, qdy, E, ln, lm, K, S,
+                                 lo, C, edo, edao))
+}
+
+// How many clusters of C CTAs the device holds at once for a pair of S
+// slots: `kernel` 0 forward_q (operator `op`), 1 adjoint_backward_q.  0: a
+// launch of that size would fail; negative: a CUDA error.
+int dp_q_clusters(int kernel, int op, int S, int C) {
+  if (kernel == 0) {
+    DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+        C, KCL, return max_clusters(forward_q_kernel<OP, KCL>, C, S)))
+  }
+  DP_SWITCH_Q_CLUSTER(
+      C, KCL, return max_clusters(adjoint_backward_q_kernel<KCL>, C, S))
 }
 
 #endif

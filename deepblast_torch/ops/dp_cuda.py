@@ -49,8 +49,11 @@ launches on PyTorch's current stream, raises if the launch reports an
 error, and adds one to its entry in :data:`LAUNCHES`.  The default
 backend's DP kernels (the forward, the score-only forward, the backward
 and the two adjoint passes) keep a pair's rows in the registers of at
-most 1,024 threads (:data:`MAX_SLOTS`), the Q-stream kernels
-:data:`SMEM_ROWS` rows of S floats in shared memory; a pair padded past
+most 1,024 threads (:data:`MAX_SLOTS`); the split Q kernels
+(:func:`forward_q`, :func:`adjoint_backward_q`) in the registers of a
+thread-block cluster of up to 16 CTAs a pair (:data:`CLUSTER_SLOTS`; the
+cluster size is :func:`_cluster_size`'s rule); the other two Q kernels
+:data:`SMEM_ROWS` rows of S floats in shared memory.  A pair padded past
 what the kernel holds on the device raises a ``ValueError`` naming the
 limit before anything is launched.  The plain versions with the same
 signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
@@ -70,11 +73,11 @@ import torch
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.menu import E_SCALE, I16_MAX, as_menu
 
-__all__ = ["LAUNCHES", "SMEM_ROWS", "MAX_SLOTS", "reset_launches", "build",
-           "max_smem", "skew", "skew_pair", "unskew", "forward", "forward_score",
-           "backward",
-           "adjoint_forward", "adjoint_backward", "forward_q", "backward_q",
-           "adjoint_forward_q", "adjoint_backward_q"]
+__all__ = ["LAUNCHES", "SPLITS", "SMEM_ROWS", "MAX_SLOTS", "CLUSTER_SLOTS",
+           "Q_CLUSTERS", "Q_STRIP", "reset_launches", "build", "max_smem",
+           "skew", "skew_pair", "unskew", "forward", "forward_score",
+           "backward", "adjoint_forward", "adjoint_backward", "forward_q",
+           "backward_q", "adjoint_forward_q", "adjoint_backward_q"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
@@ -83,9 +86,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: the source's DP_PART objects (1 the forward, 2 the backward, 3 the
-#: adjoint backward, 4 the adjoint forward, 0 the rest), compiled by one
-#: nvcc each, all at once, then linked
-PARTS = 5
+#: adjoint backward, 4 the adjoint forward, 5 the split Q kernels, 0 the
+#: rest), compiled by one nvcc each, all at once, then linked
+PARTS = 6
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 # storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
@@ -99,10 +102,11 @@ LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
             "adjoint_backward_q": 0}
 
-#: rows of S floats each Q-stream kernel keeps in shared memory (the
-#: ``rows`` of its ``launch_rows`` call in ``csrc/dp_kernels.cu``)
-SMEM_ROWS = {"forward_q": 3, "backward_q": 3, "adjoint_forward_q": 3,
-             "adjoint_backward_q": 6}
+#: rows of S floats the Q-stream kernels not yet split keep in shared memory
+#: (the ``rows`` of their ``launch_rows`` calls in ``csrc/dp_kernels.cu``):
+#: with three rows they hold S <= 19,370 on an H100, the limit of the
+#: ``pallas_long`` training step
+SMEM_ROWS = {"backward_q": 3, "adjoint_forward_q": 3}
 #: the most slots a pair may have in the strip kernels, which keep its rows
 #: in registers: 1,024 threads of the widest strip
 #: (``DP_SWITCH_FORWARD_STRIP`` for the forward passes,
@@ -112,9 +116,26 @@ MAX_SLOTS = {"forward": 1024 * 20, "forward_score": 1024 * 20,
              "adjoint_forward": 1024 * 20, "backward": 1024 * 6,
              "adjoint_backward": 1024 * 6}
 
+#: cluster sizes the split Q kernels launch with (16 is the non-portable
+#: size), and their strip width, slots a thread (``Q_STRIP`` in the source)
+Q_CLUSTERS = (1, 2, 4, 8, 16)
+Q_STRIP = 2
+#: the fewest slots :func:`_cluster_size` gives a CTA: one warp of strips
+Q_MIN_CTA_SLOTS = 32 * Q_STRIP
+#: the most slots a pair may have in the split Q kernels: 16 CTAs of 1,024
+#: threads of strips
+CLUSTER_SLOTS = {"forward_q": 16 * 1024 * Q_STRIP,
+                 "adjoint_backward_q": 16 * 1024 * Q_STRIP}
+#: the split of each split Q kernel's last launch: pairs ``B``, slots
+#: ``S``, cluster size ``C``, ``threads`` a CTA, and ``clusters``, how many
+#: clusters of that size the device holds at once
+SPLITS = {"forward_q": None, "adjoint_backward_q": None}
+_Q_KERNEL_IDS = {"forward_q": 0, "adjoint_backward_q": 1}
+
 _LIB = None
 _LOCK = threading.Lock()
 _MAX_SMEM = {}
+_MAX_CLUSTERS = {}
 
 
 def reset_launches():
@@ -193,21 +214,23 @@ def _lib():
                                                i, i, i, p, p, p, p]
             lib.dp_adjoint_backward.argtypes = [p, p, p, p, i, p, i, p, p,
                                                 i, i, i, i, i, p, p, p]
-            lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p,
-                                         p, p]
+            lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p,
+                                         p, p, p]
             lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
                                           p]
             lib.dp_adjoint_forward_q.argtypes = [p, p, p, p, p, p, p, i, i,
                                                  i, i, i, p, p, p, p, p]
             lib.dp_adjoint_backward_q.argtypes = [p, p, p, p, p, p, p, p, p,
-                                                  i, i, i, i, p, p, p]
+                                                  i, i, i, i, i, p, p, p]
+            lib.dp_q_clusters.argtypes = [i, i, i, i]
             lib.dp_max_smem.argtypes = [i]
             for fn in (lib.dp_skew, lib.dp_skew_pair, lib.dp_unskew,
                        lib.dp_forward,
                        lib.dp_backward, lib.dp_adjoint_forward,
                        lib.dp_adjoint_backward, lib.dp_forward_q,
                        lib.dp_backward_q, lib.dp_adjoint_forward_q,
-                       lib.dp_adjoint_backward_q, lib.dp_max_smem):
+                       lib.dp_adjoint_backward_q, lib.dp_q_clusters,
+                       lib.dp_max_smem):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -250,14 +273,23 @@ def max_smem(device):
 
 def _check_smem(name, S, device):
     """Raise a ``ValueError`` naming the limit when one pair of ``name``
-    does not fit in a block: its rows in shared memory, or its strips in
-    the registers of 1,024 threads."""
+    does not fit: its rows in shared memory, its strips in the registers
+    of 1,024 threads, or, for the split Q kernels, of a cluster of them."""
     limit = max_smem(device)
     q_most = limit // (max(SMEM_ROWS.values()) * 4)
-    if name in SMEM_ROWS or S > q_most:
-        hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
-                "queue A item 4)")
-    else:
+    hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
+            "queue A item 4)")
+    if name in CLUSTER_SLOTS:
+        most = CLUSTER_SLOTS[name]
+        if S > most:
+            raise ValueError(
+                f"CUDA {name}: a pair padded to S = {S} slots exceeds the "
+                f"strips of one cluster (S <= {most} slots for this kernel: "
+                f"16 CTAs of 1,024 threads of {Q_STRIP} slots); the "
+                f"pallas_long training step is bound by backward_q and "
+                f"adjoint_forward_q at S <= {q_most} slots; {hint}")
+        return
+    if name not in SMEM_ROWS and S <= q_most:
         hint = (f'backend="pallas_long" keeps fewer rows and holds pairs up '
                 f"to S = {q_most} slots")
     if name in MAX_SLOTS:
@@ -275,6 +307,68 @@ def _check_smem(name, S, device):
                      f"{need} bytes of shared memory per block, and this "
                      f"device allows {limit} (S <= {most} slots for this "
                      f"kernel); {hint}")
+
+
+def _q_threads(S, C):
+    """Threads a CTA of a split Q kernel (``q_threads`` in the source)."""
+    per = C * Q_STRIP * 32
+    return (S + per - 1) // per * 32
+
+
+def _max_clusters(name, operator, S, C, device):
+    """How many clusters of C CTAs of ``name`` (at S slots) the device holds
+    at once (``cudaOccupancyMaxActiveClusters``; 0: a launch of that size
+    would fail)."""
+    key = (name, operator, S, C, device.index)
+    if key not in _MAX_CLUSTERS:
+        with torch.cuda.device(device):
+            n = _lib().dp_q_clusters(_Q_KERNEL_IDS[name], _OPS[operator], S,
+                                     C)
+        if n < 0:
+            raise RuntimeError(f"CUDA {name}: the occupancy query for "
+                               f"clusters of {C} failed: cudaError {-n}")
+        _MAX_CLUSTERS[key] = n
+    return _MAX_CLUSTERS[key]
+
+
+def _cluster_size(name, operator, B, S, device):
+    """The cluster size of a split Q kernel's launch, the rule: the largest
+    of :data:`Q_CLUSTERS` that gives each of the B C CTAs an SM of its own
+    (B C <= the SM count) and each at least :data:`Q_MIN_CTA_SLOTS` slots,
+    but at least the smallest whose CTAs of 1,024 threads hold the pair;
+    walking down from it to that smallest, the first size the device can
+    launch (:func:`_max_clusters` > 0).  8 pairs of 4,097 slots get 16 CTAs
+    each (as fast as 8 and faster than 4 at 8 x 4096 x 4096 and 2 x 3899 x
+    3757 on an H100; PERF.md), the bench shape's 256 pairs of 513 slots
+    one each.  Raises if no size can be launched."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    most = max(1, min(sms // max(B, 1), S // Q_MIN_CTA_SLOTS))
+    want = max(c for c in Q_CLUSTERS if c <= most)
+    need = min(c for c in Q_CLUSTERS if c * 1024 * Q_STRIP >= S)
+    for C in sorted(Q_CLUSTERS, reverse=True):
+        if need <= C <= max(want, need) and \
+                _max_clusters(name, operator, S, C, device) > 0:
+            return C
+    raise ValueError(f"CUDA {name}: no cluster of {Q_CLUSTERS} CTAs that "
+                     f"holds a pair of S = {S} slots can be launched on "
+                     f"this device")
+
+
+def _split(name, operator, B, S, device):
+    """The cluster size C of a split Q kernel's launch
+    (:func:`_cluster_size`), recorded in :data:`SPLITS`; raises a
+    ``ValueError`` when C CTAs do not hold the pair or the device cannot
+    launch clusters of that size."""
+    C = _cluster_size(name, operator, B, S, device)
+    if C * 1024 * Q_STRIP < S:
+        raise ValueError(f"CUDA {name}: a pair of S = {S} slots does not fit "
+                         f"{C} CTAs of 1,024 threads of {Q_STRIP} slots")
+    n = _max_clusters(name, operator, S, C, device)
+    if n <= 0:
+        raise ValueError(f"CUDA {name}: this device cannot launch clusters "
+                         f"of {C} CTAs of {_q_threads(S, C)} threads")
+    SPLITS[name] = dict(B=B, S=S, C=C, threads=_q_threads(S, C), clusters=n)
+    return C
 
 
 def _check_streams(names, streams, dtype=torch.float32):
@@ -509,16 +603,18 @@ def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
 
 def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
     """``(vt (B,), Qx, Qm, Qy (B, K, S))``: the forward storing the three
-    soft-argmax streams, Q written for every slot."""
+    soft-argmax streams, Q written for every slot; each pair split across
+    a cluster of :func:`_cluster_size` CTAs."""
     shape = _check_streams(("th_s", "A_s"), (th_s, A_s))
     _check_pass("forward_q", shape, ln, lm, th_s.device)
     B, K, S = shape
+    C = _split("forward_q", operator, B, S, th_s.device)
     vt = torch.zeros((B,), dtype=torch.float32, device=th_s.device)
     qx, qm, qy = (torch.empty_like(th_s) for _ in range(3))
     with torch.cuda.device(th_s.device):
         rc = _lib().dp_forward_q(
             _ptr(th_s), _ptr(A_s), _ptr(ln), _ptr(lm), B, K, S,
-            MODE_BOUNDS[mode][0], _OPS[operator], _ptr(vt), _ptr(qx),
+            MODE_BOUNDS[mode][0], _OPS[operator], C, _ptr(vt), _ptr(qx),
             _ptr(qm), _ptr(qy), _stream(th_s.device))
     _raise_on(rc, "forward_q")
     LAUNCHES["forward_q"] += 1
@@ -571,17 +667,19 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
 
 def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
     """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the Q backward and
-    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``."""
+    the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``; each
+    pair split across a cluster of :func:`_cluster_size` CTAs."""
     shape = _check_streams(("Qx", "Qm", "Qy", "Qdx", "Qdm", "Qdy", "E"),
                            (qx, qm, qy, qdx, qdm, qdy, E))
     _check_pass("adjoint_backward_q", shape, ln, lm, qx.device)
     B, K, S = shape
+    C = _split("adjoint_backward_q", "softmax", B, S, qx.device)
     Ed = torch.empty_like(qx)
     EdA = torch.empty_like(qx)
     with torch.cuda.device(qx.device):
         rc = _lib().dp_adjoint_backward_q(
             _ptr(qx), _ptr(qm), _ptr(qy), _ptr(qdx), _ptr(qdm), _ptr(qdy),
-            _ptr(E), _ptr(ln), _ptr(lm), B, K, S, MODE_BOUNDS[mode][3],
+            _ptr(E), _ptr(ln), _ptr(lm), B, K, S, MODE_BOUNDS[mode][3], C,
             _ptr(Ed), _ptr(EdA), _stream(qx.device))
     _raise_on(rc, "adjoint_backward_q")
     LAUNCHES["adjoint_backward_q"] += 1

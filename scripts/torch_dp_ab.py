@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time the default backend's DP kernels of two checkouts in turns on one
-NVIDIA GPU, at the bench shape (B = 256, N = M = 512, nw, softmax).
+"""Time the DP kernels of two checkouts in turns on one NVIDIA GPU: the
+default backend's at the bench shape (B = 256, N = M = 512, nw, softmax),
+and the Q-stream kernels of ``pallas_long`` with its decode at the bench
+shape, at 8 x 4096 x 4096 and at a long training batch (2 x 3899 x 3757).
 
     python3 scripts/torch_dp_ab.py BEFORE_ROOT AFTER_ROOT [--turns 1]
+        [--only q]
 
 Each root is a checkout of the port (for example ``git archive`` of a
 commit unpacked under ``_archive/``).  One child process per (root, turn)
@@ -14,35 +17,111 @@ backward in every storage form the main paths run, the adjoint forward in
 float32, bf16 residuals and bf16 residuals with a Za stream, the adjoint
 backward in float32 and bf16 residuals, the decode (pair skew + forward +
 backward) in float32, bf16 residuals and the fast menu, and the
-differentiable DP step in float32 and bf16 residuals.  The roots
-run in the order BEFORE, AFTER, AFTER, BEFORE (``--turns`` repeats of that
-order), so that drift of the card falls on both.  Every child checks that
-its kernels' outputs equal the first root's on the same inputs (bit for
-bit, but for the sign of a zero), prints one JSON object, and the parent
-prints, per timing, the least time of each root over its turns and
-their ratio, with the card's name and power limit.
+differentiable DP step in float32 and bf16 residuals; then, at each of the
+three Q shapes, ``forward_q``, ``backward_q`` (E and E with EA),
+``adjoint_forward_q``, ``adjoint_backward_q`` and the ``pallas_long``
+expected alignment (skew x 2, forward_q, backward_q, unskew; the rows say
+alignments/s too), with the cluster size each split kernel's wrapper
+picked (``--only q``: these alone).  Each root's ptxas report of its
+Q-stream kernel instances (registers, stack, spills; one instance per
+operator, strip width and cluster or single CTA) is printed once.  The
+roots run in the order BEFORE, AFTER, AFTER, BEFORE (``--turns`` repeats
+of that order), so that drift of the card falls on both.  Every child
+checks that its kernels' outputs equal the first root's on the same
+inputs (bit for bit, but for the sign of a zero) and writes one JSON
+object; the parent prints, per timing, the least time of each root over
+its turns and their ratio, with the card's name and power limit.
 """
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 
 B, N, M = 256, 512, 512
+Q_SHAPES = [(256, 512, 512), (8, 4096, 4096), (2, 3899, 3757)]
+# float32 streams each Q kernel reads and writes, counted on the valid
+# cells (chip_smoke.phase_bench's bound): the least bytes over the H100's
+# 3.35 TB/s
+Q_STREAMS = {"forward_q": 5, "backward_q": 4, "backward_q gap": 5,
+             "adjoint_forward_q": 7, "adjoint_backward_q": 9}
 
 
-def child(root, out, ref):
+def q_fns(B, N, M, g):
+    """The Q-stream kernels and the pallas_long decode at (B, N, M), nw,
+    softmax, full lengths."""
+    import torch
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    theta = torch.randn((B, N, M), generator=g, device="cuda")
+    A = torch.randn((B, N, M), generator=g, device="cuda") - 1.0
+    ln = torch.full((B,), N, dtype=torch.int32, device="cuda")
+    lm = torch.full((B,), M, dtype=torch.int32, device="cuda")
+    Et = torch.ones((B,), device="cuda")
+    kw = dict(mode="nw", operator="softmax")
+    th_s, A_s = dp_cuda.skew(theta), dp_cuda.skew(A)
+    _, *qs = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
+    E, _ = dp_cuda.backward_q(*qs, ln, lm, Et, mode="nw")
+    zt = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+    _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
+    tag = f"({B}, {N}, {M})"
+    return {
+        f"forward_q {tag}": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm,
+                                                      **kw),
+        f"backward_q {tag}": lambda: dp_cuda.backward_q(*qs, ln, lm, Et,
+                                                        mode="nw"),
+        f"backward_q gap {tag}": lambda: dp_cuda.backward_q(
+            *qs, ln, lm, Et, mode="nw", want_gap=True),
+        f"adjoint_forward_q {tag}": lambda: dp_cuda.adjoint_forward_q(
+            *qs, zt, None, ln, lm, **kw),
+        f"adjoint_backward_q {tag}": lambda: dp_cuda.adjoint_backward_q(
+            *qs, *qds, E, ln, lm, mode="nw"),
+        f"decode pallas_long {tag}": lambda: dp_ops.expected_alignment(
+            theta, A, (ln, lm), backend="pallas_long", **kw),
+    }
+
+
+def ptxas_q(so):
+    """The Q-stream kernel instances of a library's ptxas report:
+    demangled name -> registers, stack, spill stores and loads."""
+    out, cur = {}, None
+    with open(f"{so}.ptxas") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                cur = line.split("'")[1]
+            elif cur and "_q_kernel" in cur:
+                if "Used" in line and "registers" in line:
+                    out.setdefault(cur, {})["regs"] = int(
+                        line.split("Used")[1].split()[0])
+                elif "bytes stack frame" in line:
+                    nums = [int(w) for w in line.split() if w.isdigit()]
+                    out.setdefault(cur, {}).update(
+                        stack=nums[0], spill_stores=nums[1],
+                        spill_loads=nums[2])
+    from deepblast_torch.ops import dp_cuda
+    tool = shutil.which("c++filt") or os.path.join(
+        os.path.dirname(dp_cuda._nvcc()), "cu++filt")
+    names = subprocess.run([tool], input="\n".join(out),
+                           capture_output=True, text=True).stdout.split("\n")
+    return {n.split("(")[0].split("::")[-1]: v
+            for n, v in zip(names, out.values())}
+
+
+def child(root, out, ref, only):
     sys.path.insert(0, root)
     import torch
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda
     from deepblast_torch.ops.menu import DTypeMenu
     from deepblast_torch.train.losses import matrix_cross_entropy
-    dp_cuda.build()
+    so = dp_cuda.build()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
+    if only == "q":
+        return q_child(so, out, ref, g)
     theta = torch.randn((B, N, M), generator=g, device="cuda")
     A = torch.randn((B, N, M), generator=g, device="cuda") - 1.0
     ln = torch.full((B,), N, dtype=torch.int32, device="cuda")
@@ -156,17 +235,6 @@ def child(root, out, ref):
         "dp_step f32": step("f32"), "dp_step d_bf16": step("d_bf16"),
     }
 
-    def fingerprint(t):
-        """A position-weighted sum of the stored bits, a zero's sign
-        dropped: equal fingerprints are tensors equal by value but for a
-        collision."""
-        if t.is_floating_point():
-            t = t + 0.0                       # -0.0 + 0.0 = +0.0
-        bits = t.contiguous().view(torch.int16 if t.element_size() == 2
-                                   else torch.int32).reshape(-1).long()
-        w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
-        return int((bits * w).sum())
-
     # the outputs of every kernel timed, for the check against the first
     # root
     prints = {}
@@ -177,33 +245,83 @@ def child(root, out, ref):
                          (v if isinstance(v, tuple) else (v,))
                          if t is not None]
             del v
-    if os.path.exists(ref):
-        with open(ref) as f:
+    ms = {k: cuda_ms(fn, 5 if k.startswith("dp_step") else 20)
+          for k, fn in fns.items()}
+    del fns, data, adj, E_forms, theta, A, t_req, a_req, target, gmask
+    torch.cuda.empty_cache()
+    q_child(so, out, ref, g, ms, prints)
+
+
+def fingerprint(t):
+    """A position-weighted sum of the stored bits, a zero's sign dropped:
+    equal fingerprints are tensors equal by value but for a collision."""
+    import torch
+    if t.is_floating_point():
+        t = t + 0.0                       # -0.0 + 0.0 = +0.0
+    bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32).reshape(-1).long()
+    w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+    return int((bits * w).sum())
+
+
+def cuda_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(prints, ref, part):
+    """The outputs' fingerprints against the first root's (saved under
+    ``ref``, one file per part)."""
+    path = f"{ref}.{part}"
+    if os.path.exists(path):
+        with open(path) as f:
             want = json.load(f)
         for k, fp in prints.items():
             if fp != want[k]:
                 raise AssertionError(f"{k}: outputs differ from the first "
                                      "root's")
     else:
-        with open(ref, "w") as f:
+        with open(path, "w") as f:
             json.dump(prints, f)
 
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
 
-    ms = {k: cuda_ms(fn, 5 if k.startswith("dp_step") else 20)
-          for k, fn in fns.items()}
+def q_child(so, out, ref, g, ms=None, prints=None):
+    """The Q part of a child: each Q shape's kernels and decode, checked
+    against the first root and timed; writes {"ms", "splits", "ptxas"}."""
+    import torch
+    from deepblast_torch.ops import dp_cuda
+    ms = dict(ms or {})
+    if prints:
+        check(prints, ref, "default")
+    splits = {}
+    for shape in Q_SHAPES:
+        fns = q_fns(*shape, g)
+        qprints = {}
+        for k, fn in fns.items():
+            v = fn()
+            qprints[k] = [fingerprint(t) for t in
+                          (v if isinstance(v, tuple) else (v,))
+                          if t is not None]
+            del v
+            splits[k] = {n: dict(v) for n, v in getattr(
+                dp_cuda, "SPLITS", {}).items() if v}
+        check(qprints, ref, f"q{shape}")
+        reps = 2 if shape[1] > 1024 else 10
+        for k, fn in fns.items():
+            ms[k] = cuda_ms(fn, reps)
+        del fns
+        torch.cuda.empty_cache()
     with open(out, "w") as f:
-        json.dump(ms, f)
+        json.dump({"ms": ms, "splits": splits, "ptxas": ptxas_q(so)}, f)
 
 
 def main():
@@ -211,10 +329,12 @@ def main():
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--only", choices=("q",), default=None,
+                    help="time the Q-stream kernels and decode alone")
     ap.add_argument("--child", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        return child(*a.child)
+        return child(*a.child, a.only)
     import torch
     if not torch.cuda.is_available():
         print("torch_dp_ab: no CUDA device", file=sys.stderr)
@@ -232,18 +352,36 @@ def main():
                 out = os.path.join(tmp, "out.json")
                 subprocess.run([sys.executable, os.path.abspath(__file__),
                                 a.before, a.after, "--child", roots[side],
-                                out, ref], check=True)
+                                out, ref] + (["--only", a.only] if a.only
+                                             else []), check=True)
                 with open(out) as f:
                     times[side].append(json.load(f))
+    for side in ("before", "after"):
+        for k, v in times[side][0]["ptxas"].items():
+            print(f"ptxas {side}: {k} {json.dumps(v)}", flush=True)
     rows = {}
-    for k in times["before"][0]:
-        b = min(t[k] for t in times["before"])
-        c = min(t[k] for t in times["after"])
+    for k in times["before"][0]["ms"]:
+        b = min(t["ms"][k] for t in times["before"])
+        c = min(t["ms"][k] for t in times["after"])
         rows[k] = dict(before_ms=b, after_ms=c, ratio=c / b,
-                       turns_before=[t[k] for t in times["before"]],
-                       turns_after=[t[k] for t in times["after"]])
-        print(f"{k}: before {b:.4f} ms, after {c:.4f} ms, x{c / b:.3f} at "
-              f"({B}, {N}, {M}) nw softmax [{card}]", flush=True)
+                       turns_before=[t["ms"][k] for t in times["before"]],
+                       turns_after=[t["ms"][k] for t in times["after"]],
+                       split_after=times["after"][0]["splits"].get(k))
+        shape = "" if "(" in k else f" at ({B}, {N}, {M})"
+        kern = k.split(" (")[0]
+        if kern in Q_STREAMS:
+            dims = [int(x) for x in k.split("(")[1].rstrip(")").split(",")]
+            cells = dims[0] * dims[1] * dims[2]
+            rows[k]["bound_ms"] = Q_STREAMS[kern] * 4 * cells / 3.35e12 * 1e3
+            shape = f", bound {rows[k]['bound_ms']:.4f} ms by bytes"
+        rate = ""
+        if k.startswith("decode pallas_long"):
+            pairs = int(k.split("(")[1].split(",")[0])
+            rate = (f" ({pairs / b * 1e3:.2f} -> {pairs / c * 1e3:.2f} "
+                    f"alignments/s)")
+        print(f"{k}: before {b:.4f} ms, after {c:.4f} ms, x{c / b:.3f}"
+              f"{rate}{shape} nw softmax; split {rows[k]['split_after']} "
+              f"[{card}]", flush=True)
     print(json.dumps({"card": card, "ab": rows}))
     return 0
 

@@ -16,7 +16,11 @@ tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
 The Q-stream kernels of the ``pallas_long`` backend are held to the same
 checks (``chip_smoke.check_q_kernels``), also past the shared-memory
 limit the default adjoint backward had before it kept its rows in
-registers, where the default backend now trains and matches them.  Every
+registers, where the default backend now trains and matches them; the
+split ones (forward_q, adjoint_backward_q) bit for bit, also with every
+cluster size forced at the edges of the split
+(``chip_smoke.SPLIT_EDGE_SLOTS``), at S = 9,801 and at their limit (S =
+32,768), one slot past which they refuse.  Every
 storage form of the default kernels (the
 menus of ``chip_smoke.MENUS``: bf16 and int16 inputs, bf16 residuals,
 bf16 and int16 expectations) and the pair skew are held to their plain
@@ -43,7 +47,7 @@ import torch
 import chip_smoke
 from chip_smoke import ATOL, RTOL
 from deepblast_torch.ops import dp as dp_ops
-from deepblast_torch.ops import dp_cuda
+from deepblast_torch.ops import dp_cuda, dp_ref
 from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.ops.skew import skew as plain_skew
 
@@ -205,17 +209,87 @@ def test_q_kernels_past_the_default_limit(cuda):
 
 
 def test_q_kernels_refuse_past_their_limit(cuda):
-    """S = 9,801 slots: more than the adjoint backward's 6 rows fit; every
-    Q kernel checks before launching, and the error names the limit and
-    the ROADMAP item."""
+    """S = 9,801 slots, past the 9,685 the first adjoint backward held in
+    six rows of shared memory: the split adjoint backward runs and equals
+    its plain version bit for bit.  One slot past the split kernels' limit
+    (S = 32,769) both refuse before launching, naming their limit and the
+    ``pallas_long`` step's (backward_q and adjoint_forward_q) and the
+    ROADMAP item."""
     x = torch.zeros((1, 9800, 2), device=cuda)
     s = dp_cuda.skew(x)
     n = torch.tensor([9800], dtype=torch.int32, device=cuda)
     m = torch.tensor([2], dtype=torch.int32, device=cuda)
     _, *qs = dp_cuda.forward_q(s, s, n, m)
-    with pytest.raises(ValueError, match=r"adjoint_backward_q.*S = 9801 "
-                                         r".*S <= 968\d .*ROADMAP"):
-        dp_cuda.adjoint_backward_q(*qs, *qs, s, n, m)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9801)
+    E = torch.randn(s.shape, generator=g, device=cuda)
+    want = dp_ref.adjoint_backward_q(*qs, *qs, E, n, m)
+    for got, w in zip(dp_cuda.adjoint_backward_q(*qs, *qs, E, n, m), want):
+        assert torch.equal(got, w)
+    del x, s, qs, E, want
+    most = dp_cuda.CLUSTER_SLOTS["adjoint_backward_q"]
+    s = torch.zeros((1, 2, most + 1), device=cuda)
+    n = torch.tensor([most], dtype=torch.int32, device=cuda)
+    before = dict(dp_cuda.LAUNCHES)
+    for call in (lambda: dp_cuda.forward_q(s, s, n, m),
+                 lambda: dp_cuda.adjoint_backward_q(s, s, s, s, s, s, s, n,
+                                                    m)):
+        with pytest.raises(ValueError, match=rf"S = {most + 1} .*S <= "
+                                             rf"{most} .*backward_q and "
+                                             r"adjoint_forward_q .*ROADMAP"):
+            call()
+    assert dp_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("S", chip_smoke.SPLIT_EDGE_SLOTS)
+@pytest.mark.parametrize("mode,operator", [("nw", "softmax"),
+                                           ("sw", "sparsemax"),
+                                           ("nw", "hardmax")])
+def test_split_q_kernels_at_every_cluster_size(cuda, S, mode, operator):
+    """forward_q and adjoint_backward_q (on the backward's E and on noise)
+    bit for bit against their plain versions with every cluster size of
+    ``dp_cuda.Q_CLUSTERS`` forced, at the slots of the split's edges
+    (``chip_smoke.SPLIT_EDGE_SLOTS``); a size whose CTAs cannot hold the
+    pair is refused before launching."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S)
+    prob = chip_smoke.split_problem(g, S, mode, operator)
+    for C in dp_cuda.Q_CLUSTERS:
+        if C * 1024 * dp_cuda.Q_STRIP < S:
+            before = dict(dp_cuda.LAUNCHES)
+            with pytest.raises(ValueError, match="does not fit"):
+                chip_smoke.check_split(*prob, mode, operator, C, {})
+            assert dp_cuda.LAUNCHES == before
+            continue
+        errs = {}
+        split = chip_smoke.check_split(*prob, mode, operator, C, errs)
+        assert errs == {"forward_q": 0.0, "adjoint_backward_q": 0.0}
+        assert {v["C"] for v in split.values()} == {C}
+
+
+def test_split_q_kernels_at_their_limit(cuda):
+    """S = 32,768, the split kernels' limit, at the wrapper's own cluster
+    size: bit for bit; one slot further both refuse."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    errs = {}
+    split, _ = chip_smoke.check_split_limit(g, errs)
+    assert errs == {"forward_q": 0.0, "adjoint_backward_q": 0.0}
+    assert all(v["S"] == dp_cuda.CLUSTER_SLOTS[k] for k, v in split.items())
+
+
+def test_cluster_size_rule(cuda):
+    """The rule's picks: one CTA a pair at the bench shape, 16 at the long
+    decode and the long training batch (the largest size the device
+    launches), never fewer than the pair needs."""
+    pick = lambda B, S: dp_cuda._cluster_size("forward_q", "softmax", B, S,
+                                              cuda)
+    assert pick(256, 513) == 1
+    assert pick(8, 4097) == pick(2, 3901) == max(
+        c for c in dp_cuda.Q_CLUSTERS if c * 1024 * 2 >= 4097 and
+        dp_cuda._max_clusters("forward_q", "softmax", 4097, c, cuda) > 0)
+    assert pick(256, 4097) == 4
+    assert pick(1, dp_cuda.CLUSTER_SLOTS["forward_q"]) == 16
 
 
 def test_q_wrappers_check_inputs(cuda):
