@@ -69,9 +69,17 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              time, the intervals between the ``train_loss`` records of
              its own ``metrics.jsonl``, and peak device memory.
 5. long    — the long-sequence backend (``pallas_long``: the Q-stream
-             kernels).  Each Q kernel against its plain version at (16,
-             200, 150), nw and sw x softmax / sparsemax / hardmax, outputs
-             over NaN, and autograd through them (as phase 2).  Then
+             kernels, each pair split across a thread-block cluster).
+             Each Q kernel against its plain version at (16, 200, 150),
+             nw and sw x softmax / sparsemax / hardmax, outputs over NaN,
+             bit for bit, and autograd through them (as phase 2).  The
+             four Q kernels, every instance, bit for bit at every forced
+             cluster size at ``SPLIT_EDGE_SLOTS`` and at the wrapper's
+             size at their limit S = 32,768 (one kernel's outputs live at
+             a time), one slot past which each refuses; a ``pallas_long``
+             training step on a pair of 19,800 x 40 (past the 19,370
+             slots the first Q backward and adjoint forward held) bit for
+             bit against the plain passes.  Then
              ``cli.train --backend pallas_long --max-len 4096`` at
              ProtT5-XL + CNN-1024 on 6 synthetic TM-align pairs of
              1,000-3,900 residues (batch 2, 2 epochs; the longest batch
@@ -132,7 +140,8 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              residuals / the fast menu, the DP step in float32 / bf16
              residuals, and the pair skew against two single skews.
 
-The line before the last is the kernels JSON; the last line is
+The line before the last is the kernels JSON (a Q kernel's entry also
+gives its last split on the long path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -213,10 +222,10 @@ BENCH_INSTANCES = {
     "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float, 2>",
     "adjoint_backward": "adjoint_backward_kernel<0, float, float, 2>",
     "forward_q": "forward_q_kernel<0, false>",
-    "backward_q": "backward_q_kernel<false>",
-    "backward_q_gap": "backward_q_kernel<true>",
-    "adjoint_forward_q": "adjoint_forward_q_kernel<0, false>",
-    "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true>",
+    "backward_q": "backward_q_kernel<false, false>",
+    "backward_q_gap": "backward_q_kernel<true, false>",
+    "adjoint_forward_q": "adjoint_forward_q_kernel<0, false, false>",
+    "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true, false>",
     "adjoint_backward_q": "adjoint_backward_q_kernel<false>",
 }
 # cells one pass of a strip kernel's unrolled row loop computes: T slots x
@@ -227,9 +236,13 @@ AFWD_RING = {2: 2, 6: 1, 20: 1}
 ABWD_RING = {2: 2, 6: 1}
 STRIP_KERNELS = ("forward_kernel<", "backward_kernel<",
                  "adjoint_forward_kernel<", "adjoint_backward_kernel<")
-# the split Q kernels, <op, kCluster> and <kCluster>: strips of 2 x D
-# cells a pass too (Q_FWD_RING, q_abwd_ring)
-SPLIT_KERNELS = ("forward_q_kernel<", "adjoint_backward_q_kernel<")
+# the split Q kernels, kCluster their last template argument: strips of 2
+# x D cells a pass too, D their ring (with one CTA a pair, with a cluster:
+# Q_FWD_RING, Q_BWD_RING, Q_AFWD_RING, q_abwd_ring)
+Q_RING = {"forward_q_kernel<": (2, 2), "backward_q_kernel<": (2, 2),
+          "adjoint_forward_q_kernel<": (2, 2),
+          "adjoint_backward_q_kernel<": (1, 2)}
+SPLIT_KERNELS = tuple(Q_RING)
 # slots S at the split Q kernels' edges: a stream of one slot, one cell,
 # one warp of strips of 2 (a CTA of the smaller splits) -1 (odd), 0 and
 # +1, a CTA of 1,024 threads of strips of 2 -1, 0 and +1
@@ -552,8 +565,8 @@ def _exact(name, got, want, errs):
 def _refuses(name, call):
     """``call`` must raise the ``ValueError`` that names the limit of
     ``name`` (``dp_cuda.MAX_SLOTS``, or ``dp_cuda.CLUSTER_SLOTS`` and then
-    also the ``pallas_long`` step's, backward_q and adjoint_forward_q)
-    before launching."""
+    also the ``pallas_long`` step's and the ROADMAP item) before
+    launching."""
     from deepblast_torch.ops import dp_cuda
     before = dict(dp_cuda.LAUNCHES)
     split = name in dp_cuda.CLUSTER_SLOTS
@@ -561,8 +574,11 @@ def _refuses(name, call):
     try:
         call()
     except ValueError as e:
+        step = f"pallas_long training step, which runs all four Q kernels, " \
+            f"holds S <= {most} slots"
         if f"S <= {most} " not in str(e) or dp_cuda.LAUNCHES != before or \
-                split and "backward_q and adjoint_forward_q" not in str(e):
+                split and (step not in str(e) or
+                           "ROADMAP.md queue A item 4" not in str(e)):
             raise AssertionError(f"unclear refusal of {name}: {e}")
         return str(e)
     raise AssertionError(f"{name} took a pair past its limit")
@@ -708,13 +724,12 @@ def check_edges(g, errs):
 
 def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
     """Every Q-stream kernel against its plain version on the same inputs
-    (outputs over NaN-filled memory): the split kernels bit for bit -- the
-    forward (Vt, Qx, Qm, Qy) and the adjoint backward (Ed, EdA, on the
-    backward's E and on an E that is noise at every slot) -- at the
-    cluster size the wrapper picks; the backward with and without the gap
-    output and the adjoint forward with and without a Za stream (vtd, Qd)
-    to rtol 1e-4 / atol 1e-5; random cotangents; tracebacks of E
-    identical."""
+    (outputs over NaN-filled memory), bit for bit, at the cluster size the
+    wrapper picks: the forward (Vt, Qx, Qm, Qy), the backward with and
+    without the gap output (E, EA), the adjoint forward with and without
+    a Za stream (vtd, Qd) and the adjoint backward (Ed, EdA, on the
+    backward's E and on an E that is noise at every slot); random
+    cotangents; tracebacks of E identical."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew
@@ -734,9 +749,9 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         _poison(E_p, *([EA_p] if gap else []))
         E_k, EA_k = dp_cuda.backward_q(*qs, ln, lm, Et, mode=mode,
                                        want_gap=gap)
-        _close("backward_q", E_k, E_p, errs)
+        _exact("backward_q", E_k, E_p, errs)
         if gap:
-            _close("backward_q", EA_k, EA_p, errs)
+            _exact("backward_q", EA_k, EA_p, errs)
     E_kh, E_ph = E_k.cpu().numpy(), E_p.cpu().numpy()
     del E_k, EA_k, EA_p
     for b, (n, m) in enumerate(zip(ln.tolist(), lm.tolist())):
@@ -754,7 +769,7 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         vtd_k, *qds_k = dp_cuda.adjoint_forward_q(*qs, zt_s, za, ln, lm,
                                                   **kw)
         for got, want in zip((vtd_k, *qds_k), (vtd_p, *qds)):
-            _close("adjoint_forward_q", got, want, errs)
+            _exact("adjoint_forward_q", got, want, errs)
         del qds_k
     del zt_s, za_s
 
@@ -791,8 +806,9 @@ def split_problem(g, S, mode, operator):
     """The split kernels' inputs and their plain outputs at S slots: three
     pairs of (S - 1) x 3 (S = 1: streams of one slot, pairs of length 0),
     lengths ragged with pair 0 full and the last pair of
-    ``max(1, (S - 1) // 50)`` rows; the adjoint backward on the backward's
-    E and on noise."""
+    ``max(1, (S - 1) // 50)`` rows; the backward with and without the gap
+    output from a random Et, the adjoint forward with and without Za, the
+    adjoint backward on the backward's E and on noise."""
     from deepblast_torch.ops import dp_ref
     from deepblast_torch.ops.skew import skew
     B, N, M = 3, S - 1, 3
@@ -807,37 +823,56 @@ def split_problem(g, S, mode, operator):
     kw = dict(mode=mode, operator=operator)
     fwd = dp_ref.forward_q(th_s, A_s, ln, lm, **kw)
     qs = fwd[1:]
-    E, _ = dp_ref.backward_q(*qs, ln, lm, torch.ones((B,), device="cuda"),
-                             mode=mode)
-    zt = torch.randn(th_s.shape, generator=g, device="cuda")
-    _, *qds = dp_ref.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
-    noise = torch.randn(th_s.shape, generator=g, device="cuda")
+    Et = torch.randn((B,), generator=g, device="cuda")
+    bwd = [(gap, dp_ref.backward_q(*qs, ln, lm, Et, mode=mode,
+                                   want_gap=gap)) for gap in (False, True)]
+    zt, za, noise = (torch.randn(th_s.shape, generator=g, device="cuda")
+                     for _ in range(3))
+    afwd = [(z, dp_ref.adjoint_forward_q(*qs, zt, z, ln, lm, **kw))
+            for z in (None, za)]
+    qds = afwd[0][1][1:]
     abwd = [(e, dp_ref.adjoint_backward_q(*qs, *qds, e, ln, lm, mode=mode))
-            for e in (E, noise)]
-    return th_s, A_s, ln, lm, fwd, qds, abwd
+            for e in (bwd[0][1][0], noise)]
+    return dict(th_s=th_s, A_s=A_s, ln=ln, lm=lm, Et=Et, zt=zt, fwd=fwd,
+                bwd=bwd, afwd=afwd, qds=qds, abwd=abwd)
 
 
-def check_split(th_s, A_s, ln, lm, fwd, qds, abwd, mode, operator, C, errs):
-    """The split kernels with clusters of C CTAs (None: the wrapper's rule)
-    against the plain outputs ``fwd`` (vt, Q) and ``abwd`` ((E, (Ed, EdA))
-    pairs) bit for bit, outputs over NaN-filled memory; returns the
-    launches' splits (``dp_cuda.SPLITS``)."""
+def _check_launch(name, launch, want, errs):
+    """One launch over NaN-filled memory against the plain outputs
+    ``want``, bit for bit (a None output is not compared)."""
+    _poison(*(w for w in want if w is not None))
+    got = launch()
+    for a, b in zip(got, want):
+        if b is not None:
+            _exact(name, a, b, errs)
+
+
+def check_split(prob, mode, operator, C, errs):
+    """The four split kernels with clusters of C CTAs (None: the wrapper's
+    rule) against the plain outputs of ``prob`` (:func:`split_problem`) bit
+    for bit, every instance (the backward with and without EA, the
+    adjoint forward with and without Za), outputs over NaN-filled memory;
+    returns the launches' splits (``dp_cuda.SPLITS``)."""
     from contextlib import nullcontext
     from deepblast_torch.ops import dp_cuda
+    p = prob
+    ln, lm, qs = p["ln"], p["lm"], p["fwd"][1:]
+    kw = dict(mode=mode, operator=operator)
     with forced_cluster(C) if C else nullcontext():
-        _poison(*fwd[1:])
-        got = dp_cuda.forward_q(th_s, A_s, ln, lm, mode=mode,
-                                operator=operator)
-        for a, b in zip(got, fwd):
-            _exact("forward_q", a, b, errs)
-        del got
-        for e, want in abwd:
-            _poison(*want)
-            got = dp_cuda.adjoint_backward_q(*fwd[1:], *qds, e, ln, lm,
-                                             mode=mode)
-            for a, b in zip(got, want):
-                _exact("adjoint_backward_q", a, b, errs)
-    return {k: dict(v) for k, v in dp_cuda.SPLITS.items()}
+        _check_launch("forward_q", lambda: dp_cuda.forward_q(
+            p["th_s"], p["A_s"], ln, lm, **kw), p["fwd"], errs)
+        for gap, want in p["bwd"]:
+            _check_launch("backward_q", lambda: dp_cuda.backward_q(
+                *qs, ln, lm, p["Et"], mode=mode, want_gap=gap), want, errs)
+        for za, want in p["afwd"]:
+            _check_launch(
+                "adjoint_forward_q", lambda: dp_cuda.adjoint_forward_q(
+                    *qs, p["zt"], za, ln, lm, **kw), want, errs)
+        for e, want in p["abwd"]:
+            _check_launch(
+                "adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
+                    *qs, *p["qds"], e, ln, lm, mode=mode), want, errs)
+    return {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
 
 
 def check_split_edges(g, errs):
@@ -851,16 +886,18 @@ def check_split_edges(g, errs):
         prob = split_problem(g, S, mode, op)
         for C in dp_cuda.Q_CLUSTERS:
             if C * 1024 * dp_cuda.Q_STRIP >= S:
-                check_split(*prob, mode, op, C, errs)
+                check_split(prob, mode, op, C, errs)
         del prob
 
 
 def check_split_limit(g, errs):
-    """The split kernels at the wrapper's own choice at their limit (S =
-    ``dp_cuda.CLUSTER_SLOTS``: one pair of 32,767 x 1, nw softmax, the
-    backward's E) bit for bit; one slot past it each refuses, naming its
-    limit and the ``pallas_long`` step's.  Returns the splits at the limit
-    and the refusals."""
+    """The four split kernels at the wrapper's own choice at their limit (S
+    = ``dp_cuda.CLUSTER_SLOTS``: one pair of 32,767 x 1, nw softmax; the
+    backward with and without EA, the adjoint forward without Za, the
+    adjoint backward on the backward's E) bit for bit, one kernel's
+    outputs live at a time (a stream is 4.3 GB); one slot past it each
+    refuses, naming its limit and the ``pallas_long`` step's.  Returns the
+    splits at the limit and the refusals."""
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew
     most = dp_cuda.CLUSTER_SLOTS["forward_q"]
@@ -869,22 +906,39 @@ def check_split_limit(g, errs):
     del x
     n = torch.tensor([most - 1], dtype=torch.int32, device="cuda")
     m = torch.tensor([1], dtype=torch.int32, device="cuda")
+    Et = torch.ones((1,), device="cuda")
     fwd = dp_ref.forward_q(th_s, A_s, n, m)
+    _check_launch("forward_q", lambda: dp_cuda.forward_q(th_s, A_s, n, m),
+                  fwd, errs)
     qs = fwd[1:]
-    E, _ = dp_ref.backward_q(*qs, n, m, torch.ones((1,), device="cuda"))
+    del th_s, A_s, fwd
+    for gap in (True, False):
+        want = dp_ref.backward_q(*qs, n, m, Et, want_gap=gap)
+        _check_launch("backward_q", lambda: dp_cuda.backward_q(
+            *qs, n, m, Et, want_gap=gap), want, errs)
+    E = want[0]
     zt = torch.randn(E.shape, generator=g, device="cuda")
-    _, *qds = dp_ref.adjoint_forward_q(*qs, zt, None, n, m)
-    del zt
-    abwd = [(E, dp_ref.adjoint_backward_q(*qs, *qds, E, n, m))]
-    split = check_split(th_s, A_s, n, m, fwd, qds, abwd, "nw", "softmax",
-                        None, errs)
-    del th_s, A_s, fwd, qs, qds, E, abwd
+    want = dp_ref.adjoint_forward_q(*qs, zt, None, n, m)
+    _check_launch("adjoint_forward_q", lambda: dp_cuda.adjoint_forward_q(
+        *qs, zt, None, n, m), want, errs)
+    qds = want[1:]
+    del zt, want
+    want = dp_ref.adjoint_backward_q(*qs, *qds, E, n, m)
+    _check_launch("adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
+        *qs, *qds, E, n, m), want, errs)
+    split = {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
+    del qs, qds, E, want
     torch.cuda.empty_cache()
     s = torch.zeros((1, 2, most + 1), device="cuda")
     n = torch.tensor([most], dtype=torch.int32, device="cuda")
-    msgs = [_refuses("forward_q", lambda: dp_cuda.forward_q(s, s, n, m)),
-            _refuses("adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
-                s, s, s, s, s, s, s, n, m))]
+    calls = {
+        "forward_q": lambda: dp_cuda.forward_q(s, s, n, m),
+        "backward_q": lambda: dp_cuda.backward_q(s, s, s, n, m, Et),
+        "adjoint_forward_q": lambda: dp_cuda.adjoint_forward_q(
+            s, s, s, s, None, n, m),
+        "adjoint_backward_q": lambda: dp_cuda.adjoint_backward_q(
+            s, s, s, s, s, s, s, n, m)}
+    msgs = [_refuses(k, call) for k, call in calls.items()]
     return split, msgs
 
 
@@ -1342,14 +1396,16 @@ def phase_long(seed, card):
     check_split_edges(g, errs)
     split, refusals = check_split_limit(g, errs)
     torch.cuda.synchronize()
-    log(f"phase long: forward_q and adjoint_backward_q bit for bit = plain "
-        f"at every cluster size {dp_cuda.Q_CLUSTERS} (forced) at S = "
-        f"{SPLIT_EDGE_SLOTS}, and at their limit S = "
-        f"{dp_cuda.CLUSTER_SLOTS['forward_q']} ({split_line(split)}); one "
-        f"slot further they refuse: {refusals[1]} ({time.time() - t0:.1f} s)")
+    log(f"phase long: the four split Q kernels (forward_q, backward_q with "
+        f"and without EA, adjoint_forward_q with and without Za, "
+        f"adjoint_backward_q) bit for bit = plain at every cluster size "
+        f"{dp_cuda.Q_CLUSTERS} (forced) at S = {SPLIT_EDGE_SLOTS}, and at "
+        f"their limit S = {dp_cuda.CLUSTER_SLOTS['forward_q']} "
+        f"({split_line(split)}); one slot further each refuses: "
+        f"{refusals[1]} ({time.time() - t0:.1f} s)")
     past = long_step_past(g, errs)
     log(f"phase long: a pallas_long training step past the first Q "
-        f"adjoint backward's limit (S = 9,685): {past}")
+        f"backward's and adjoint forward's limit (S = 19,370): {past}")
 
     rng = np.random.default_rng(seed + 2)
     rows = [homolog_row(rng, f"s{i}", 1000, 1500, LONG_LEN) for i in range(2)]
@@ -1490,13 +1546,14 @@ def split_line(splits=None):
 
 def long_step_past(g, errs):
     """One ``pallas_long`` training step (``expected_alignment`` and the
-    gradient of <E, Z> for a random Z) on a pair of 9,800 x 40 (S = 9,801,
-    past the 9,685 slots the first Q adjoint backward held) through the
-    kernels, against the same step through the plain passes on the card:
-    E and both gradients bit for bit."""
+    gradient of <E, Z> for a random Z) on a pair of 19,800 x 40 (S =
+    19,801, past the 19,370 slots the first Q backward and Q adjoint
+    forward held in shared memory) through the kernels, against the same
+    step through the plain passes on the card: E and both gradients bit
+    for bit."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
-    N, M = 9800, 40
+    N, M = 19800, 40
     theta, A, _, _ = dp_problem(g, 1, N, M, ragged=False)
     Z = torch.randn(theta.shape, generator=g, device="cuda")
     lens = (torch.tensor([N], dtype=torch.int32, device="cuda"),
@@ -1525,7 +1582,7 @@ def long_step_past(g, errs):
     for name, a, b in zip(("E", "dtheta", "dA"), kern, plain):
         _exact("pallas_long_step", a, b, errs)
     if any(v == 0 for v in ran.values()):
-        raise AssertionError(f"the step past S = 9,685 skipped a Q kernel: "
+        raise AssertionError(f"the step past S = 19,370 skipped a Q kernel: "
                              f"{ran}")
     return (f"(1, {N}, {M}) E, dtheta, dA = the plain passes' bit for bit, "
             f"{t_kern:.2f} s; Q launches {json.dumps(ran)}; {line}")
@@ -1941,8 +1998,8 @@ def cells_per_body(instance):
     """Cells one copy of an instance's code computes: T x D for a strip
     kernel (T its last template argument), else 1."""
     if instance.startswith(SPLIT_KERNELS):
-        cluster = instance.endswith("true>")
-        return 2 * (2 if instance.startswith("forward") or cluster else 1)
+        ring = Q_RING[instance.split("<")[0] + "<"]
+        return 2 * ring[instance.endswith("true>")]
     if instance.startswith(STRIP_KERNELS):
         T = int(instance.rsplit(",", 1)[1].rstrip("> "))
         ring = ABWD_RING if instance.startswith("adjoint_backward") else \
@@ -2317,6 +2374,7 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import deepblast_torch  # noqa: F401  (fails outside a checkout)
+    from deepblast_torch.ops import dp_cuda
     card = card_line()
     log(card)
 
@@ -2333,6 +2391,8 @@ def main(argv):
     serving, path_errs = timed("serving", phase_serving, seed, card)
     training, train_errs = timed("train", phase_train, seed, card)
     long_, long_errs = timed("long", phase_long, seed, card)
+    # each split Q kernel's last split on the long path (its longest batch)
+    splits = {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
     timed("long_times", long_times, seed, card)
     menu, menu_errs = timed("menu", phase_menu, seed, card)
     bench = timed("bench", phase_bench, seed, card)
@@ -2349,7 +2409,8 @@ def main(argv):
             max_abs_err=max(checked),
             ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
             bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
-            library_ms=bench[k]["library_ms"]))
+            library_ms=bench[k]["library_ms"],
+            **({"split": splits[k]} if k in Q_KERNELS else {})))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

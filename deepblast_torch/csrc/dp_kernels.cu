@@ -109,21 +109,16 @@
 //
 // The Q-stream kernels keep few rows by moving a stream more: the
 // forward stores the three soft-argmax streams Q (and the adjoint forward
-// the three Qd), and the reverse passes read Q[r+1], Q[r+2] straight from
-// device memory instead of recomputing Q.  Per cell they move forward 2
+// the three Qd), and the reverse passes read Q (and Qd) straight from
+// device memory instead of recomputing it.  Per cell they move forward 2
 // in / 3 out, backward 3 in / 1 or 2 out, adjoint forward 4-5 in / 3 out,
 // adjoint backward 7 in / 2 out: the same byte bound regime, with one more
 // stream per pass than the default kernels.  Every output slot is written
 // (zeros, or finite values outside the valid band), so no uninitialised
-// memory can reach a Q * E or Qd * E product (0 * NaN).
-//  * forward_q_kernel and adjoint_backward_q_kernel split each pair
-//    across the CTAs of a thread-block cluster, rows in registers (the
-//    note before forward_q_kernel): a pair holds S <= 32,768 slots.
-//  * backward_q_kernel and adjoint_forward_q_kernel (first versions): one
-//    CTA per pair walks all K diagonals, threads along the slot axis
-//    (coalesced loads and stores of each diagonal row), the rolling rows
-//    (3 x S floats) in shared memory with one __syncthreads() per
-//    diagonal, so a pair holds S <= 19,370 slots on an H100.
+// memory can reach a Q * E or Qd * E product (0 * NaN).  All four split
+// each pair across the CTAs of a thread-block cluster, the DP rows in
+// registers (the note before forward_q_kernel), so a pair holds
+// S <= 32,768 slots in each, and so does the pallas_long training step.
 //
 // Storage menu (deepblast_torch/ops/menu.py; deepblast_tpu/ops/dp_bm.py
 // DTypeMenu): the streams of the default kernels and the relayouts are
@@ -996,10 +991,12 @@ __global__ void __launch_bounds__(1024)
 // Q-stream kernels (the pallas / pallas_long backends)
 // ---------------------------------------------------------------------------
 
-// The split Q kernels (forward_q_kernel and adjoint_backward_q_kernel): a
-// pair's slots split across the C CTAs of a thread-block cluster, the DP
-// rows in registers.  What bounds them on the H100: on paper bytes (the
-// forward moves 2 streams in and 3 out, the adjoint backward 7 in and 2
+// The split Q kernels (forward_q_kernel, backward_q_kernel,
+// adjoint_forward_q_kernel and adjoint_backward_q_kernel): a pair's slots
+// split across the C CTAs of a thread-block cluster, the DP rows in
+// registers.  What bounds them on the H100: on paper bytes (the forward
+// moves 2 streams in and 3 out, the backward 3 in and 1-2 out, the
+// adjoint forward 4-5 in and 3 out, the adjoint backward 7 in and 2
 // out), in practice the chain of K dependent diagonals of a pair: each
 // diagonal costs one barrier and one dependent max3 (or product) chain,
 // so the design spreads a pair over SMs and keeps the chain short (at 8
@@ -1007,9 +1004,10 @@ __global__ void __launch_bounds__(1024)
 // cluster barrier, the rest the strip's two dependent slots; PERF.md).
 // Where the first versions lost their time: one CTA walked all K
 // diagonals of a pair, so at the long path's B = 2-8 pairs 124-130 of
-// 132 SMs sat idle and each diagonal (up to 4,097 smoothed maxima) was
-// issued by one SM, from rows in shared memory behind one
-// __syncthreads() a diagonal, its loads not issued ahead.
+// 132 SMs sat idle and each diagonal (up to 4,097 slots) was issued by
+// one SM, from rows in shared memory behind one __syncthreads() a
+// diagonal, its loads not issued ahead (and the backward read each Q
+// value up to five times).
 //  * B clusters of C CTAs (C = 1, 2, 4, 8 or 16, chosen by ops/dp_cuda.py
 //    _cluster_size: about 132 / B, and at least enough CTAs for the pair's
 //    slots), launched with cudaLaunchKernelEx and a cluster dimension.  CTA
@@ -1018,13 +1016,16 @@ __global__ void __launch_bounds__(1024)
 //    t the T = Q_STRIP slots from s0 = c Sc + t T, in registers, as in the
 //    strip kernels.  CTAs whose slots lie past S (or a ragged pair's n)
 //    compute zeros but take every barrier.
-//  * The dependence between CTAs is one slot a diagonal: the forward's
-//    cell 0 needs V[r-1] and V[r-2] at s0-1, from the CTA on the left; the
-//    adjoint backward's last cell needs X[r+1] and M[r+2] at s0+T, from
-//    the CTA on the right.  The producing thread stores its edge value
-//    into the neighbour's shared memory (mapa + st.shared::cluster, a
-//    distributed shared-memory store); inside a CTA it comes by shuffle
-//    in a warp and through `edge` between warps.
+//  * The dependence between CTAs is one slot a diagonal.  The forward
+//    passes (diagonals ascending): cell 0 needs V[r-1] and V[r-2] (Vd in
+//    the adjoint forward) at s0-1, from the CTA on the left.  The reverse
+//    passes (rows descending): the last cell needs X[r+1] and M[r+2] at
+//    s0+T (the backward's products Qx E, Qm E; the adjoint backward's
+//    Qdx E + Qx Ed, Qdm E + Qm Ed), from the CTA on the right.  The
+//    producing thread stores its edge value into the neighbour's shared
+//    memory (mapa + st.shared::cluster, a distributed shared-memory
+//    store); inside a CTA it comes by shuffle in a warp and through `edge`
+//    between warps.
 //  * One split cluster barrier a diagonal.  A thread computes its T-1
 //    slots that need no neighbour first, stores its edge value, waits
 //    (barrier.cluster.wait.acquire) for the barrier of the diagonal before,
@@ -1047,7 +1048,14 @@ __global__ void __launch_bounds__(1024)
 //    a smaller one (never below what the pair needs) or raises.
 //  * No 16-byte copies: (B, K, S) rows are not 16-byte aligned at odd S, so
 //    the input rows of the next diagonals are in flight in a register ring,
-//    as in the strip kernels.
+//    as in the strip kernels.  The arrive's release (and, with one CTA a
+//    pair, the named barrier) waits until the thread's earlier loads are
+//    performed, so the reverse passes and the adjoint forward (rings of
+//    2) issue row r-D (r+D) right after the arrive of row r, a whole
+//    diagonal before the next arrive, not among the cells: 19-22% faster
+//    at the long shapes.  The forward keeps its loads in the cells, where
+//    the max3 chain hides them (after the arrive it was 8-12% slower at
+//    the long shapes; PERF.md).
 // A pair holds S <= 32,768 slots: 16 CTAs of 1,024 threads of strips of
 // 2 (ops/dp_cuda.py CLUSTER_SLOTS).
 constexpr int Q_STRIP = 2, Q_EDGE_RING = 3;
@@ -1057,6 +1065,9 @@ constexpr int Q_STRIP = 2, Q_EDGE_RING = 3;
 // one CTA a pair (64 registers and spills at 2, and 27% slower at the
 // bench shape; in clusters 2 is 2% faster; PERF.md).
 constexpr int Q_FWD_RING = 2;
+// backward_q (three input rows a diagonal) and adjoint_forward_q (four,
+// five with Za): 2 (a ring of 1 was 1-19% slower; PERF.md).
+constexpr int Q_BWD_RING = 2, Q_AFWD_RING = 2;
 __host__ __device__ constexpr int q_abwd_ring(bool cluster) {
   return cluster ? 2 : 1;
 }
@@ -1201,104 +1212,284 @@ __global__ void __launch_bounds__(1024)
   if (kCluster) cluster_wait();
 }
 
-// One CTA per pair, rows descending, E rows r+2, r+1, r in shared memory
-// (3 x S); Qx[r+1], Qy[r+1] and Qm[r+2] are read from the forward's
-// streams (zero past the last row, as _bwd_kernel's zero carries,
-// dp_pallas.py:270-325).  With kWantGap it also writes
-// EA[r] = E[r] (Qx[r] + Qy[r]), _backward_v2's gap product (:595-600).
-template <bool kWantGap>
-__global__ void backward_q_kernel(const float *__restrict__ qx,
-                                  const float *__restrict__ qm,
-                                  const float *__restrict__ qy,
-                                  const int *__restrict__ ln,
-                                  const int *__restrict__ lm,
-                                  const float *__restrict__ et, int K, int S,
-                                  int lo, float *__restrict__ eo,
-                                  float *__restrict__ eao) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// Backward, rows descending: _bwd_kernel's order (dp_pallas.py:301-318)
+// with _backward_v2's gap product EA[r] = E[r] (Qx[r] + Qy[r])
+// (:595-600) under kWantGap, split across the cluster like the adjoint
+// backward, whose dependence runs the same way.  It reads Q and
+// recomputes nothing.  The first version kept three rows of E in shared
+// memory and read each Q row up to five times (Qx and Qy as rows r+1 and
+// r, Qm as row r+2, EA's Qx and Qy as row r); here each Q element is read
+// once, at its own row, D rows ahead, and the products of the rows before
+// that the plain version sums are carried in registers:
+//   E[r] = (shl(X[r+1]) + shl(M[r+2])) + Y[r+1]
+// with X = Qx E, M = Qm E and Y = Qy E (x1, m1, m2, y1), masked to the
+// band, then + Et at the terminal, and at the strip's right edge slot
+// s0+T of X[r+1] and M[r+2] (rx, rmb) from the right lane by shuffle, the
+// right warp through `edge`, or the right CTA, which stores them into
+// `xedge`.  E is zero off the band but at the terminal (in sw with n = 1
+// or m = 1 the terminal lies off the band), so Q is loaded on the band
+// ahead of the chain and off it only where E is non-zero, on the spot;
+// where E is zero the kernel stores EA = 0 and carries zero products
+// without reading Q (the plain version forms 0 x Q, a zero that may be
+// -0.0, which compares equal: torch.equal, chip_smoke._exact).
+template <bool kWantGap, bool kCluster>
+__global__ void __launch_bounds__(1024)
+    backward_q_kernel(const float *__restrict__ qx,
+                      const float *__restrict__ qm,
+                      const float *__restrict__ qy,
+                      const int *__restrict__ ln, const int *__restrict__ lm,
+                      const float *__restrict__ et, int K, int S, int lo,
+                      int C, float *__restrict__ eo,
+                      float *__restrict__ eao) {
+  // the last slot of a strip waits for the barrier, the others do not
+  constexpr int T = Q_STRIP, D = Q_BWD_RING, R = Q_EDGE_RING;
+  __shared__ float edge[R][2][32];  // X, M of lane 0 of warp w, for w-1
+  __shared__ float xedge[R][2];     // the right CTA's first slot, stored by it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int c = blockIdx.x % C, b = blockIdx.x / C;
+  const int s0 = (c * (int)blockDim.x + (int)threadIdx.x) * T;
   const int n = ln[b], m = lm[b];
   const float e_t = et[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = K - 1; r >= 0; --r) {
-    const float *e1 = smem + ((r + 1) % 3) * S;  // row r+1
-    const float *e2 = smem + ((r + 2) % 3) * S;  // row r+2
-    float *en = smem + (r % 3) * S;              // row r
-    const bool has1 = r + 1 < K, has2 = r + 2 < K;
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    const size_t row1 = row + S, row2 = row + 2 * (size_t)S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      bool in = s + 1 < S;
-      float qx1r = (has1 && in) ? qx[row1 + s + 1] : 0.0f;
-      float qm2r = (has2 && in) ? qm[row2 + s + 1] : 0.0f;
-      float qy1 = has1 ? qy[row1 + s] : 0.0f;
-      float e1s = e1[s];
-      float e1r = in ? e1[s + 1] : 0.0f;
-      float e2r = in ? e2[s + 1] : 0.0f;
-      float e = qx1r * e1r + qm2r * e2r + qy1 * e1s;
-      e = cell_valid(s, k, n, m, lo) ? e : 0.0f;
-      if (s == n && k == n + m) e = e + e_t;
-      eo[row + s] = e;
-      en[s] = e;
-      if (kWantGap) eao[row + s] = e * (qx[row + s] + qy[row + s]);
-    }
-    __syncthreads();
+  const uint32_t left =
+      kCluster && c > 0 ? cluster_map(&xedge[0][0], c - 1) : 0u;
+  float x1[T], m1[T], m2[T], y1[T];
+  float rx = 0.0f, rma = 0.0f, rmb = 0.0f, dx = 0.0f, dm = 0.0f;
+  float px_[D][T], pm_[D][T], py_[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) x1[i] = m1[i] = m2[i] = y1[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d: Q on the band
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool band = q >= 0 && in_band(s, q + 2, n, m, lo);
+    const size_t at = base + (size_t)q * S + s;
+    px_[d][i] = band ? qx[at] : 0.0f;
+    pm_[d][i] = band ? qm[at] : 0.0f;
+    py_[d][i] = band ? qy[at] : 0.0f;
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, K - 1 - d, i);
+  if (kCluster) {
+    cluster_arrive();
+    cluster_wait();
   }
+
+  for (int r0 = K - 1; r0 >= 0; r0 -= D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 - d;
+      if (r < 0) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float xn[T], mn[T];
+      // slot s0+i of row r, its right neighbours X[r+1], M[r+2] at s0+i+1
+      auto cell = [&](int i, float xr, float mr) {
+        const int s = s0 + i;
+        float ax = px_[d][i], am = pm_[d][i], ay = py_[d][i];
+        const bool band = in_band(s, k, n, m, lo);
+        float e = band ? (xr + mr) + y1[i] : 0.0f;
+        if (s == n && k == n + m) e = e + e_t;
+        float x = 0.0f, mm = 0.0f, y = 0.0f, ea = 0.0f;
+        if (e != 0.0f) {
+          if (!band) {
+            const size_t at = row + s;
+            ax = qx[at];
+            am = qm[at];
+            ay = qy[at];
+          }
+          x = ax * e;
+          mm = am * e;
+          y = ay * e;
+          if (kWantGap) ea = e * (ax + ay);
+        }
+        if (s < S) {
+          eo[row + s] = e;
+          if (kWantGap) eao[row + s] = ea;
+        }
+        xn[i] = x;
+        mn[i] = mm;
+        y1[i] = y;
+      };
+#pragma unroll
+      for (int i = 0; i + 1 < T; ++i) cell(i, x1[i + 1], m2[i + 1]);
+      // X[r], M[r] at s0 to the left: by shuffle, to the previous warp, to
+      // the previous CTA
+      const float ndx = __shfl_down_sync(0xffffffffu, xn[0], 1);
+      const float ndm = __shfl_down_sync(0xffffffffu, mn[0], 1);
+      if (lane == 0) {
+        edge[r % R][0][warp] = xn[0];
+        edge[r % R][1][warp] = mn[0];
+      }
+      if (kCluster && threadIdx.x == 0 && c > 0) {
+        cluster_store(left + (uint32_t)(r % R) * 8u, xn[0]);
+        cluster_store(left + (uint32_t)(r % R) * 8u + 4u, mn[0]);
+      }
+      rmb = rma;  // M[r+2] at s0+T
+      if (r + 1 < K) {
+        q_wait<kCluster>();
+        // X[r+1], M[r+1] at s0+T (0 past the last slot)
+        if (lane < 31) {
+          rx = dx;
+          rma = dm;
+        } else if (warp + 1 < nwarps) {
+          rx = edge[(r + 1) % R][0][warp + 1];
+          rma = edge[(r + 1) % R][1][warp + 1];
+        } else {
+          const bool next = kCluster && c + 1 < C;
+          rx = next ? xedge[(r + 1) % R][0] : 0.0f;
+          rma = next ? xedge[(r + 1) % R][1] : 0.0f;
+        }
+      }
+      cell(T - 1, rx, rmb);
+      q_arrive<kCluster>();
+      // row r-D into the ring slot row r has read: after the arrive, whose
+      // release waits for the thread's loads in flight
+#pragma unroll
+      for (int i = 0; i < T; ++i) fetch(d, r - D, i);
+      dx = ndx;
+      dm = ndm;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        x1[i] = xn[i];
+        m2[i] = m1[i];
+        m1[i] = mn[i];
+      }
+    }
+  }
+  if (kCluster) cluster_wait();
 }
 
-// Tangent of the Q forward: one CTA per pair, Vd rows r-1, r-2, r in shared
-// memory (3 x S), Q of row r read from the streams; _adj_fwd_kernel's order
-// (dp_pallas.py:392-417): xd = Za + shr(Vd[r-1]), md = shr(Vd[r-2]),
-// yd = Za + Vd[r-1], Vd[r] = Zt + Qx xd + Qm md + Qy yd (masked),
-// Qd = hessian3(Q, (xd, md, yd)) written for every slot.  Without kHasZa
-// there is no Za stream (a zero gap cotangent; 0 + x = x, so it equals the
-// TPU's zeros stream).
-template <int OP, bool kHasZa>
-__global__ void adjoint_forward_q_kernel(
-    const float *__restrict__ qx, const float *__restrict__ qm,
-    const float *__restrict__ qy, const float *__restrict__ zt,
-    const float *__restrict__ za, const int *__restrict__ ln,
-    const int *__restrict__ lm, int K, int S, int lo,
-    float *__restrict__ vtd, float *__restrict__ qdxo,
-    float *__restrict__ qdmo, float *__restrict__ qdyo) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// Tangent of the Q forward, diagonals ascending: _adj_fwd_kernel's order
+// (dp_pallas.py:392-417), xd = Za + shr(Vd[r-1]), md = shr(Vd[r-2]),
+// yd = Za + Vd[r-1], Vd[r] = ((Zt + Qx xd) + Qm md) + Qy yd masked,
+// Qd = hessian3(Q, (xd, md, yd)), split across the cluster like the
+// forward, whose tangent it is.  Without kHasZa there is no Za stream (a
+// zero gap cotangent; 0 + x = x, so it equals the TPU's zeros stream).
+// Registers: Vd rows r-1 and r-2 of the strip (v1, v2) and, at its left
+// edge, slot s0-1 of both (l1, l2; Vd[r-2] at s0-1 is the diagonal
+// before's l1).  The first version kept three rows of Vd in shared memory
+// behind one __syncthreads() a diagonal, one CTA a pair.  Qd is written at
+// every slot (MASK_Q = False, dp_pallas.py:68): off the band, slots next to
+// it see non-zero Vd neighbours and Za, so as in the forward there is no
+// band shortcut; Q and Za are loaded at every slot, Zt only where the cell
+// is valid (Vd is masked there), D rows ahead.  The dependent chain of a
+// diagonal is Vd's three products and sums; hessian3 hangs off it.
+template <int OP, bool kHasZa, bool kCluster>
+__global__ void __launch_bounds__(1024)
+    adjoint_forward_q_kernel(const float *__restrict__ qx,
+                             const float *__restrict__ qm,
+                             const float *__restrict__ qy,
+                             const float *__restrict__ zt,
+                             const float *__restrict__ za,
+                             const int *__restrict__ ln,
+                             const int *__restrict__ lm, int K, int S,
+                             int lo, int C, float *__restrict__ vtd,
+                             float *__restrict__ qdxo,
+                             float *__restrict__ qdmo,
+                             float *__restrict__ qdyo) {
+  // slot 0 of a strip waits for the barrier, the others do not
+  constexpr int T = Q_STRIP, D = Q_AFWD_RING, R = Q_EDGE_RING;
+  __shared__ float edge[R][32];  // lane 31 of warp w, for warp w+1
+  __shared__ float xedge[R];     // the left CTA's last slot, stored by it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x % C, b = blockIdx.x / C;
+  const int s0 = (c * (int)blockDim.x + (int)threadIdx.x) * T;
+  const bool last = threadIdx.x + 1 == blockDim.x;
   const int n = ln[b], m = lm[b];
   const size_t base = (size_t)b * K * S;
-  for (int s = threadIdx.x; s < 3 * S; s += blockDim.x) smem[s] = 0.0f;
-  __syncthreads();
-  for (int r = 0; r < K; ++r) {
-    const float *v1 = smem + ((r + 2) % 3) * S;  // row r-1
-    const float *v2 = smem + ((r + 1) % 3) * S;  // row r-2
-    float *vn = smem + (r % 3) * S;              // row r
-    const int k = r + 2;
-    const size_t row = base + (size_t)r * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float px = qx[row + s], pm = qm[row + s], py = qy[row + s];
-      float v1s = v1[s];
-      float v1l = s > 0 ? v1[s - 1] : 0.0f;
-      float md = s > 0 ? v2[s - 1] : 0.0f;
-      float xd = v1l, yd = v1s;
-      if (kHasZa) {
-        float zas = za[row + s];
-        xd = zas + v1l;
-        yd = zas + v1s;
-      }
-      float v = zt[row + s] + px * xd + pm * md + py * yd;
-      float hx, hm, hy;
-      hessian3<OP>(px, pm, py, xd, md, yd, hx, hm, hy);
-      qdxo[row + s] = hx;
-      qdmo[row + s] = hm;
-      qdyo[row + s] = hy;
-      v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
-      if (s == n && k == n + m) vtd[b] = v;
-      vn[s] = v;
-    }
-    __syncthreads();
+  const uint32_t right =
+      kCluster && c + 1 < C ? cluster_map(&xedge[0], c + 1) : 0u;
+  float v1[T], v2[T], l1 = 0.0f, l2 = 0.0f, up = 0.0f;
+  float px_[D][T], pm_[D][T], py_[D][T], pz[D][T], pa[D][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) v1[i] = v2[i] = 0.0f;
+
+  // issue the loads of slot s0+i of row q into ring slot d
+  auto fetch = [&](int d, int q, int i) {
+    const int s = s0 + i;
+    const bool in = q < K && s < S;
+    const size_t at = base + (size_t)q * S + s;
+    px_[d][i] = in ? qx[at] : 0.0f;
+    pm_[d][i] = in ? qm[at] : 0.0f;
+    py_[d][i] = in ? qy[at] : 0.0f;
+    if (kHasZa) pa[d][i] = in ? za[at] : 0.0f;
+    pz[d][i] = q < K && cell_valid(s, q + 2, n, m, lo) ? zt[at] : 0.0f;
+  };
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int i = 0; i < T; ++i) fetch(d, d, i);
+  if (kCluster) {
+    cluster_arrive();
+    cluster_wait();
   }
+
+  for (int r0 = 0; r0 < K; r0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int r = r0 + d;
+      if (r >= K) break;
+      const int k = r + 2;
+      const size_t row = base + (size_t)r * S;
+      float vn[T];
+      // slot s0+i of row r, its left neighbours Vd[r-1], Vd[r-2] at s0+i-1
+      auto cell = [&](int i, float v1l, float v2l) {
+        const int s = s0 + i;
+        const float px = px_[d][i], pm = pm_[d][i], py = py_[d][i];
+        const float z = pz[d][i], a = kHasZa ? pa[d][i] : 0.0f;
+        float xd = v1l, yd = v1[i];
+        if (kHasZa) {
+          xd = a + v1l;
+          yd = a + v1[i];
+        }
+        const float md = v2l;
+        float v = z + px * xd + pm * md + py * yd;
+        float hx, hm, hy;
+        hessian3<OP>(px, pm, py, xd, md, yd, hx, hm, hy);
+        if (s < S) {
+          qdxo[row + s] = hx;
+          qdmo[row + s] = hm;
+          qdyo[row + s] = hy;
+        }
+        v = cell_valid(s, k, n, m, lo) ? v : 0.0f;
+        if (s == n && k == n + m) vtd[b] = v;
+        vn[i] = v;
+      };
+#pragma unroll
+      for (int i = T - 1; i >= 1; --i) cell(i, v1[i - 1], v2[i - 1]);
+      // Vd[r][s0+T-1] to the right: by shuffle, to the next warp, to the
+      // next CTA
+      const float nup = __shfl_up_sync(0xffffffffu, vn[T - 1], 1);
+      if (lane == 31) edge[r % R][warp] = vn[T - 1];
+      if (kCluster && last && c + 1 < C)
+        cluster_store(right + (uint32_t)(r % R) * 4u, vn[T - 1]);
+      if (r > 0) {
+        q_wait<kCluster>();
+        // Vd[r-1][s0-1]
+        l1 = lane ? up
+                  : (warp ? edge[(r - 1) % R][warp - 1]
+                          : (kCluster && c ? xedge[(r - 1) % R] : 0.0f));
+      }
+      cell(0, l1, l2);
+      q_arrive<kCluster>();
+      // row r+D into the ring slot row r has read: after the arrive, whose
+      // release waits for the thread's loads in flight
+#pragma unroll
+      for (int i = 0; i < T; ++i) fetch(d, r + D, i);
+      up = nup;
+      l2 = l1;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        v2[i] = v1[i];
+        v1[i] = vn[i];
+      }
+    }
+  }
+  if (kCluster) cluster_wait();
 }
 
 // Tangent of the Q backward, rows descending: _adj_bwd_kernel's order
@@ -1340,6 +1531,9 @@ __global__ void __launch_bounds__(1024)
                               float *__restrict__ edao) {
   // the last slot of a strip waits for the barrier, the others do not
   constexpr int T = Q_STRIP, D = q_abwd_ring(kCluster), R = Q_EDGE_RING;
+  // the ring's loads after the arrive (a ring of one: in the cells, so
+  // that row r-1's are in flight while row r waits)
+  constexpr bool kLateLoads = D > 1;
   __shared__ float edge[R][2][32];  // X, M of lane 0 of warp w, for w-1
   __shared__ float xedge[R][2];     // the right CTA's first slot, stored by it
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1394,7 +1588,7 @@ __global__ void __launch_bounds__(1024)
         const float e = pe[d][i];
         float ax = px_[d][i], am = pm_[d][i], ay = py_[d][i];
         float hx = hx_[d][i], hm = hm_[d][i], hy = hy_[d][i];
-        fetch(d, r - D, i);
+        if (!kLateLoads) fetch(d, r - D, i);
         const bool band = in_band(s, k, n, m, lo);
         const float ed = band ? xr + mr + yd1[i] + yq1[i] : 0.0f;
         float x = 0.0f, mm = 0.0f, yd = 0.0f, yq = 0.0f, eda = 0.0f;
@@ -1455,6 +1649,10 @@ __global__ void __launch_bounds__(1024)
       }
       cell(T - 1, rx, rmb);
       q_arrive<kCluster>();
+      if (kLateLoads) {
+#pragma unroll
+        for (int i = 0; i < T; ++i) fetch(d, r - D, i);
+      }
       dx = ndx;
       dm = ndm;
 #pragma unroll
@@ -1466,30 +1664,6 @@ __global__ void __launch_bounds__(1024)
     }
   }
   if (kCluster) cluster_wait();
-}
-
-int threads_for(int S) {
-  int t = ((S + 31) / 32) * 32;
-  return t > 1024 ? 1024 : t;
-}
-
-// The launch of the Q kernels not yet split (backward_q_kernel,
-// adjoint_forward_q_kernel): one CTA per pair, threads along the slots,
-// `rows` rolling rows of S floats in dynamic shared memory; opts in to more
-// than the default 48 KB when the rows need it.  ops/dp_cuda.py SMEM_ROWS
-// holds the same row counts and refuses, before the launch, a pair whose
-// rows exceed the device's limit.
-template <typename Kern, typename... A>
-cudaError_t launch_rows(Kern kern, int rows, int B, int S, cudaStream_t st,
-                        A... args) {
-  size_t smem = (size_t)rows * S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<B, threads_for(S), smem, st>>>(args...);
-  return cudaGetLastError();
 }
 
 // One CTA per pair of ceil(S / T) threads, rounded up to whole warps.  The
@@ -1862,47 +2036,6 @@ int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
 
 #endif
 
-#if DP_PART_IS(0)
-// eao == nullptr: E only; else also EA = E (Qx + Qy).
-int dp_backward_q(const float *qx, const float *qm, const float *qy,
-                  const int *ln, const int *lm, const float *et, int B, int K,
-                  int S, int lo, float *eo, float *eao, void *stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(eao ? launch_rows(backward_q_kernel<true>, 3, B, S, st, qx, qm,
-                                 qy, ln, lm, et, K, S, lo, eo, eao)
-                   : launch_rows(backward_q_kernel<false>, 3, B, S, st, qx,
-                                 qm, qy, ln, lm, et, K, S, lo, eo,
-                                 (float *)nullptr));
-}
-
-// za == nullptr: no gap cotangent, the kernel without a Za stream.
-int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
-                         const float *zt, const float *za, const int *ln,
-                         const int *lm, int B, int K, int S, int lo, int op,
-                         float *vtd, float *qdxo, float *qdmo, float *qdyo,
-                         void *stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  DP_SWITCH_OP(return (int)(
-      za ? launch_rows(adjoint_forward_q_kernel<OP, true>, 3, B, S, st, qx,
-                       qm, qy, zt, za, ln, lm, K, S, lo, vtd, qdxo, qdmo,
-                       qdyo)
-         : launch_rows(adjoint_forward_q_kernel<OP, false>, 3, B, S, st, qx,
-                       qm, qy, zt, (const float *)nullptr, ln, lm, K, S, lo,
-                       vtd, qdxo, qdmo, qdyo)))
-}
-
-// The most dynamic shared memory a block of `device` may opt in to, in
-// bytes, or -1 if the query fails.
-int dp_max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
-}
-
-#endif
-
 #if DP_PART_IS(5)
 // The split Q kernels: B clusters of C CTAs (C in 1..16, chosen by
 // ops/dp_cuda.py).
@@ -1933,16 +2066,84 @@ int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,
                                  lo, C, edo, edao))
 }
 
-// How many clusters of C CTAs the device holds at once for a pair of S
-// slots: `kernel` 0 forward_q (operator `op`), 1 adjoint_backward_q.  0: a
-// launch of that size would fail; negative: a CUDA error.
-int dp_q_clusters(int kernel, int op, int S, int C) {
-  if (kernel == 0) {
-    DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-        C, KCL, return max_clusters(forward_q_kernel<OP, KCL>, C, S)))
+// eao == nullptr: E only; else also EA = E (Qx + Qy).
+int dp_backward_q(const float *qx, const float *qm, const float *qy,
+                  const int *ln, const int *lm, const float *et, int B, int K,
+                  int S, int lo, int C, float *eo, float *eao,
+                  void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || K <= 0) return (int)cudaSuccess;
+  if (eao) {
+    DP_SWITCH_Q_CLUSTER(
+        C, KCL,
+        return (int)launch_cluster(backward_q_kernel<true, KCL>, C, B, S, st,
+                                   qx, qm, qy, ln, lm, et, K, S, lo, C, eo,
+                                   eao))
   }
   DP_SWITCH_Q_CLUSTER(
-      C, KCL, return max_clusters(adjoint_backward_q_kernel<KCL>, C, S))
+      C, KCL,
+      return (int)launch_cluster(backward_q_kernel<false, KCL>, C, B, S, st,
+                                 qx, qm, qy, ln, lm, et, K, S, lo, C, eo,
+                                 (float *)nullptr))
+}
+
+// za == nullptr: no gap cotangent, the kernel without a Za stream.
+int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
+                         const float *zt, const float *za, const int *ln,
+                         const int *lm, int B, int K, int S, int lo, int op,
+                         int C, float *vtd, float *qdxo, float *qdmo,
+                         float *qdyo, void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || K <= 0) return (int)cudaSuccess;
+  if (za) {
+    DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+        C, KCL,
+        return (int)launch_cluster(adjoint_forward_q_kernel<OP, true, KCL>, C,
+                                   B, S, st, qx, qm, qy, zt, za, ln, lm, K, S,
+                                   lo, C, vtd, qdxo, qdmo, qdyo)))
+  }
+  DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+      C, KCL,
+      return (int)launch_cluster(adjoint_forward_q_kernel<OP, false, KCL>, C,
+                                 B, S, st, qx, qm, qy, zt,
+                                 (const float *)nullptr, ln, lm, K, S, lo, C,
+                                 vtd, qdxo, qdmo, qdyo)))
+}
+
+// How many clusters of C CTAs the device holds at once for a pair of S
+// slots: `kernel` 0 forward_q, 1 adjoint_backward_q, 2 backward_q (with the
+// gap output if `variant`), 3 adjoint_forward_q (with a Za stream if
+// `variant`), the instance of operator `op` that launches.  0: a launch of
+// that size would fail; negative: a CUDA error.
+int dp_q_clusters(int kernel, int op, int variant, int S, int C) {
+  switch (kernel) {
+    case 0:
+      DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+          C, KCL, return max_clusters(forward_q_kernel<OP, KCL>, C, S)))
+    case 1:
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL, return max_clusters(adjoint_backward_q_kernel<KCL>, C, S))
+    case 2:
+      if (variant) {
+        DP_SWITCH_Q_CLUSTER(
+            C, KCL, return max_clusters(backward_q_kernel<true, KCL>, C, S))
+      }
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL, return max_clusters(backward_q_kernel<false, KCL>, C, S))
+    case 3:
+      if (variant) {
+        DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+            C, KCL,
+            return max_clusters(adjoint_forward_q_kernel<OP, true, KCL>, C,
+                                S)))
+      }
+      DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return max_clusters(adjoint_forward_q_kernel<OP, false, KCL>, C,
+                              S)))
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
 }
 
 #endif

@@ -49,14 +49,13 @@ launches on PyTorch's current stream, raises if the launch reports an
 error, and adds one to its entry in :data:`LAUNCHES`.  The default
 backend's DP kernels (the forward, the score-only forward, the backward
 and the two adjoint passes) keep a pair's rows in the registers of at
-most 1,024 threads (:data:`MAX_SLOTS`); the split Q kernels
-(:func:`forward_q`, :func:`adjoint_backward_q`) in the registers of a
-thread-block cluster of up to 16 CTAs a pair (:data:`CLUSTER_SLOTS`; the
-cluster size is :func:`_cluster_size`'s rule); the other two Q kernels
-:data:`SMEM_ROWS` rows of S floats in shared memory.  A pair padded past
-what the kernel holds on the device raises a ``ValueError`` naming the
-limit before anything is launched.  The plain versions with the same
-signatures are in ``ops/dp_ref.py``; the wrappers never fall back to them.
+most 1,024 threads (:data:`MAX_SLOTS`); the four Q kernels in the
+registers of a thread-block cluster of up to 16 CTAs a pair
+(:data:`CLUSTER_SLOTS`; the cluster size is :func:`_cluster_size`'s
+rule).  A pair padded past what the kernel holds raises a ``ValueError``
+naming the limit before anything is launched.  The plain versions with
+the same signatures are in ``ops/dp_ref.py``; the wrappers never fall
+back to them.
 """
 
 from __future__ import annotations
@@ -73,8 +72,8 @@ import torch
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.menu import E_SCALE, I16_MAX, as_menu
 
-__all__ = ["LAUNCHES", "SPLITS", "SMEM_ROWS", "MAX_SLOTS", "CLUSTER_SLOTS",
-           "Q_CLUSTERS", "Q_STRIP", "reset_launches", "build", "max_smem",
+__all__ = ["LAUNCHES", "SPLITS", "MAX_SLOTS", "CLUSTER_SLOTS",
+           "Q_CLUSTERS", "Q_STRIP", "reset_launches", "build",
            "skew", "skew_pair", "unskew", "forward", "forward_score",
            "backward", "adjoint_forward", "adjoint_backward", "forward_q",
            "backward_q", "adjoint_forward_q", "adjoint_backward_q"]
@@ -102,11 +101,6 @@ LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
             "adjoint_backward_q": 0}
 
-#: rows of S floats the Q-stream kernels not yet split keep in shared memory
-#: (the ``rows`` of their ``launch_rows`` calls in ``csrc/dp_kernels.cu``):
-#: with three rows they hold S <= 19,370 on an H100, the limit of the
-#: ``pallas_long`` training step
-SMEM_ROWS = {"backward_q": 3, "adjoint_forward_q": 3}
 #: the most slots a pair may have in the strip kernels, which keep its rows
 #: in registers: 1,024 threads of the widest strip
 #: (``DP_SWITCH_FORWARD_STRIP`` for the forward passes,
@@ -123,18 +117,19 @@ Q_STRIP = 2
 #: the fewest slots :func:`_cluster_size` gives a CTA: one warp of strips
 Q_MIN_CTA_SLOTS = 32 * Q_STRIP
 #: the most slots a pair may have in the split Q kernels: 16 CTAs of 1,024
-#: threads of strips
-CLUSTER_SLOTS = {"forward_q": 16 * 1024 * Q_STRIP,
-                 "adjoint_backward_q": 16 * 1024 * Q_STRIP}
+#: threads of strips; the ``pallas_long`` training step runs all four
+CLUSTER_SLOTS = {k: 16 * 1024 * Q_STRIP for k in
+                 ("forward_q", "backward_q", "adjoint_forward_q",
+                  "adjoint_backward_q")}
 #: the split of each split Q kernel's last launch: pairs ``B``, slots
 #: ``S``, cluster size ``C``, ``threads`` a CTA, and ``clusters``, how many
 #: clusters of that size the device holds at once
-SPLITS = {"forward_q": None, "adjoint_backward_q": None}
-_Q_KERNEL_IDS = {"forward_q": 0, "adjoint_backward_q": 1}
+SPLITS = {k: None for k in CLUSTER_SLOTS}
+_Q_KERNEL_IDS = {"forward_q": 0, "adjoint_backward_q": 1, "backward_q": 2,
+                 "adjoint_forward_q": 3}
 
 _LIB = None
 _LOCK = threading.Lock()
-_MAX_SMEM = {}
 _MAX_CLUSTERS = {}
 
 
@@ -216,21 +211,19 @@ def _lib():
                                                 i, i, i, i, i, p, p, p]
             lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p,
                                          p, p, p]
-            lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
-                                          p]
+            lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p,
+                                          p, p]
             lib.dp_adjoint_forward_q.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                 i, i, i, p, p, p, p, p]
+                                                 i, i, i, i, p, p, p, p, p]
             lib.dp_adjoint_backward_q.argtypes = [p, p, p, p, p, p, p, p, p,
                                                   i, i, i, i, i, p, p, p]
-            lib.dp_q_clusters.argtypes = [i, i, i, i]
-            lib.dp_max_smem.argtypes = [i]
+            lib.dp_q_clusters.argtypes = [i, i, i, i, i]
             for fn in (lib.dp_skew, lib.dp_skew_pair, lib.dp_unskew,
                        lib.dp_forward,
                        lib.dp_backward, lib.dp_adjoint_forward,
                        lib.dp_adjoint_backward, lib.dp_forward_q,
                        lib.dp_backward_q, lib.dp_adjoint_forward_q,
-                       lib.dp_adjoint_backward_q, lib.dp_q_clusters,
-                       lib.dp_max_smem):
+                       lib.dp_adjoint_backward_q, lib.dp_q_clusters):
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -257,26 +250,11 @@ def _check_len(name, t, B, device):
                          f"on {device}")
 
 
-def max_smem(device):
-    """The most shared memory a block may opt in to on ``device``, in
-    bytes (232,448 on an H100)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _MAX_SMEM:
-        v = _lib().dp_max_smem(index)
-        if v <= 0:
-            raise RuntimeError(f"cannot read the shared-memory limit of "
-                               f"cuda:{index}")
-        _MAX_SMEM[index] = v
-    return _MAX_SMEM[index]
-
-
-def _check_smem(name, S, device):
+def _check_slots(name, S):
     """Raise a ``ValueError`` naming the limit when one pair of ``name``
-    does not fit: its rows in shared memory, its strips in the registers
-    of 1,024 threads, or, for the split Q kernels, of a cluster of them."""
-    limit = max_smem(device)
-    q_most = limit // (max(SMEM_ROWS.values()) * 4)
+    does not fit: its strips in the registers of 1,024 threads, or, for
+    the split Q kernels, of a cluster of them."""
+    q_most = max(CLUSTER_SLOTS.values())
     hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
             "queue A item 4)")
     if name in CLUSTER_SLOTS:
@@ -286,27 +264,17 @@ def _check_smem(name, S, device):
                 f"CUDA {name}: a pair padded to S = {S} slots exceeds the "
                 f"strips of one cluster (S <= {most} slots for this kernel: "
                 f"16 CTAs of 1,024 threads of {Q_STRIP} slots); the "
-                f"pallas_long training step is bound by backward_q and "
-                f"adjoint_forward_q at S <= {q_most} slots; {hint}")
+                f"pallas_long training step, which runs all four Q "
+                f"kernels, holds S <= {q_most} slots; {hint}")
         return
-    if name not in SMEM_ROWS and S <= q_most:
-        hint = (f'backend="pallas_long" keeps fewer rows and holds pairs up '
-                f"to S = {q_most} slots")
-    if name in MAX_SLOTS:
-        most = MAX_SLOTS[name]
-        if S > most:
-            raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots "
-                             f"exceeds the strips of one block (S <= {most} "
-                             f"slots for this kernel); {hint}")
-        return
-    need = SMEM_ROWS[name] * S * 4
-    if need <= limit:
-        return
-    most = limit // (SMEM_ROWS[name] * 4)
-    raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots needs "
-                     f"{need} bytes of shared memory per block, and this "
-                     f"device allows {limit} (S <= {most} slots for this "
-                     f"kernel); {hint}")
+    if S <= q_most:
+        hint = (f'backend="pallas_long" keeps its rows in the registers of '
+                f"a cluster and holds pairs up to S = {q_most} slots")
+    most = MAX_SLOTS[name]
+    if S > most:
+        raise ValueError(f"CUDA {name}: a pair padded to S = {S} slots "
+                         f"exceeds the strips of one block (S <= {most} "
+                         f"slots for this kernel); {hint}")
 
 
 def _q_threads(S, C):
@@ -315,15 +283,17 @@ def _q_threads(S, C):
     return (S + per - 1) // per * 32
 
 
-def _max_clusters(name, operator, S, C, device):
+def _max_clusters(name, operator, S, C, device, variant=False):
     """How many clusters of C CTAs of ``name`` (at S slots) the device holds
     at once (``cudaOccupancyMaxActiveClusters``; 0: a launch of that size
-    would fail)."""
-    key = (name, operator, S, C, device.index)
+    would fail), asked of the instance that launches: ``operator``'s, and
+    with ``variant`` the backward's with the gap output or the adjoint
+    forward's with a Za stream."""
+    key = (name, operator, bool(variant), S, C, device.index)
     if key not in _MAX_CLUSTERS:
         with torch.cuda.device(device):
-            n = _lib().dp_q_clusters(_Q_KERNEL_IDS[name], _OPS[operator], S,
-                                     C)
+            n = _lib().dp_q_clusters(_Q_KERNEL_IDS[name], _OPS[operator],
+                                     int(bool(variant)), S, C)
         if n < 0:
             raise RuntimeError(f"CUDA {name}: the occupancy query for "
                                f"clusters of {C} failed: cudaError {-n}")
@@ -331,7 +301,7 @@ def _max_clusters(name, operator, S, C, device):
     return _MAX_CLUSTERS[key]
 
 
-def _cluster_size(name, operator, B, S, device):
+def _cluster_size(name, operator, B, S, device, variant=False):
     """The cluster size of a split Q kernel's launch, the rule: the largest
     of :data:`Q_CLUSTERS` that gives each of the B C CTAs an SM of its own
     (B C <= the SM count) and each at least :data:`Q_MIN_CTA_SLOTS` slots,
@@ -347,23 +317,23 @@ def _cluster_size(name, operator, B, S, device):
     need = min(c for c in Q_CLUSTERS if c * 1024 * Q_STRIP >= S)
     for C in sorted(Q_CLUSTERS, reverse=True):
         if need <= C <= max(want, need) and \
-                _max_clusters(name, operator, S, C, device) > 0:
+                _max_clusters(name, operator, S, C, device, variant) > 0:
             return C
     raise ValueError(f"CUDA {name}: no cluster of {Q_CLUSTERS} CTAs that "
                      f"holds a pair of S = {S} slots can be launched on "
                      f"this device")
 
 
-def _split(name, operator, B, S, device):
+def _split(name, operator, B, S, device, variant=False):
     """The cluster size C of a split Q kernel's launch
-    (:func:`_cluster_size`), recorded in :data:`SPLITS`; raises a
-    ``ValueError`` when C CTAs do not hold the pair or the device cannot
-    launch clusters of that size."""
-    C = _cluster_size(name, operator, B, S, device)
+    (:func:`_cluster_size`; ``variant`` as :func:`_max_clusters`), recorded
+    in :data:`SPLITS`; raises a ``ValueError`` when C CTAs do not hold the
+    pair or the device cannot launch clusters of that size."""
+    C = _cluster_size(name, operator, B, S, device, variant)
     if C * 1024 * Q_STRIP < S:
         raise ValueError(f"CUDA {name}: a pair of S = {S} slots does not fit "
                          f"{C} CTAs of 1,024 threads of {Q_STRIP} slots")
-    n = _max_clusters(name, operator, S, C, device)
+    n = _max_clusters(name, operator, S, C, device, variant)
     if n <= 0:
         raise ValueError(f"CUDA {name}: this device cannot launch clusters "
                          f"of {C} CTAs of {_q_threads(S, C)} threads")
@@ -392,12 +362,12 @@ def _train_e_dtype(menu):
 
 
 def _check_pass(name, shape, ln, lm, device):
-    """The lengths of a DP pass, and its rows against the device's shared
-    memory."""
+    """The lengths of a DP pass, and its slots against the kernel's
+    limit."""
     B, K, S = shape
     _check_len("ln", ln, B, device)
     _check_len("lm", lm, B, device)
-    _check_smem(name, S, device)
+    _check_slots(name, S)
 
 
 def _raise_on(rc, what):
@@ -624,17 +594,19 @@ def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
 def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
     """``(E, EA)``: the expected alignment stream read from the stored Q
     streams, seeded with ``Et``, and with ``want_gap`` ``EA = E (Qx + Qy)``
-    (else None)."""
+    (else None); each pair split across a cluster of
+    :func:`_cluster_size` CTAs."""
     shape = _check_streams(("Qx", "Qm", "Qy"), (qx, qm, qy))
     _check_stream("Et", Et, torch.float32, shape[:1])
     _check_pass("backward_q", shape, ln, lm, qx.device)
     B, K, S = shape
+    C = _split("backward_q", "softmax", B, S, qx.device, want_gap)
     E = torch.empty_like(qx)
     EA = torch.empty_like(qx) if want_gap else None
     with torch.cuda.device(qx.device):
         rc = _lib().dp_backward_q(
             _ptr(qx), _ptr(qm), _ptr(qy), _ptr(ln), _ptr(lm), _ptr(Et), B,
-            K, S, MODE_BOUNDS[mode][1], _ptr(E),
+            K, S, MODE_BOUNDS[mode][1], C, _ptr(E),
             _ptr(EA) if want_gap else None, _stream(qx.device))
     _raise_on(rc, "backward_q")
     LAUNCHES["backward_q"] += 1
@@ -645,20 +617,23 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
                       operator="softmax"):
     """``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``: the tangent of the Q
     forward along the skewed cotangents; ``za_s=None`` launches the kernel
-    without a Za stream (a zero gap cotangent)."""
+    without a Za stream (a zero gap cotangent); each pair split across a
+    cluster of :func:`_cluster_size` CTAs."""
     names, streams = ("Qx", "Qm", "Qy", "Zt"), (qx, qm, qy, zt_s)
     if za_s is not None:
         names, streams = names + ("Za",), streams + (za_s,)
     shape = _check_streams(names, streams)
     _check_pass("adjoint_forward_q", shape, ln, lm, qx.device)
     B, K, S = shape
+    C = _split("adjoint_forward_q", operator, B, S, qx.device,
+               za_s is not None)
     vtd = torch.zeros((B,), dtype=torch.float32, device=qx.device)
     qdx, qdm, qdy = (torch.empty_like(qx) for _ in range(3))
     with torch.cuda.device(qx.device):
         rc = _lib().dp_adjoint_forward_q(
             _ptr(qx), _ptr(qm), _ptr(qy), _ptr(zt_s),
             None if za_s is None else _ptr(za_s), _ptr(ln), _ptr(lm), B, K,
-            S, MODE_BOUNDS[mode][2], _OPS[operator], _ptr(vtd), _ptr(qdx),
+            S, MODE_BOUNDS[mode][2], _OPS[operator], C, _ptr(vtd), _ptr(qdx),
             _ptr(qdm), _ptr(qdy), _stream(qx.device))
     _raise_on(rc, "adjoint_forward_q")
     LAUNCHES["adjoint_forward_q"] += 1

@@ -19,10 +19,13 @@ backward in float32 and bf16 residuals, the decode (pair skew + forward +
 backward) in float32, bf16 residuals and the fast menu, and the
 differentiable DP step in float32 and bf16 residuals; then, at each of the
 three Q shapes, ``forward_q``, ``backward_q`` (E and E with EA),
-``adjoint_forward_q``, ``adjoint_backward_q`` and the ``pallas_long``
-expected alignment (skew x 2, forward_q, backward_q, unskew; the rows say
-alignments/s too), with the cluster size each split kernel's wrapper
-picked (``--only q``: these alone).  Each root's ptxas report of its
+``adjoint_forward_q`` (without and with Za), ``adjoint_backward_q``, the
+``pallas_long`` expected alignment (skew x 2, forward_q, backward_q,
+unskew; the rows say alignments/s too) and the ``pallas_long`` DP step
+(that expected alignment and ``backward()`` of ``<E, Z>``: adds
+adjoint_forward_q, adjoint_backward_q and their relayouts), with the
+cluster size each split kernel's wrapper picked (``--only q``: these
+alone).  Each root's ptxas report of its
 Q-stream kernel instances (registers, stack, spills; one instance per
 operator, strip width and cluster or single CTA) is printed once.  The
 roots run in the order BEFORE, AFTER, AFTER, BEFORE (``--turns`` repeats
@@ -36,6 +39,7 @@ its turns and their ratio, with the card's name and power limit.
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -47,12 +51,13 @@ Q_SHAPES = [(256, 512, 512), (8, 4096, 4096), (2, 3899, 3757)]
 # cells (chip_smoke.phase_bench's bound): the least bytes over the H100's
 # 3.35 TB/s
 Q_STREAMS = {"forward_q": 5, "backward_q": 4, "backward_q gap": 5,
-             "adjoint_forward_q": 7, "adjoint_backward_q": 9}
+             "adjoint_forward_q": 7, "adjoint_forward_q za": 8,
+             "adjoint_backward_q": 9}
 
 
 def q_fns(B, N, M, g):
-    """The Q-stream kernels and the pallas_long decode at (B, N, M), nw,
-    softmax, full lengths."""
+    """The Q-stream kernels, the pallas_long decode and its DP step at (B,
+    N, M), nw, softmax, full lengths."""
     import torch
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda
@@ -66,8 +71,19 @@ def q_fns(B, N, M, g):
     _, *qs = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
     E, _ = dp_cuda.backward_q(*qs, ln, lm, Et, mode="nw")
     zt = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
+    za = dp_cuda.skew(torch.randn((B, N, M), generator=g, device="cuda"))
     _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
+    Z = torch.randn((B, N, M), generator=g, device="cuda")
     tag = f"({B}, {N}, {M})"
+
+    def step():
+        t = theta.clone().requires_grad_()
+        a = A.clone().requires_grad_()
+        E = dp_ops.expected_alignment(t, a, (ln, lm), backend="pallas_long",
+                                      **kw)
+        (E * Z).sum().backward()
+        return E.detach(), t.grad, a.grad
+
     return {
         f"forward_q {tag}": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm,
                                                       **kw),
@@ -77,10 +93,13 @@ def q_fns(B, N, M, g):
             *qs, ln, lm, Et, mode="nw", want_gap=True),
         f"adjoint_forward_q {tag}": lambda: dp_cuda.adjoint_forward_q(
             *qs, zt, None, ln, lm, **kw),
+        f"adjoint_forward_q za {tag}": lambda: dp_cuda.adjoint_forward_q(
+            *qs, zt, za, ln, lm, **kw),
         f"adjoint_backward_q {tag}": lambda: dp_cuda.adjoint_backward_q(
             *qs, *qds, E, ln, lm, mode="nw"),
         f"decode pallas_long {tag}": lambda: dp_ops.expected_alignment(
             theta, A, (ln, lm), backend="pallas_long", **kw),
+        f"dp_step pallas_long {tag}": step,
     }
 
 
@@ -106,7 +125,9 @@ def ptxas_q(so):
         os.path.dirname(dp_cuda._nvcc()), "cu++filt")
     names = subprocess.run([tool], input="\n".join(out),
                            capture_output=True, text=True).stdout.split("\n")
-    return {n.split("(")[0].split("::")[-1]: v
+    # the kernel's name and template arguments, past its return type and
+    # namespace
+    return {re.search(r"(\w+(<[^()]*>)?)(\(|$)", n.strip()).group(1): v
             for n, v in zip(names, out.values())}
 
 

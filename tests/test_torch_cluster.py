@@ -2,20 +2,35 @@
 into C ranges that exchange only edge slots give the plain passes'
 outputs bit for bit.
 
-``csrc/dp_kernels.cu`` runs ``forward_q_kernel`` and
-``adjoint_backward_q_kernel`` as B clusters of C CTAs, CTA c owning the
-contiguous slots ``[c Sc, (c+1) Sc)`` of every diagonal.  ``split_forward_q``
-and ``split_adjoint_backward_q`` below restate that, one pair at a time:
-each range keeps only its own slots of the rows it carries and gets one
-value a diagonal from its neighbour, through a ring three diagonals deep
-that the neighbour stores into (the kernels' ``xedge``; each entry is
-tagged with its diagonal, and a read checks the tag):
+``csrc/dp_kernels.cu`` runs all four Q kernels (``forward_q_kernel``,
+``backward_q_kernel``, ``adjoint_forward_q_kernel`` and
+``adjoint_backward_q_kernel``) as B clusters of C CTAs, CTA c owning the
+contiguous slots ``[c Sc, (c+1) Sc)`` of every diagonal.  The
+``split_*`` functions below restate that, one pair at a time: each range
+keeps only its own slots of the rows it carries and gets its edge values
+a diagonal from its neighbour, through a ring three diagonals deep that
+the neighbour stores into (the kernels' ``xedge``; each entry is tagged
+with its diagonal, and a read checks the tag):
 
 * the forward, diagonals ascending, carries V rows r-1 and r-2 and reads
   from the range on its left V[r-1] and V[r-2] at ``c Sc - 1``;
   ``(val, Q) = max3(A + shr(V[r-1]), shr(V[r-2]), A + V[r-1])`` at every
   slot, ``V = theta + val`` where the cell is valid, A read at every slot
   and theta only where the cell is valid;
+* the adjoint forward, its tangent, the same way with Vd:
+  ``xd = Za + shr(Vd[r-1])``, ``md = shr(Vd[r-2])``, ``yd = Za + Vd[r-1]``,
+  ``Vd = ((Zt + Qx xd) + Qm md) + Qy yd`` where the cell is valid and
+  ``Qd = hessian3(Q, (xd, md, yd))`` at every slot; Q and Za read at every
+  slot, Zt only where the cell is valid (without Za, ``xd = shr(Vd[r-1])``
+  and ``yd = Vd[r-1]``);
+* the backward, rows descending, carries the products ``X = Qx E``,
+  ``M = Qm E`` and ``Y = Qy E`` of the rows before, sums
+  ``E = (shl(X[r+1]) + shl(M[r+2])) + Y[r+1]`` in the plain order, masks
+  it, adds Et at the terminal, and reads from the range on its right
+  X[r+1] and M[r+1] at ``(c+1) Sc``; Q is read on the band and wherever E
+  is non-zero off it (the terminal of sw with n = 1 or m = 1), each
+  element at most once (``_Once``); where E is zero the products and EA
+  are zero without reading Q;
 * the adjoint backward, rows descending, carries the products
   ``X = Qdx E + Qx Ed``, ``M = Qdm E + Qm Ed``, ``Yd = Qdy E`` and
   ``Yq = Qy Ed`` of the rows before, sums
@@ -29,10 +44,13 @@ tagged with its diagonal, and a read checks the tag):
 Cases: C = 1, 2, 3 and 8 ranges of ``ceil(S / C)`` slots, and C = 3 and 8
 with the last one or three ranges past S (padding only, as a CTA whose
 slots all lie past the pair), on ragged pairs (a last pair of whole
-diagonals of padding), nw and sw x softmax, sparsemax and hardmax, the
+diagonals of padding), nw and sw x softmax, sparsemax and hardmax (the
+backward, which has no operator, with and without the gap output, on the
+Q of each operator in turn), the adjoint forward with and without Za, the
 adjoint backward on the plain backward's E and on an E that is noise at
-every slot.  Tolerance: none (``torch.equal``: every cell takes the same
-float32 operations; a zero the plain version forms as -0.0 where the
+every slot; sw pairs of n = 1 or m = 1, whose terminal lies off the band,
+for the backward.  Tolerance: none (``torch.equal``: every cell takes the
+same float32 operations; a zero the plain version forms as -0.0 where the
 split stores +0.0 compares equal).
 """
 
@@ -45,6 +63,7 @@ from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.skew import skew
 
 RING = 3
+OPERATORS = ["softmax", "sparsemax", "hardmax"]
 # (C, ranges past S)
 SPLITS = [(1, 0), (2, 0), (3, 0), (8, 0), (3, 1), (8, 3)]
 
@@ -151,6 +170,107 @@ def split_forward_q(th_s, A_s, ln, lm, mode, operator, C, spare):
     return (vt, *qs)
 
 
+def split_backward_q(qx, qm, qy, ln, lm, Et, mode, want_gap, C, spare):
+    B, K, S = qx.shape
+    lo = MODE_BOUNDS[mode][1]
+    Sc = _width(S, C, spare)
+    zero = torch.zeros(())
+    E = torch.full_like(qx, float("nan"))
+    EA = torch.full_like(qx, float("nan")) if want_gap else None
+    streams = [_Once(x) for x in (qx, qm, qy)]
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        slots = [torch.arange(c * Sc, (c + 1) * Sc) for c in range(C)]
+        zeros = [torch.zeros(Sc) for _ in range(C)]
+        x1, m1, m2, y1 = (list(zeros) for _ in range(4))
+        rx, rma, rmb = [0.0] * C, [0.0] * C, [0.0] * C
+        rings = [_Ring() for _ in range(C)]      # stored by the right range
+        for r in reversed(range(K)):
+            new = []
+            for c in range(C):
+                s = slots[c]
+                band = _valid(s, r + 2, n, m, lo)
+                xr = torch.cat([x1[c][1:], torch.tensor([rx[c]])])
+                mr = torch.cat([m2[c][1:], torch.tensor([rmb[c]])])
+                e = torch.where(band, (xr + mr) + y1[c], zero)
+                term = (s == n) & (r + 2 == n + m)
+                e = torch.where(term, e + Et[b], e)
+                need = band | (e != 0)
+                ax, am, ay = (x.read(b, r, s, need) for x in streams)
+                x = torch.where(need, ax * e, zero)
+                mm = torch.where(need, am * e, zero)
+                y = torch.where(need, ay * e, zero)
+                real = s < S
+                E[b, r, s[real]] = e[real]
+                if want_gap:
+                    ea = torch.where(need, e * (ax + ay), zero)
+                    EA[b, r, s[real]] = ea[real]
+                new.append((x, mm, y))
+                if c > 0:
+                    rings[c - 1].store(r, x[0], mm[0])
+            # after the row's barrier: each range's right edge of row r
+            for c in range(C):
+                x, mm, y = new[c]
+                rmb[c] = rma[c]
+                rx[c], rma[c] = rings[c].load(r) if c + 1 < C else (0.0, 0.0)
+                x1[c], m2[c], m1[c], y1[c] = x, m1[c], mm, y
+    return E, EA
+
+
+def split_adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, mode, operator,
+                            C, spare):
+    B, K, S = qx.shape
+    lo = MODE_BOUNDS[mode][2]
+    Sc = _width(S, C, spare)
+    zero = torch.zeros(())
+    vtd = torch.zeros(B)
+    qds = [torch.full_like(qx, float("nan")) for _ in range(3)]
+    q_in = [_Once(x) for x in (qx, qm, qy)]
+    zt, za = _Once(zt_s), za_s is not None and _Once(za_s)
+    for b in range(B):
+        n, m = int(ln[b]), int(lm[b])
+        slots = [torch.arange(c * Sc, (c + 1) * Sc) for c in range(C)]
+        v1 = [torch.zeros(Sc) for _ in range(C)]
+        v2 = [torch.zeros(Sc) for _ in range(C)]
+        l1, l2 = [0.0] * C, [0.0] * C
+        rings = [_Ring() for _ in range(C)]       # stored by the left range
+        for r in range(K):
+            k = r + 2
+            vn = []
+            for c in range(C):
+                s = slots[c]
+                valid = _valid(s, k, n, m, lo)
+                every = torch.ones_like(valid)
+                q = [x.read(b, r, s, every) for x in q_in]
+                z = zt.read(b, r, s, valid)
+                left1 = torch.cat([torch.tensor([l1[c]]), v1[c][:-1]])
+                left2 = torch.cat([torch.tensor([l2[c]]), v2[c][:-1]])
+                if za:
+                    a = za.read(b, r, s, every)
+                    xd, yd = a + left1, a + v1[c]
+                else:
+                    xd, yd = left1, v1[c]
+                md = left2
+                vd = z + q[0] * xd + q[1] * md + q[2] * yd
+                real = s < S
+                for out, part in zip(qds, smooth.hessian3(operator, q,
+                                                          (xd, md, yd))):
+                    out[b, r, s[real]] = part[real]
+                v = torch.where(valid, vd, zero)
+                at = (s == n) & (k == n + m)
+                if at.any():
+                    vtd[b] = v[at][0]
+                vn.append(v)
+                if c + 1 < C:
+                    rings[c + 1].store(r, v[-1])
+            # after the diagonal's barrier: each range's left edge of row r
+            for c in range(C):
+                left = rings[c].load(r)[0] if c else 0.0
+                l2[c], l1[c] = l1[c], left
+                v2[c], v1[c] = v1[c], vn[c]
+    return (vtd, *qds)
+
+
 def split_adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, mode, C,
                              spare):
     B, K, S = qx.shape
@@ -229,5 +349,43 @@ def test_split_adjoint_backward_q_equals_plain(C, spare, mode, operator):
     for e in (E, noise):
         want = dp_ref.adjoint_backward_q(*qs, *qds, e, ln, lm, mode=mode)
         got = split_adjoint_backward_q(*qs, *qds, e, ln, lm, mode, C, spare)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("C,spare", SPLITS)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("want_gap", [False, True])
+def test_split_backward_q_equals_plain(C, spare, mode, want_gap):
+    rng = np.random.default_rng(13 * C + spare)
+    Et = torch.tensor(rng.standard_normal(2), dtype=torch.float32)
+    shapes = [(17, 23), (1, 9), (9, 1)]           # n = 1, m = 1: sw's
+    for i, operator in enumerate(OPERATORS):      # terminal off the band
+        th_s, A_s, ln, lm = _problem(13 * C + spare + i, 2, *shapes[i])
+        _, *qs = dp_ref.forward_q(th_s, A_s, ln, lm, mode=mode,
+                                  operator=operator)
+        want = dp_ref.backward_q(*qs, ln, lm, Et, mode=mode,
+                                 want_gap=want_gap)
+        got = split_backward_q(*qs, ln, lm, Et, mode, want_gap, C, spare)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("C,spare", SPLITS)
+@pytest.mark.parametrize("mode", ["nw", "sw"])
+@pytest.mark.parametrize("operator", OPERATORS)
+def test_split_adjoint_forward_q_equals_plain(C, spare, mode, operator):
+    th_s, A_s, ln, lm = _problem(17 * C + spare)
+    _, *qs = dp_ref.forward_q(th_s, A_s, ln, lm, mode=mode,
+                              operator=operator)
+    rng = np.random.default_rng(C + spare + 1)
+    zt_s, za_s = (skew(torch.tensor(rng.standard_normal((2, 17, 23)),
+                                    dtype=torch.float32)) for _ in range(2))
+    for za in (None, za_s):
+        want = dp_ref.adjoint_forward_q(*qs, zt_s, za, ln, lm, mode=mode,
+                                        operator=operator)
+        got = split_adjoint_forward_q(*qs, zt_s, za, ln, lm, mode, operator,
+                                      C, spare)
         for g, w in zip(got, want):
             assert torch.equal(g, w)

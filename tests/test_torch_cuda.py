@@ -13,14 +13,16 @@ forward (vtd, Dxd, Dmd) and adjoint backward (Ed, EdA) exact; forward
 only transcendental ulps could differ); tracebacks identical; autograd
 through the kernels = through the plain passes on the card (same
 tolerance) and = on the CPU to 1e-4 of each output's largest magnitude.
-The Q-stream kernels of the ``pallas_long`` backend are held to the same
-checks (``chip_smoke.check_q_kernels``), also past the shared-memory
-limit the default adjoint backward had before it kept its rows in
-registers, where the default backend now trains and matches them; the
-split ones (forward_q, adjoint_backward_q) bit for bit, also with every
-cluster size forced at the edges of the split
-(``chip_smoke.SPLIT_EDGE_SLOTS``), at S = 9,801 and at their limit (S =
-32,768), one slot past which they refuse.  Every
+The Q-stream kernels of the ``pallas_long`` backend, each pair split
+across a thread-block cluster, are held bit for bit
+(``chip_smoke.check_q_kernels``), also past the shared-memory limit the
+default adjoint backward had before it kept its rows in registers, where
+the default backend now trains and matches them; all four, every
+instance, also with every cluster size forced at the edges of the split
+(``chip_smoke.SPLIT_EDGE_SLOTS``), at S = 19,801 (past the 19,370 slots
+the first Q backward and adjoint forward held) and at their limit (S =
+32,768), one slot past which each refuses; a ``pallas_long`` training
+step past S = 19,370 equals the plain passes bit for bit.  Every
 storage form of the default kernels (the
 menus of ``chip_smoke.MENUS``: bf16 and int16 inputs, bf16 residuals,
 bf16 and int16 expectations) and the pair skew are held to their plain
@@ -209,36 +211,64 @@ def test_q_kernels_past_the_default_limit(cuda):
 
 
 def test_q_kernels_refuse_past_their_limit(cuda):
-    """S = 9,801 slots, past the 9,685 the first adjoint backward held in
-    six rows of shared memory: the split adjoint backward runs and equals
-    its plain version bit for bit.  One slot past the split kernels' limit
-    (S = 32,769) both refuse before launching, naming their limit and the
-    ``pallas_long`` step's (backward_q and adjoint_forward_q) and the
-    ROADMAP item."""
-    x = torch.zeros((1, 9800, 2), device=cuda)
+    """S = 19,801 slots, past the 19,370 the first Q backward and Q adjoint
+    forward held in three rows of shared memory: the four split kernels
+    run and equal their plain versions bit for bit.  One slot past their
+    limit (S = 32,769) each refuses before launching, naming its limit,
+    the ``pallas_long`` step's (the same) and the ROADMAP item."""
+    x = torch.zeros((1, 19800, 2), device=cuda)
     s = dp_cuda.skew(x)
-    n = torch.tensor([9800], dtype=torch.int32, device=cuda)
+    n = torch.tensor([19800], dtype=torch.int32, device=cuda)
     m = torch.tensor([2], dtype=torch.int32, device=cuda)
-    _, *qs = dp_cuda.forward_q(s, s, n, m)
     g = torch.Generator(device=cuda)
-    g.manual_seed(9801)
-    E = torch.randn(s.shape, generator=g, device=cuda)
-    want = dp_ref.adjoint_backward_q(*qs, *qs, E, n, m)
-    for got, w in zip(dp_cuda.adjoint_backward_q(*qs, *qs, E, n, m), want):
+    g.manual_seed(19801)
+    th_s = torch.randn(s.shape, generator=g, device=cuda)
+    vt, *qs = dp_ref.forward_q(th_s, s, n, m)
+    for got, w in zip(dp_cuda.forward_q(th_s, s, n, m), (vt, *qs)):
         assert torch.equal(got, w)
-    del x, s, qs, E, want
+    Et = torch.ones((1,), device=cuda)
+    for got, w in zip(dp_cuda.backward_q(*qs, n, m, Et, want_gap=True),
+                      dp_ref.backward_q(*qs, n, m, Et, want_gap=True)):
+        assert torch.equal(got, w)
+    zt, za = (torch.randn(s.shape, generator=g, device=cuda)
+              for _ in range(2))
+    want = dp_ref.adjoint_forward_q(*qs, zt, za, n, m)
+    for got, w in zip(dp_cuda.adjoint_forward_q(*qs, zt, za, n, m), want):
+        assert torch.equal(got, w)
+    E = torch.randn(s.shape, generator=g, device=cuda)
+    qds = want[1:]
+    for got, w in zip(dp_cuda.adjoint_backward_q(*qs, *qds, E, n, m),
+                      dp_ref.adjoint_backward_q(*qs, *qds, E, n, m)):
+        assert torch.equal(got, w)
+    del x, s, th_s, qs, zt, za, want, qds, E
     most = dp_cuda.CLUSTER_SLOTS["adjoint_backward_q"]
+    assert set(dp_cuda.CLUSTER_SLOTS.values()) == {most}
     s = torch.zeros((1, 2, most + 1), device=cuda)
     n = torch.tensor([most], dtype=torch.int32, device=cuda)
     before = dict(dp_cuda.LAUNCHES)
     for call in (lambda: dp_cuda.forward_q(s, s, n, m),
+                 lambda: dp_cuda.backward_q(s, s, s, n, m, Et),
+                 lambda: dp_cuda.adjoint_forward_q(s, s, s, s, None, n, m),
                  lambda: dp_cuda.adjoint_backward_q(s, s, s, s, s, s, s, n,
                                                     m)):
         with pytest.raises(ValueError, match=rf"S = {most + 1} .*S <= "
-                                             rf"{most} .*backward_q and "
-                                             r"adjoint_forward_q .*ROADMAP"):
+                                             rf"{most} .*pallas_long "
+                                             rf"training step.*S <= {most} "
+                                             r".*ROADMAP.md queue A item 4"):
             call()
     assert dp_cuda.LAUNCHES == before
+
+
+def test_pallas_long_step_past_the_first_limit(cuda):
+    """A ``pallas_long`` training step on a pair of 19,800 x 40 (S =
+    19,801, past the 19,370 slots the first Q backward and adjoint
+    forward held): E and both gradients equal the plain passes' bit for
+    bit, and every Q kernel ran (``chip_smoke.long_step_past``)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(19800)
+    errs = {}
+    chip_smoke.long_step_past(g, errs)
+    assert errs == {"pallas_long_step": 0.0}
 
 
 @pytest.mark.parametrize("S", chip_smoke.SPLIT_EDGE_SLOTS)
@@ -246,9 +276,11 @@ def test_q_kernels_refuse_past_their_limit(cuda):
                                            ("sw", "sparsemax"),
                                            ("nw", "hardmax")])
 def test_split_q_kernels_at_every_cluster_size(cuda, S, mode, operator):
-    """forward_q and adjoint_backward_q (on the backward's E and on noise)
-    bit for bit against their plain versions with every cluster size of
-    ``dp_cuda.Q_CLUSTERS`` forced, at the slots of the split's edges
+    """The four split Q kernels, every instance (the backward with and
+    without EA, the adjoint forward with and without Za, the adjoint
+    backward on the backward's E and on noise), bit for bit against their
+    plain versions with every cluster size of ``dp_cuda.Q_CLUSTERS``
+    forced, at the slots of the split's edges
     (``chip_smoke.SPLIT_EDGE_SLOTS``); a size whose CTAs cannot hold the
     pair is refused before launching."""
     g = torch.Generator(device=cuda)
@@ -258,23 +290,25 @@ def test_split_q_kernels_at_every_cluster_size(cuda, S, mode, operator):
         if C * 1024 * dp_cuda.Q_STRIP < S:
             before = dict(dp_cuda.LAUNCHES)
             with pytest.raises(ValueError, match="does not fit"):
-                chip_smoke.check_split(*prob, mode, operator, C, {})
+                chip_smoke.check_split(prob, mode, operator, C, {})
             assert dp_cuda.LAUNCHES == before
             continue
         errs = {}
-        split = chip_smoke.check_split(*prob, mode, operator, C, errs)
-        assert errs == {"forward_q": 0.0, "adjoint_backward_q": 0.0}
+        split = chip_smoke.check_split(prob, mode, operator, C, errs)
+        assert errs == dict.fromkeys(chip_smoke.Q_KERNELS, 0.0)
+        assert set(split) == set(chip_smoke.Q_KERNELS)
         assert {v["C"] for v in split.values()} == {C}
 
 
 def test_split_q_kernels_at_their_limit(cuda):
     """S = 32,768, the split kernels' limit, at the wrapper's own cluster
-    size: bit for bit; one slot further both refuse."""
+    size: all four bit for bit; one slot further each refuses."""
     g = torch.Generator(device=cuda)
     g.manual_seed(3)
     errs = {}
-    split, _ = chip_smoke.check_split_limit(g, errs)
-    assert errs == {"forward_q": 0.0, "adjoint_backward_q": 0.0}
+    split, msgs = chip_smoke.check_split_limit(g, errs)
+    assert errs == dict.fromkeys(chip_smoke.Q_KERNELS, 0.0)
+    assert set(split) == set(chip_smoke.Q_KERNELS) and len(msgs) == 4
     assert all(v["S"] == dp_cuda.CLUSTER_SLOTS[k] for k, v in split.items())
 
 
@@ -290,6 +324,12 @@ def test_cluster_size_rule(cuda):
         dp_cuda._max_clusters("forward_q", "softmax", 4097, c, cuda) > 0)
     assert pick(256, 4097) == 4
     assert pick(1, dp_cuda.CLUSTER_SLOTS["forward_q"]) == 16
+    for name in chip_smoke.Q_KERNELS:
+        for variant in (False, True):
+            rule = lambda B, S: dp_cuda._cluster_size(
+                name, "softmax", B, S, cuda, variant)
+            assert rule(256, 513) == 1
+            assert rule(1, dp_cuda.CLUSTER_SLOTS[name]) == 16
 
 
 def test_q_wrappers_check_inputs(cuda):
