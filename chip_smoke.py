@@ -68,21 +68,42 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              checked).  The whole run's
              time, the intervals between the ``train_loss`` records of
              its own ``metrics.jsonl``, and peak device memory.
+4b. options — the trainer options at ProtT5-XL + CNN-1024 width: (a)
+             ``cli.train --precision bf16 --grad-accum 2
+             --steps-per-dispatch 4``, batch 16, 2 epochs, on 128 pairs of
+             481-496 residues (every batch (16, 496, 496), so chunks of 4
+             form: ``cli.train`` has no pad-multiple flag) and 16
+             validation pairs: losses finite, every training kernel ran,
+             the optimizer and the schedule stepped once per two steps,
+             no synchronizing CUDA operation inside a chunk's steps and
+             copies (``torch.cuda.set_sync_debug_mode("warn")``) and one
+             loss readback a chunk; the run's time, the seconds between
+             the chunks' ``train_loss`` records and peak device memory;
+             the kernels of the run's storage menu and autograd = plain
+             at a training batch.  (b)
+             ``cli.train --finetune True --precision bf16``, batch 4, 1
+             epoch, 12 pairs of 100-300 residues: the LM changed,
+             ``load_model`` serves ``align`` with it (the in-memory
+             model's states), peak device memory.  ``--precision 16`` is
+             held on the CPU only (``tests/test_torch_options.py``).
 5. long    — the long-sequence backend (``pallas_long``: the Q-stream
              kernels, each pair split across a thread-block cluster).
              Each Q kernel against its plain version at (16, 200, 150),
              nw and sw x softmax / sparsemax / hardmax, outputs over NaN,
-             bit for bit, and autograd through them (as phase 2).  The
-             four Q kernels, every instance, bit for bit at every forced
-             cluster size at ``SPLIT_EDGE_SLOTS`` and at the wrapper's
-             size at their limit S = 32,768 (one kernel's outputs live at
-             a time), one slot past which each refuses; a ``pallas_long``
+             bit for bit, with float32 and with bf16 Q streams (the
+             instances of ``ops.dp.Q_DTYPE`` bf16), and autograd through
+             them (as phase 2).  The four Q kernels, every instance, bit
+             for bit at every forced cluster size (the bf16 ones at
+             ``BF16_CLUSTERS``) at ``SPLIT_EDGE_SLOTS`` and at the
+             wrapper's size at their limit S = 32,768 (one kernel's
+             outputs live at a time), one slot past which each refuses;
+             a ``pallas_long``
              training step on a pair of 19,800 x 40 (past the 19,370
              slots the first Q backward and adjoint forward held) bit for
              bit against the plain passes.  Then
              ``cli.train --backend pallas_long --max-len 4096`` at
              ProtT5-XL + CNN-1024 on 6 synthetic TM-align pairs of
-             1,000-3,900 residues (batch 2, 2 epochs; the longest batch
+             1,000-3,900 residues (batch 2, 1 epoch; the longest batch
              pads past S = 3,600 slots), ``load_model`` ->
              ``align`` of the ~3,900-residue pair and ``score_pairs``, and
              one ``expected_alignment`` + gradient with ``backend="pallas"``
@@ -102,7 +123,11 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              are reported).  Times at 8 x 4096 x
              4096 (``scripts/bench_len4096.py``'s shape): each Q kernel and
              the ``pallas_long`` expected alignment (alignments/s), and
-             peak device memory.
+             peak device memory; then with bf16 Q: each Q kernel, the
+             decode and the DP step in turns with float32 Q, the largest E
+             and gradient differences from float32 Q, peak memory, and
+             the bf16 instances' launches in one DP step (counters zeroed
+             just before).
 6. menu    — the storage menu's own path:
              ``cli.train --dp-i16-streams --dp-decode-menu fast`` at
              ProtT5-XL + CNN-1024, 32 + 8 pairs, batch 16, 1 epoch, then
@@ -140,11 +165,14 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              residuals / the fast menu, the DP step in float32 / bf16
              residuals, and the pair skew against two single skews.
 
-The line before the last is the kernels JSON (a Q kernel's entry also
-gives its last split on the long path); the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels JSON, one entry per kernel and
+per bf16 Q instance (``<name>_bf16``: its launches are those of the bf16
+DP step of phase 5, its times and bound at the bench shape with 2-byte Q
+values; a Q kernel's entry also gives its last split on the long path);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import re
@@ -221,13 +249,17 @@ BENCH_INSTANCES = {
     "adjoint_forward": "adjoint_forward_kernel<0, false, float, float, 2>",
     "adjoint_forward_za": "adjoint_forward_kernel<0, true, float, float, 2>",
     "adjoint_backward": "adjoint_backward_kernel<0, float, float, 2>",
-    "forward_q": "forward_q_kernel<0, false>",
-    "backward_q": "backward_q_kernel<false, false>",
-    "backward_q_gap": "backward_q_kernel<true, false>",
-    "adjoint_forward_q": "adjoint_forward_q_kernel<0, false, false>",
-    "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true, false>",
-    "adjoint_backward_q": "adjoint_backward_q_kernel<false>",
+    "forward_q": "forward_q_kernel<0, false, float>",
+    "backward_q": "backward_q_kernel<false, false, float>",
+    "backward_q_gap": "backward_q_kernel<true, false, float>",
+    "adjoint_forward_q": "adjoint_forward_q_kernel<0, false, false, float>",
+    "adjoint_forward_q_za": "adjoint_forward_q_kernel<0, true, false, float>",
+    "adjoint_backward_q": "adjoint_backward_q_kernel<false, float>",
 }
+# the bf16 Q instances (Q_DTYPE bf16), each under its float32 name + _bf16
+BENCH_INSTANCES.update({
+    k + "_bf16": v.replace("float>", "__nv_bfloat16>")
+    for k, v in list(BENCH_INSTANCES.items()) if "_q" in k})
 # cells one pass of a strip kernel's unrolled row loop computes: T slots x
 # the D rows of its register ring (ring_for and, for the adjoint passes,
 # afwd_ring_for and abwd_ring_for in csrc/dp_kernels.cu)
@@ -243,6 +275,20 @@ Q_RING = {"forward_q_kernel<": (2, 2), "backward_q_kernel<": (2, 2),
           "adjoint_forward_q_kernel<": (2, 2),
           "adjoint_backward_q_kernel<": (1, 2)}
 SPLIT_KERNELS = tuple(Q_RING)
+# the bf16 Q instances' names (chip_smoke.q_name), as dp_cuda.LAUNCHES
+# counts them
+Q_BF16 = tuple(k + "_bf16" for k in Q_KERNELS)
+
+
+def split_args(instance):
+    """A split Q kernel instance's kCluster (its second-to-last template
+    argument) and Q storage type (its last)."""
+    args = instance[instance.index("<") + 1:-1].split(", ")
+    return args[-2] == "true", args[-1]
+# the cluster sizes the bf16 Q instances are forced to at the split's
+# edges (one CTA, the smallest cluster and the largest; the float32
+# instances take every size)
+BF16_CLUSTERS = (1, 2, 16)
 # slots S at the split Q kernels' edges: a stream of one slot, one cell,
 # one warp of strips of 2 (a CTA of the smaller splits) -1 (odd), 0 and
 # +1, a CTA of 1,024 threads of strips of 2 -1, 0 and +1
@@ -271,6 +317,37 @@ MENUS = {
     "bf16": dict(stream="bfloat16", d="bfloat16", e="bfloat16"),
     "bf16_in_e": dict(stream="bfloat16", e="bfloat16"),
 }
+
+
+#: seconds spent in each check function (:func:`timed_check`) in each
+#: phase, under ``"<phase>:<check>"``, printed at the end: where the
+#: smoke's time goes, for budgeting its limit
+CHECK_SECONDS = {}
+#: the phase that runs (``main``'s ``timed``), the first part of the keys
+#: of ``CHECK_SECONDS``
+PHASE = ["build"]
+
+
+def add_seconds(name, t0):
+    """Add the seconds since ``t0`` to ``CHECK_SECONDS`` under ``name`` in
+    the current phase."""
+    key = f"{PHASE[0]}:{name}"
+    CHECK_SECONDS[key] = round(CHECK_SECONDS.get(key, 0.0) + time.time() - t0,
+                               1)
+
+
+def timed_check(fn):
+    """``fn`` adding the seconds of each call, synchronized, to
+    ``CHECK_SECONDS`` (:func:`add_seconds`)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        t0 = time.time()
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            add_seconds(fn.__name__, t0)
+    return wrapped
 
 
 def log(msg):
@@ -361,6 +438,7 @@ def _close(name, got, want, errs):
                              f"rtol {RTOL} / atol {ATOL}")
 
 
+@timed_check
 def check_kernels(theta, A, ln, lm, mode, operator, errs):
     """Every kernel against its plain version on the same inputs."""
     from deepblast_torch.ops import dp as dp_ops
@@ -404,6 +482,7 @@ def check_kernels(theta, A, ln, lm, mode, operator, errs):
     check_train_kernels(theta, dx_p, dm_p, E_p, ln, lm, kw, errs)
 
 
+@timed_check
 def check_train_kernels(theta, dx, dm, E, ln, lm, kw, errs):
     """The training kernels against their plain versions: unskew exactly,
     backward with the gap output, the adjoint forward with and without a
@@ -454,6 +533,7 @@ def _wide(t):
     return t.float()
 
 
+@timed_check
 def check_menu_kernels(theta, A, ln, lm, mode, operator, menu, errs):
     """Every kernel instance of one storage menu against its plain version
     on the same inputs, outputs over NaN-filled memory: the skew and the
@@ -584,6 +664,7 @@ def _refuses(name, call):
     raise AssertionError(f"{name} took a pair past its limit")
 
 
+@timed_check
 def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
     """The redesigned kernels under one storage menu (None: float32)
     against their plain versions bit for bit, outputs over NaN-filled
@@ -653,8 +734,10 @@ def check_passes(theta, A, ln, lm, mode, operator, menu, errs):
             dx_p, dm_p, dx_p, dm_p, E, ln, lm, **kw))
         return
     for gap, decode in ((True, False), (False, False), (False, True)):
-        E_p, EA_p = dp_ref.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
-                                    decode=decode, **kw)
+        # E alone is the E of the gap run (the plain version's one code)
+        E_p, EA_p = (E_train, None) if (gap, decode) == (False, False) \
+            else dp_ref.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
+                                 decode=decode, **kw)
         _poison(E_p, *([EA_p] if gap else []))
         E_k, EA_k = dp_cuda.backward(dx_p, dm_p, ln, lm, Et, want_gap=gap,
                                      decode=decode, **kw)
@@ -692,6 +775,7 @@ def edge_problem(g, B, N, M, short):
     return theta, A, ln.to(torch.int32), lm.to(torch.int32)
 
 
+@timed_check
 def check_edges(g, errs):
     """``check_passes`` at every ``EDGE_SHAPES`` shape, in float32 for nw
     softmax and, below the limit shapes (whose plain passes walk 6,145
@@ -722,24 +806,44 @@ def check_edges(g, errs):
              lambda: dp_cuda.adjoint_forward(s, s, s, s, n, m))
 
 
-def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
+def q_name(name, q_dtype):
+    """The name of a Q kernel's instance for Q streams of ``q_dtype``
+    (None: float32), as ``dp_cuda.LAUNCHES`` counts it."""
+    from deepblast_torch.ops import dp_cuda
+    return name + dp_cuda.Q_DTYPES[q_dtype or torch.float32]
+
+
+def q_splits(q_dtype):
+    """The last split (``dp_cuda.SPLITS``) of each split Q kernel's
+    instance for Q streams of ``q_dtype`` that has launched."""
+    from deepblast_torch.ops import dp_cuda
+    names = (q_name(k, q_dtype) for k in dp_cuda.CLUSTER_SLOTS)
+    return {k: dict(dp_cuda.SPLITS[k]) for k in names if dp_cuda.SPLITS[k]}
+
+
+@timed_check
+def check_q_kernels(theta, A, ln, lm, mode, operator, errs, q_dtype=None):
     """Every Q-stream kernel against its plain version on the same inputs
     (outputs over NaN-filled memory), bit for bit, at the cluster size the
     wrapper picks: the forward (Vt, Qx, Qm, Qy), the backward with and
     without the gap output (E, EA), the adjoint forward with and without
     a Za stream (vtd, Qd) and the adjoint backward (Ed, EdA, on the
     backward's E and on an E that is noise at every slot); random
-    cotangents; tracebacks of E identical."""
+    cotangents; tracebacks of E identical.  ``q_dtype``: the Q streams'
+    storage (None: float32; bf16: the instances of ``Q_DTYPE`` bf16,
+    recorded in ``errs`` under ``<name>_bf16``)."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew
     kw = dict(mode=mode, operator=operator)
+    name = lambda k: q_name(k, q_dtype)
     th_s, A_s = skew(theta), skew(A)
-    vt_p, *qs = dp_ref.forward_q(th_s, A_s, ln, lm, **kw)
+    vt_p, *qs = dp_ref.forward_q(th_s, A_s, ln, lm, q_dtype=q_dtype, **kw)
     _poison(*qs)
-    vt_k, *qs_k = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
+    vt_k, *qs_k = dp_cuda.forward_q(th_s, A_s, ln, lm, q_dtype=q_dtype,
+                                    **kw)
     for got, want in zip((vt_k, *qs_k), (vt_p, *qs)):
-        _exact("forward_q", got, want, errs)
+        _exact(name("forward_q"), got, want, errs)
     del qs_k
 
     Et = torch.ones_like(vt_p)
@@ -749,9 +853,9 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         _poison(E_p, *([EA_p] if gap else []))
         E_k, EA_k = dp_cuda.backward_q(*qs, ln, lm, Et, mode=mode,
                                        want_gap=gap)
-        _exact("backward_q", E_k, E_p, errs)
+        _exact(name("backward_q"), E_k, E_p, errs)
         if gap:
-            _exact("backward_q", EA_k, EA_p, errs)
+            _exact(name("backward_q"), EA_k, EA_p, errs)
     E_kh, E_ph = E_k.cpu().numpy(), E_p.cpu().numpy()
     del E_k, EA_k, EA_p
     for b, (n, m) in enumerate(zip(ln.tolist(), lm.tolist())):
@@ -769,7 +873,7 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         vtd_k, *qds_k = dp_cuda.adjoint_forward_q(*qs, zt_s, za, ln, lm,
                                                   **kw)
         for got, want in zip((vtd_k, *qds_k), (vtd_p, *qds)):
-            _exact("adjoint_forward_q", got, want, errs)
+            _exact(name("adjoint_forward_q"), got, want, errs)
         del qds_k
     del zt_s, za_s
 
@@ -780,8 +884,8 @@ def check_q_kernels(theta, A, ln, lm, mode, operator, errs):
         _poison(Ed_p, EdA_p)
         Ed_k, EdA_k = dp_cuda.adjoint_backward_q(*qs, *qds, E, ln, lm,
                                                  mode=mode)
-        _exact("adjoint_backward_q", Ed_k, Ed_p, errs)
-        _exact("adjoint_backward_q", EdA_k, EdA_p, errs)
+        _exact(name("adjoint_backward_q"), Ed_k, Ed_p, errs)
+        _exact(name("adjoint_backward_q"), EdA_k, EdA_p, errs)
 
 
 class forced_cluster:
@@ -802,13 +906,14 @@ class forced_cluster:
         dp_cuda._cluster_size = self.rule
 
 
-def split_problem(g, S, mode, operator):
+def split_problem(g, S, mode, operator, q_dtype=None):
     """The split kernels' inputs and their plain outputs at S slots: three
     pairs of (S - 1) x 3 (S = 1: streams of one slot, pairs of length 0),
     lengths ragged with pair 0 full and the last pair of
     ``max(1, (S - 1) // 50)`` rows; the backward with and without the gap
     output from a random Et, the adjoint forward with and without Za, the
-    adjoint backward on the backward's E and on noise."""
+    adjoint backward on the backward's E and on noise; the Q streams in
+    ``q_dtype`` (None: float32)."""
     from deepblast_torch.ops import dp_ref
     from deepblast_torch.ops.skew import skew
     B, N, M = 3, S - 1, 3
@@ -821,7 +926,7 @@ def split_problem(g, S, mode, operator):
         ln = torch.zeros((B,), dtype=torch.int32, device="cuda")
         lm = torch.full((B,), M, dtype=torch.int32, device="cuda")
     kw = dict(mode=mode, operator=operator)
-    fwd = dp_ref.forward_q(th_s, A_s, ln, lm, **kw)
+    fwd = dp_ref.forward_q(th_s, A_s, ln, lm, q_dtype=q_dtype, **kw)
     qs = fwd[1:]
     Et = torch.randn((B,), generator=g, device="cuda")
     bwd = [(gap, dp_ref.backward_q(*qs, ln, lm, Et, mode=mode,
@@ -834,7 +939,7 @@ def split_problem(g, S, mode, operator):
     abwd = [(e, dp_ref.adjoint_backward_q(*qs, *qds, e, ln, lm, mode=mode))
             for e in (bwd[0][1][0], noise)]
     return dict(th_s=th_s, A_s=A_s, ln=ln, lm=lm, Et=Et, zt=zt, fwd=fwd,
-                bwd=bwd, afwd=afwd, qds=qds, abwd=abwd)
+                bwd=bwd, afwd=afwd, qds=qds, abwd=abwd, q_dtype=q_dtype)
 
 
 def _check_launch(name, launch, want, errs):
@@ -851,55 +956,63 @@ def check_split(prob, mode, operator, C, errs):
     """The four split kernels with clusters of C CTAs (None: the wrapper's
     rule) against the plain outputs of ``prob`` (:func:`split_problem`) bit
     for bit, every instance (the backward with and without EA, the
-    adjoint forward with and without Za), outputs over NaN-filled memory;
-    returns the launches' splits (``dp_cuda.SPLITS``)."""
+    adjoint forward with and without Za), outputs over NaN-filled memory,
+    the instances of ``prob``'s Q storage; returns the launches' splits
+    (``dp_cuda.SPLITS``)."""
     from contextlib import nullcontext
     from deepblast_torch.ops import dp_cuda
     p = prob
     ln, lm, qs = p["ln"], p["lm"], p["fwd"][1:]
     kw = dict(mode=mode, operator=operator)
+    name = lambda k: q_name(k, p["q_dtype"])
     with forced_cluster(C) if C else nullcontext():
-        _check_launch("forward_q", lambda: dp_cuda.forward_q(
-            p["th_s"], p["A_s"], ln, lm, **kw), p["fwd"], errs)
+        _check_launch(name("forward_q"), lambda: dp_cuda.forward_q(
+            p["th_s"], p["A_s"], ln, lm, q_dtype=p["q_dtype"], **kw),
+            p["fwd"], errs)
         for gap, want in p["bwd"]:
-            _check_launch("backward_q", lambda: dp_cuda.backward_q(
+            _check_launch(name("backward_q"), lambda: dp_cuda.backward_q(
                 *qs, ln, lm, p["Et"], mode=mode, want_gap=gap), want, errs)
         for za, want in p["afwd"]:
             _check_launch(
-                "adjoint_forward_q", lambda: dp_cuda.adjoint_forward_q(
+                name("adjoint_forward_q"), lambda: dp_cuda.adjoint_forward_q(
                     *qs, p["zt"], za, ln, lm, **kw), want, errs)
         for e, want in p["abwd"]:
             _check_launch(
-                "adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
+                name("adjoint_backward_q"),
+                lambda: dp_cuda.adjoint_backward_q(
                     *qs, *p["qds"], e, ln, lm, mode=mode), want, errs)
-    return {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
+    return q_splits(p["q_dtype"])
 
 
-def check_split_edges(g, errs):
-    """The split kernels at every cluster size of ``dp_cuda.Q_CLUSTERS``,
-    each forced, at ``SPLIT_EDGE_SLOTS`` (nw softmax, sw sparsemax, nw
-    hardmax in turn)."""
+@timed_check
+def check_split_edges(g, errs, q_dtype=None, sizes=None):
+    """The split kernels at every cluster size of ``dp_cuda.Q_CLUSTERS``
+    (or of ``sizes``), each forced, at ``SPLIT_EDGE_SLOTS`` (nw softmax, sw
+    sparsemax, nw hardmax in turn), Q streams of ``q_dtype``."""
     from deepblast_torch.ops import dp_cuda
     pairs = [("nw", "softmax"), ("sw", "sparsemax"), ("nw", "hardmax")]
     for i, S in enumerate(SPLIT_EDGE_SLOTS):
         mode, op = pairs[i % 3]
-        prob = split_problem(g, S, mode, op)
-        for C in dp_cuda.Q_CLUSTERS:
+        prob = split_problem(g, S, mode, op, q_dtype)
+        for C in sizes or dp_cuda.Q_CLUSTERS:
             if C * 1024 * dp_cuda.Q_STRIP >= S:
                 check_split(prob, mode, op, C, errs)
         del prob
 
 
-def check_split_limit(g, errs):
+@timed_check
+def check_split_limit(g, errs, q_dtype=None):
     """The four split kernels at the wrapper's own choice at their limit (S
     = ``dp_cuda.CLUSTER_SLOTS``: one pair of 32,767 x 1, nw softmax; the
     backward with and without EA, the adjoint forward without Za, the
-    adjoint backward on the backward's E) bit for bit, one kernel's
-    outputs live at a time (a stream is 4.3 GB); one slot past it each
-    refuses, naming its limit and the ``pallas_long`` step's.  Returns the
-    splits at the limit and the refusals."""
+    adjoint backward on the backward's E) bit for bit, Q streams of
+    ``q_dtype``, one kernel's outputs live at a time (a float32 stream is
+    4.3 GB); one slot past it each refuses, naming its limit and the
+    ``pallas_long`` step's.  Returns the splits at the limit and the
+    refusals."""
     from deepblast_torch.ops import dp_cuda, dp_ref
     from deepblast_torch.ops.skew import skew
+    name = lambda k: q_name(k, q_dtype)
     most = dp_cuda.CLUSTER_SLOTS["forward_q"]
     x = torch.randn((1, most - 1, 1), generator=g, device="cuda")
     th_s, A_s = skew(x), skew(x - 1.0)
@@ -907,26 +1020,29 @@ def check_split_limit(g, errs):
     n = torch.tensor([most - 1], dtype=torch.int32, device="cuda")
     m = torch.tensor([1], dtype=torch.int32, device="cuda")
     Et = torch.ones((1,), device="cuda")
-    fwd = dp_ref.forward_q(th_s, A_s, n, m)
-    _check_launch("forward_q", lambda: dp_cuda.forward_q(th_s, A_s, n, m),
-                  fwd, errs)
+    fwd = dp_ref.forward_q(th_s, A_s, n, m, q_dtype=q_dtype)
+    _check_launch(name("forward_q"), lambda: dp_cuda.forward_q(
+        th_s, A_s, n, m, q_dtype=q_dtype), fwd, errs)
     qs = fwd[1:]
     del th_s, A_s, fwd
-    for gap in (True, False):
-        want = dp_ref.backward_q(*qs, n, m, Et, want_gap=gap)
-        _check_launch("backward_q", lambda: dp_cuda.backward_q(
-            *qs, n, m, Et, want_gap=gap), want, errs)
+    want = dp_ref.backward_q(*qs, n, m, Et, want_gap=True)
+    for gap in (True, False):   # E alone is the E of the gap run
+        _check_launch(name("backward_q"), lambda: dp_cuda.backward_q(
+            *qs, n, m, Et, want_gap=gap), want if gap else (want[0], None),
+            errs)
     E = want[0]
     zt = torch.randn(E.shape, generator=g, device="cuda")
     want = dp_ref.adjoint_forward_q(*qs, zt, None, n, m)
-    _check_launch("adjoint_forward_q", lambda: dp_cuda.adjoint_forward_q(
-        *qs, zt, None, n, m), want, errs)
+    _check_launch(name("adjoint_forward_q"),
+                  lambda: dp_cuda.adjoint_forward_q(*qs, zt, None, n, m),
+                  want, errs)
     qds = want[1:]
     del zt, want
     want = dp_ref.adjoint_backward_q(*qs, *qds, E, n, m)
-    _check_launch("adjoint_backward_q", lambda: dp_cuda.adjoint_backward_q(
-        *qs, *qds, E, n, m), want, errs)
-    split = {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
+    _check_launch(name("adjoint_backward_q"),
+                  lambda: dp_cuda.adjoint_backward_q(*qs, *qds, E, n, m),
+                  want, errs)
+    split = q_splits(q_dtype)
     del qs, qds, E, want
     torch.cuda.empty_cache()
     s = torch.zeros((1, 2, most + 1), device="cuda")
@@ -947,6 +1063,7 @@ def check_split_limit(g, errs):
 FIRST_ORDER = (0, 1, 2, 5, 6)
 
 
+@timed_check
 def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
                    cpu_second_order=True, dtypes=None):
     """``torch.autograd.grad`` through the dispatcher on the card (the
@@ -1002,7 +1119,9 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
         plain = grads(theta.device)
     finally:
         dp_ops._passes = passes
+    t0 = time.time()
     cpu = grads("cpu")
+    add_seconds("check_autograd(cpu side)", t0)
     for i, (k, p, c) in enumerate(zip(kern, plain, cpu)):
         _close("autograd", k, p, errs)
         err = (k.cpu() - c).abs().max().item()
@@ -1368,6 +1487,258 @@ def phase_train(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the trainer options at ProtT5-XL width
+# ---------------------------------------------------------------------------
+
+def uniform_rows(rng, n, lo, hi, prefix):
+    """``n`` TM-align rows (:func:`homolog_row`) whose two sequences both
+    have ``lo``..``hi`` residues, so that every batch pads to one shape
+    and ``--steps-per-dispatch`` forms whole chunks (``cli.train`` pads to
+    a multiple of 16 and has no flag for it)."""
+    rows = []
+    while len(rows) < n:
+        r = homolog_row(rng, f"{prefix}{len(rows)}", lo, hi)
+        if lo <= len(r[5]) <= hi and lo <= len(r[6]) <= hi:
+            rows.append(r)
+    return rows
+
+
+class count_waits:
+    """Within the block, the host's waits for the card inside the training
+    loop of ``DeepBLAST.fit``: the synchronizing CUDA operations
+    (``torch.cuda.set_sync_debug_mode("warn")``) inside its steps, its
+    chunks' host-to-device copies and its losses' device-to-host copies,
+    and its loss readbacks (each an event wait on one dispatch's losses);
+    the chunks and steps it issued; and the host's seconds in each of
+    those calls (``seconds``: issuing the steps, the copies, and waiting
+    at the readbacks)."""
+
+    HOOKS = ("_step", "_device_chunk", "_losses_to_host", "_consume_loss")
+
+    def __enter__(self):
+        import warnings
+        from deepblast_torch.train.trainer import DeepBLAST
+        self.n = dict(syncs=0, readbacks=0, chunks=0, steps=0,
+                      seconds={h: 0.0 for h in self.HOOKS})
+        self.caught = warnings.catch_warnings(record=True)
+        seen = self.caught.__enter__()
+        warnings.simplefilter("always")
+        self.orig = {h: getattr(DeepBLAST, h) for h in self.HOOKS}
+        n, orig = self.n, self.orig
+
+        def hook(name, counter):
+            def wrapped(*args):
+                before = sum("synchronizing" in str(w.message) for w in seen)
+                t0 = time.time()
+                out = orig[name](*args)
+                n["seconds"][name] += time.time() - t0
+                n["syncs"] += sum("synchronizing" in str(w.message)
+                                  for w in seen) - before
+                if counter:
+                    n[counter] += 1
+                return out
+            return wrapped
+
+        for name, counter in zip(self.HOOKS, ("steps", "chunks", None,
+                                              "readbacks")):
+            setattr(DeepBLAST, name, hook(name, counter))
+        torch.cuda.set_sync_debug_mode("warn")
+        return self.n
+
+    def __exit__(self, *exc):
+        from deepblast_torch.train.trainer import DeepBLAST
+        torch.cuda.set_sync_debug_mode("default")
+        for name, fn in self.orig.items():
+            setattr(DeepBLAST, name, fn)
+        self.caught.__exit__(*exc)
+
+
+def run_cli_train(argv):
+    """``cli.train`` in-process; returns the run's seconds, peak device
+    memory, ``metrics.jsonl`` records, the model ``fit`` trained (in
+    memory) and its best checkpoint."""
+    from deepblast_torch.cli import train as cli_train
+    from deepblast_torch.train.checkpoint import Checkpointer
+    from deepblast_torch.train.trainer import DeepBLAST
+    out = argv[argv.index("-o") + 1]
+    fit, trained = DeepBLAST.fit, []
+
+    def keep(self, *a, **k):
+        trained.append(self)
+        return fit(self, *a, **k)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    DeepBLAST.fit = keep
+    try:
+        t0 = time.time()
+        rc = cli_train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        DeepBLAST.fit = fit
+    seconds = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
+    with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    best = Checkpointer(os.path.join(out, "checkpoints")).restore()
+    return dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(),
+                metrics=metrics, model=trained[0], best=best)
+
+
+def phase_options(seed, card):
+    """(a) ``cli.train --precision bf16 --grad-accum 2
+    --steps-per-dispatch 4`` at ProtT5-XL + CNN-1024, batch 16, 2 epochs,
+    on 128 pairs of 481-496 residues (one batch shape: two whole chunks an
+    epoch) and 16 validation pairs of 100-500: losses finite, every
+    training kernel ran (counters zeroed before, read after), the
+    optimizer and the schedule stepped once per two steps, no wait for the
+    card inside a chunk's steps or copies and one loss readback a chunk;
+    then the kernels of the run's storage menu, and autograd through
+    them, against the plain versions at the potentials of a training
+    batch.  (b) ``cli.train
+    --finetune True --precision bf16``, batch 4, 1 epoch, 12 pairs of
+    100-300 residues: the LM's weights changed, and ``load_model`` of the
+    output directory serves ``align`` with the trained LM, the states of
+    the in-memory model.  Returns (a)'s launches and the kernels'
+    errors."""
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import load_model
+    from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
+
+    rng = np.random.default_rng(seed + 4)
+    rows = uniform_rows(rng, 128, 481, 496, "u")
+    valid = [homolog_row(rng, f"v{i}", 100, 500) for i in range(16)]
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        out = os.path.join(tmp, "a")
+        dp_cuda.reset_launches()
+        with count_waits() as waits:
+            run = run_cli_train([
+                "--train-pairs", paths[0], "--valid-pairs", paths[1],
+                "-o", out, "--lm-type", "prot_t5", "--batch-size", "16",
+                "--epochs", "2", "--precision", "bf16", "--grad-accum", "2",
+                "--steps-per-dispatch", "4", "--seed", str(seed)])
+        launches = dict(dp_cuda.LAUNCHES)
+        model, best = run["model"], run["best"]
+        losses = [(m["tag"], m["value"]) for m in run["metrics"]
+                  if m["tag"] in ("train_loss", "validation_loss")]
+        n_steps = sum(t == "train_loss" for t, _ in losses)
+        opt_steps = {int(v["step"]) for v in
+                     best["optimizer"]["state"].values()}
+        sched_steps = best["scheduler"]["last_epoch"]
+        if n_steps != 16 or not all(np.isfinite(v) for _, v in losses):
+            raise AssertionError(f"training losses {losses}")
+        if any(launches[k] == 0 for k in TRAIN_KERNELS):
+            raise AssertionError(f"a kernel did not run on the options' "
+                                 f"training path: {launches}")
+        if opt_steps != {best["step"] // 2} or \
+                sched_steps != best["step"] // 2 or model.step != 16 or \
+                model._mini_step != 0:
+            raise AssertionError(
+                f"grad_accum 2: {best['step']} steps, optimizer steps "
+                f"{opt_steps}, schedule {sched_steps}")
+        if waits["chunks"] != 4 or waits["steps"] != 16 or \
+                waits["syncs"] != 0 or waits["readbacks"] != 4:
+            raise AssertionError(f"steps_per_dispatch 4: {waits}")
+        if model.lm.cfg.dtype != "bfloat16" or \
+                model.aligner.matmul_dtype != torch.bfloat16:
+            raise AssertionError("--precision bf16 did not reach the model")
+
+        # the kernels of the run's menu, and autograd through them, at a
+        # training batch's potentials (every batch has one shape; phase 4
+        # holds float32 storage, and the DP does not see the precision)
+        batch = next(model._batches(model._dataset(paths[0]), True, seed))
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            check_menu_kernels(theta, A, *lengths, "nw", "softmax",
+                               model.dp_dtypes, errs)
+        check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                       dtypes=model.dp_dtypes)
+        torch.cuda.synchronize()
+        checked = tuple(theta.shape)
+        # a chunk's losses are logged together, after the next chunk is
+        # issued: the second chunk of an epoch is logged at its end
+        walls = sorted({m["wall_time"] for m in run["metrics"]
+                        if m["tag"] == "train_loss"})
+        seconds, peak = run["seconds"], run["peak"]
+        del model, run, best, hx, hy, theta, A
+        torch.cuda.empty_cache()
+        log(f"phase options: cli.train --precision bf16 --grad-accum 2 "
+            f"--steps-per-dispatch 4, ProtT5-XL + CNN-1024, {len(rows)} "
+            f"train / {len(valid)} valid pairs, batches (16, 496, 496), 2 "
+            f"epochs: {seconds:.2f} s; {waits['steps']} steps in "
+            f"{waits['chunks']} chunks of 4, {sched_steps} updates at the "
+            f"best checkpoint's step {2 * sched_steps}; host waits in the "
+            f"training loop: {waits['readbacks']} loss readbacks (one a "
+            f"chunk), {waits['syncs']} synchronizing operations in the "
+            f"steps and the chunks' copies; host seconds issuing the steps "
+            f"{waits['seconds']['_step']:.4f}, copying the chunks "
+            f"{waits['seconds']['_device_chunk']:.4f}, waiting at the "
+            f"readbacks {waits['seconds']['_consume_loss']:.4f}; seconds "
+            f"between the chunks' train_loss records "
+            f"{[round(b - a, 4) for a, b in zip(walls, walls[1:])]}; peak "
+            f"device memory {peak / 2**30:.2f} GiB; losses {losses} "
+            f"[{card}]; launches {json.dumps(launches)}")
+        log(f"phase options: kernels = plain and autograd = plain and CPU "
+            f"at a training batch {checked}; max abs diff "
+            f"{json.dumps(errs)}")
+
+        # (b) finetune
+        rows_b = [homolog_row(rng, f"f{i}", 100, 300) for i in range(12)]
+        valid_b = [homolog_row(rng, f"w{i}", 100, 300) for i in range(4)]
+        _write_tsv(paths[0], rows_b)
+        _write_tsv(paths[1], valid_b)
+        out = os.path.join(tmp, "b")
+        run = run_cli_train([
+            "--train-pairs", paths[0], "--valid-pairs", paths[1], "-o", out,
+            "--lm-type", "prot_t5", "--batch-size", "4", "--epochs", "1",
+            "--finetune", "True", "--precision", "bf16", "--seed",
+            str(seed)])
+        trained = run["model"]
+        with open(os.path.join(out, "config.json")) as f:
+            config = DeepBLASTConfig.from_json(f.read())
+        if not (config.finetune and trained.config.finetune):
+            raise AssertionError("--finetune True did not reach the config")
+        init = DeepBLAST(config).init().lm.state_dict()
+        lm = trained.lm.state_dict()
+        changed = sum(not torch.equal(v, init[k]) for k, v in lm.items())
+        del init
+        torch.cuda.empty_cache()
+        served = load_model(out)
+        same_lm = all(torch.equal(v, lm[k])
+                      for k, v in served.lm.state_dict().items())
+        pairs = [r[5:7] for r in rows_b[:3]]
+        states = [served.align(x, y) for x, y in pairs]
+        want = [trained.align(x, y) for x, y in pairs]
+        losses_b = [(m["tag"], m["value"]) for m in run["metrics"]
+                    if m["tag"] in ("train_loss", "validation_loss")]
+        seconds_b, peak_b = run["seconds"], run["peak"]
+        del served, trained, run, lm
+        torch.cuda.empty_cache()
+    if not changed:
+        raise AssertionError("--finetune left the LM unchanged")
+    if not same_lm or states != want:
+        raise AssertionError("load_model did not serve the finetuned LM")
+    if not all(np.isfinite(v) for _, v in losses_b):
+        raise AssertionError(f"finetune losses {losses_b}")
+    log(f"phase options: cli.train --finetune True --precision bf16, "
+        f"ProtT5-XL + CNN-1024, {len(rows_b)} train / {len(valid_b)} valid "
+        f"pairs of 100-300, batch 4, 1 epoch: {seconds_b:.2f} s; {changed} "
+        f"of the LM's tensors changed; load_model serves them (align x"
+        f"{len(pairs)} = the in-memory model's states); peak device memory "
+        f"{peak_b / 2**30:.2f} GiB; losses {losses_b} [{card}]")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the long-sequence backend
 # ---------------------------------------------------------------------------
 
@@ -1385,13 +1756,24 @@ def phase_long(seed, card):
         for op in OPERATORS:
             theta, A, ln, lm = dp_problem(g, 16, 200, 150)
             check_q_kernels(theta, A, ln, lm, mode, op, errs)
+            check_q_kernels(theta, A, ln, lm, mode, op, errs,
+                            q_dtype=torch.bfloat16)
             check_autograd(theta, A, ln, lm, mode, op, errs,
                            backend="pallas_long")
     torch.cuda.synchronize()
-    log("phase long: Q kernels = plain at (16, 200, 150) nw/sw x "
-        "softmax/sparsemax/hardmax, tracebacks identical; autograd through "
-        f"them = plain and = CPU; max abs diff {json.dumps(errs)}; "
-        f"{split_line()}")
+    log("phase long: Q kernels, float32 and bf16 Q instances, = plain at "
+        "(16, 200, 150) nw/sw x softmax/sparsemax/hardmax, tracebacks "
+        "identical; autograd through them = plain and = CPU; max abs diff "
+        f"{json.dumps(errs)}; {split_line()}")
+    t0 = time.time()
+    check_split_edges(g, errs, torch.bfloat16, BF16_CLUSTERS)
+    split_bf16, _ = check_split_limit(g, errs, torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"phase long: the bf16 Q instances of the four split kernels bit "
+        f"for bit = plain at the forced cluster sizes {BF16_CLUSTERS} at S "
+        f"= {SPLIT_EDGE_SLOTS}, and at S = "
+        f"{dp_cuda.CLUSTER_SLOTS['forward_q']} ({split_line(split_bf16)}) "
+        f"({time.time() - t0:.1f} s)")
     t0 = time.time()
     check_split_edges(g, errs)
     split, refusals = check_split_limit(g, errs)
@@ -1427,7 +1809,7 @@ def phase_long(seed, card):
         rc = cli_train.main([
             "--train-pairs", paths[0], "--valid-pairs", paths[1],
             "-o", out, "--lm-type", "prot_t5", "--batch-size", "2",
-            "--epochs", "2", "--max-len", str(LONG_LEN),
+            "--epochs", "1", "--max-len", str(LONG_LEN),
             "--backend", "pallas_long", "--seed", str(seed)])
         torch.cuda.synchronize()
         t_train = time.time() - t0
@@ -1489,7 +1871,7 @@ def phase_long(seed, card):
     if S > dp_cuda.MAX_SLOTS["adjoint_backward"]:
         raise AssertionError(f"the longest batch pads to S = {S} slots, past "
                              "the default kernels' strips")
-    if len(losses) != 2 * (len(batches) + 1) or \
+    if len(losses) != len(batches) + 1 or \
             not all(np.isfinite(v) for _, v in losses):
         raise AssertionError(f"training losses {losses}")
     if state.count("1") + state.count(":") != len(x) or \
@@ -1500,7 +1882,7 @@ def phase_long(seed, card):
     shapes = [tuple(bt["x"].shape) + (bt["y"].shape[1],) for bt in batches]
     log(f"phase long: cli.train --backend pallas_long --max-len {LONG_LEN} "
         f"ProtT5-XL + CNN-1024, {len(rows)} train / {len(valid)} valid "
-        f"pairs, batch 2, 2 epochs: {t_train:.2f} s; batches (B, Lx, Ly) "
+        f"pairs, batch 2, 1 epoch: {t_train:.2f} s; batches (B, Lx, Ly) "
         f"{shapes}; seconds between train_loss records "
         f"{[round(v, 4) for v in step_intervals(metrics)]}; peak device "
         f"memory {peak_train / 2**30:.2f} GiB; losses {losses}; align "
@@ -1544,6 +1926,7 @@ def split_line(splits=None):
     return "; ".join(out)
 
 
+@timed_check
 def long_step_past(g, errs):
     """One ``pallas_long`` training step (``expected_alignment`` and the
     gradient of <E, Z> for a random Z) on a pair of 19,800 x 40 (S =
@@ -1588,6 +1971,7 @@ def long_step_past(g, errs):
             f"{t_kern:.2f} s; Q launches {json.dumps(ran)}; {line}")
 
 
+@timed_check
 def default_vs_long(theta, A, lengths, seed, errs):
     """The default backend's training step at the long batch against
     ``pallas_long``'s on the same inputs: ``expected_alignment`` and the
@@ -1672,7 +2056,14 @@ def refusal_past_strips():
 def long_times(seed, card):
     """Each Q kernel and the ``pallas_long`` expected alignment at 8 x
     4096 x 4096, nw, softmax, fp32 (CUDA events, 3 launches after one
-    warm-up), and the peak device memory of the decode."""
+    warm-up), and the peak device memory of the decode.  Then the bf16 Q
+    instances (``ops.dp.Q_DTYPE`` bf16) at the same shape: each kernel,
+    and the decode and the DP step (``expected_alignment`` + the gradient
+    of ``<E, Z>``) in turns with float32 Q, the largest E and gradient
+    differences from the float32 run, and the bf16 instances' launches in
+    one DP step, counters zeroed just before, and their splits in that
+    step (the kernels line's ``launches`` and ``split`` of the bf16
+    instances).  Returns ``(times, launches, splits)``."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_cuda
     B, N = 8, LONG_LEN
@@ -1697,7 +2088,21 @@ def long_times(seed, card):
             *qs, *qds, E, ln, lm, mode="nw"),
     }
     ms = {k: cuda_ms(fn, 3) for k, fn in kern.items()}
-    del th_s, A_s, qs, E, zt, qds
+    bf16 = torch.bfloat16
+    _, *qb = dp_cuda.forward_q(th_s, A_s, ln, lm, q_dtype=bf16, **kw)
+    del qs
+    kern = {
+        "forward_q_bf16": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm,
+                                                    q_dtype=bf16, **kw),
+        "backward_q_bf16": lambda: dp_cuda.backward_q(*qb, ln, lm, Et,
+                                                      mode="nw"),
+        "adjoint_forward_q_bf16": lambda: dp_cuda.adjoint_forward_q(
+            *qb, zt, None, ln, lm, **kw),
+        "adjoint_backward_q_bf16": lambda: dp_cuda.adjoint_backward_q(
+            *qb, *qds, E, ln, lm, mode="nw"),
+    }
+    ms.update({k: cuda_ms(fn, 3) for k, fn in kern.items()})
+    del th_s, A_s, qb, E, zt, qds, kern
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -1717,9 +2122,76 @@ def long_times(seed, card):
         f"softmax fp32 (skew x2 + forward_q + backward_q + unskew): "
         f"{decode_ms:.4f} ms = {B / decode_ms * 1e3:.2f} alignments/s; "
         f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    del theta, A
+
+    Z = torch.randn((B, N, N), generator=g, device="cuda")
+
+    def decode():
+        with torch.no_grad():
+            return dp_ops.expected_alignment(theta, A, (ln, lm),
+                                             backend="pallas_long", **kw)
+
+    def step():
+        t = theta.clone().requires_grad_()
+        a = A.clone().requires_grad_()
+        E = dp_ops.expected_alignment(t, a, (ln, lm), backend="pallas_long",
+                                      **kw)
+        (E * Z).sum().backward()
+        return E.detach(), t.grad, a.grad
+
+    def with_q(q_dtype, fn):
+        keep, dp_ops.Q_DTYPE = dp_ops.Q_DTYPE, q_dtype
+        try:
+            return fn()
+        finally:
+            dp_ops.Q_DTYPE = keep
+
+    dp_cuda.reset_launches()
+    runs = {q: with_q(q, step) for q in (None, torch.bfloat16)}
+    torch.cuda.synchronize()
+    launches = {k: dp_cuda.LAUNCHES[k] for k in Q_BF16}
+    splits = q_splits(torch.bfloat16)
+    if any(v == 0 for v in launches.values()) or \
+            any(dp_cuda.LAUNCHES[k] != 1 for k in Q_KERNELS):
+        raise AssertionError(f"the DP steps did not run each float32 and "
+                             f"bf16 Q instance: {dp_cuda.LAUNCHES}")
+    diff = {}
+    for name, f32, b16 in zip(("E", "dtheta", "dA"), runs[None],
+                              runs[torch.bfloat16]):
+        if not torch.isfinite(b16).all():
+            raise AssertionError(f"bf16 Q: non-finite {name}")
+        diff[name] = dict(max_abs=(b16 - f32).abs().max().item(),
+                          scale=f32.abs().max().item())
+    del runs
+    turns = {}
+    for _ in range(2):
+        for q in (None, torch.bfloat16):
+            tag = "bf16" if q else "float32"
+            turns.setdefault(f"decode {tag}", []).append(
+                with_q(q, lambda: cuda_ms(decode, 3)))
+            turns.setdefault(f"dp_step {tag}", []).append(
+                with_q(q, lambda: cuda_ms(step, 2)))
     torch.cuda.empty_cache()
-    return dict(ms, decode=decode_ms)
+    torch.cuda.reset_peak_memory_stats()
+    with_q(torch.bfloat16, step)
+    peak_b16 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with_q(None, step)
+    peak_f32 = torch.cuda.max_memory_allocated()
+    for k, v in turns.items():
+        log(f"phase long: pallas_long {k.replace(' ', ' Q ')} at ({B}, {N}, "
+            f"{N}) nw softmax: {min(v):.4f} ms (turns "
+            f"{[round(x, 4) for x in v]}) = {B / min(v) * 1e3:.2f} "
+            f"{'alignments' if k.startswith('decode') else 'pairs'}/s "
+            f"[{card}]")
+    log(f"phase long: pallas_long DP step at ({B}, {N}, {N}) with bf16 Q "
+        f"against float32 Q: largest differences {json.dumps(diff)}; "
+        f"peak device memory {peak_b16 / 2**30:.2f} GiB (float32 Q "
+        f"{peak_f32 / 2**30:.2f} GiB); bf16 Q launches of one step "
+        f"{json.dumps(launches)} [{card}]")
+    del theta, A, Z
+    torch.cuda.empty_cache()
+    return dict(ms, decode=decode_ms,
+                **{k: min(v) for k, v in turns.items()}), launches, splits
 
 
 # ---------------------------------------------------------------------------
@@ -1730,6 +2202,7 @@ def _agreement(s1, s2):
     return sum(a == b for a, b in zip(s1, s2)) / max(len(s1), len(s2))
 
 
+@timed_check
 def menu_accuracy(card):
     """The decode under bf16 residuals and under the fast menu against
     float32 storage on the card, on the JAX package's own data and at its
@@ -1999,7 +2472,7 @@ def cells_per_body(instance):
     kernel (T its last template argument), else 1."""
     if instance.startswith(SPLIT_KERNELS):
         ring = Q_RING[instance.split("<")[0] + "<"]
-        return 2 * ring[instance.endswith("true>")]
+        return 2 * ring[split_args(instance)[0]]
     if instance.startswith(STRIP_KERNELS):
         T = int(instance.rsplit(",", 1)[1].rstrip("> "))
         ring = ABWD_RING if instance.startswith("adjoint_backward") else \
@@ -2040,6 +2513,9 @@ def phase_bench(seed, card):
     _, dxd, dmd = dp_cuda.adjoint_forward(dx, dm, zt, None, ln, lm, **kw)
     _, *qs = dp_cuda.forward_q(th_s, A_s, ln, lm, **kw)
     _, *qds = dp_cuda.adjoint_forward_q(*qs, zt, None, ln, lm, **kw)
+    bf16 = torch.bfloat16
+    _, *qb = dp_cuda.forward_q(th_s, A_s, ln, lm, q_dtype=bf16, **kw)
+    _, *qdb = dp_cuda.adjoint_forward_q(*qb, zt, None, ln, lm, **kw)
 
     def decode():
         t, a = dp_cuda.skew_pair(theta, A)
@@ -2082,6 +2558,18 @@ def phase_bench(seed, card):
             *qs, zt, za, ln, lm, **kw),
         "adjoint_backward_q": lambda: dp_cuda.adjoint_backward_q(
             *qs, *qds, E, ln, lm, mode="nw"),
+        "forward_q_bf16": lambda: dp_cuda.forward_q(th_s, A_s, ln, lm,
+                                                    q_dtype=bf16, **kw),
+        "backward_q_bf16": lambda: dp_cuda.backward_q(*qb, ln, lm, Et,
+                                                      mode="nw"),
+        "backward_q_gap_bf16": lambda: dp_cuda.backward_q(
+            *qb, ln, lm, Et, mode="nw", want_gap=True),
+        "adjoint_forward_q_bf16": lambda: dp_cuda.adjoint_forward_q(
+            *qb, zt, None, ln, lm, **kw),
+        "adjoint_forward_q_za_bf16": lambda: dp_cuda.adjoint_forward_q(
+            *qb, zt, za, ln, lm, **kw),
+        "adjoint_backward_q_bf16": lambda: dp_cuda.adjoint_backward_q(
+            *qb, *qdb, E, ln, lm, mode="nw"),
     }
     plain = {
         "skew": lambda: skew(theta),
@@ -2109,6 +2597,18 @@ def phase_bench(seed, card):
             *qs, zt, za, ln, lm, **kw),
         "adjoint_backward_q": lambda: dp_ref.adjoint_backward_q(
             *qs, *qds, E, ln, lm, mode="nw"),
+        "forward_q_bf16": lambda: dp_ref.forward_q(th_s, A_s, ln, lm,
+                                                   q_dtype=bf16, **kw),
+        "backward_q_bf16": lambda: dp_ref.backward_q(*qb, ln, lm, Et,
+                                                     mode="nw"),
+        "backward_q_gap_bf16": lambda: dp_ref.backward_q(
+            *qb, ln, lm, Et, mode="nw", want_gap=True),
+        "adjoint_forward_q_bf16": lambda: dp_ref.adjoint_forward_q(
+            *qb, zt, None, ln, lm, **kw),
+        "adjoint_forward_q_za_bf16": lambda: dp_ref.adjoint_forward_q(
+            *qb, zt, za, ln, lm, **kw),
+        "adjoint_backward_q_bf16": lambda: dp_ref.adjoint_backward_q(
+            *qb, *qdb, E, ln, lm, mode="nw"),
     }
     # The least bytes each function must move: a DP pass reads and writes
     # only the valid band (ln x lm cells per pair) of each stream, plus the
@@ -2124,6 +2624,9 @@ def phase_bench(seed, card):
                "adjoint_forward_q": 7, "adjoint_forward_q_za": 8,
                "adjoint_backward_q": 9}
     nbytes = {k: n * f * band + per_pair for k, n in streams.items()}
+    # the bf16 Q instances move their three Q streams at 2 bytes a value
+    nbytes.update({f"{k}_bf16": nbytes[k] - 3 * 2 * band
+                   for k in streams if "_q" in k})
     nbytes["skew"] = f * B * N * M + f * B * K * S
     nbytes["skew_pair"] = 2 * nbytes["skew"]
     nbytes["unskew"] = 2 * f * B * N * M
@@ -2229,8 +2732,9 @@ def log_registers(report):
         if name.startswith(STRIP_KERNELS):
             key = f"{name.split('<')[0]} T={name.rsplit(',', 1)[1][:-1].strip()}"
         elif name.startswith(SPLIT_KERNELS):
+            cluster, tq = split_args(name)
             key = (f"{name.split('<')[0]} "
-                   f"{'cluster' if name.endswith('true>') else 'one CTA'}")
+                   f"{'cluster' if cluster else 'one CTA'} Q {tq}")
         elif name.startswith(("skew", "unskew")):
             key = name.split("<")[0]
         else:
@@ -2374,7 +2878,6 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import deepblast_torch  # noqa: F401  (fails outside a checkout)
-    from deepblast_torch.ops import dp_cuda
     card = card_line()
     log(card)
 
@@ -2382,6 +2885,7 @@ def main(argv):
     seconds, t0 = {}, time.time()
 
     def timed(name, fn, *args):
+        PHASE[0] = name
         out = fn(*args)
         seconds[name] = round(time.time() - t0 - sum(seconds.values()), 1)
         return out
@@ -2390,27 +2894,35 @@ def main(argv):
     errs = timed("kernels", phase_kernels, seed)
     serving, path_errs = timed("serving", phase_serving, seed, card)
     training, train_errs = timed("train", phase_train, seed, card)
+    options, options_errs = timed("options", phase_options, seed, card)
     long_, long_errs = timed("long", phase_long, seed, card)
-    # each split Q kernel's last split on the long path (its longest batch)
-    splits = {k: dict(v) for k, v in dp_cuda.SPLITS.items() if v}
-    timed("long_times", long_times, seed, card)
+    # each split Q kernel's last split on the long path (its longest
+    # batch); the bf16 instances' in long_times' bf16 DP step
+    splits = q_splits(None)
+    _, bf16_launches, bf16_splits = timed("long_times", long_times, seed,
+                                          card)
+    splits.update(bf16_splits)
     menu, menu_errs = timed("menu", phase_menu, seed, card)
     bench = timed("bench", phase_bench, seed, card)
     log(f"seconds per phase {json.dumps(seconds)}")
+    log(f"seconds per phase and check (all calls; nested checks count in "
+        f"each) {json.dumps(CHECK_SECONDS)}")
     kernels = []
-    for k in KERNELS + Q_KERNELS:
-        checked = [d[k] for d in (errs, path_errs, train_errs, long_errs,
-                                  menu_errs) if k in d]
+    for k in KERNELS + Q_KERNELS + Q_BF16:
+        checked = [d[k] for d in (errs, path_errs, train_errs, options_errs,
+                                  long_errs, menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
+        launches = bf16_launches[k] if k in Q_BF16 else \
+            serving[k] + training[k] + options[k] + long_[k] + menu[k]
         kernels.append(dict(
-            name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-            launches=serving[k] + training[k] + long_[k] + menu[k],
-            max_abs_err=max(checked),
+            name=k, route="cuda", source=SOURCE,
+            replaces=REPLACES[k.replace("_bf16", "")],
+            launches=launches, max_abs_err=max(checked),
             ms=bench[k]["ms"], plain_ms=bench[k]["plain_ms"],
             bound_ms=bench[k]["bound_ms"], bound_by=bench[k]["bound_by"],
             library_ms=bench[k]["library_ms"],
-            **({"split": splits[k]} if k in Q_KERNELS else {})))
+            **({"split": splits[k]} if k in Q_KERNELS + Q_BF16 else {})))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -62,9 +62,11 @@ def add_model_args(parser: argparse.ArgumentParser):
                              "differences); pallas and pallas_long store the "
                              "soft-argmax streams and train pairs past the "
                              "default kernels' limit (S = 6,144 slots; "
-                             "theirs ~9,600 on an H100); scan is not "
+                             "theirs 32,768 on an H100); scan is not "
                              "ported"),
-    parser.add_argument("--finetune", type=bool, default=False)
+    # type=bool as deepblast-train's parser: any non-empty value is True
+    parser.add_argument("--finetune", type=bool, default=False,
+                        help="train the LM's weights with the aligner")
     parser.add_argument("--mask-gaps", type=bool, default=True)
     parser.add_argument("--scheduler", type=str, default="cosine")
     parser.add_argument("--epochs", type=int, default=10)
@@ -77,8 +79,13 @@ def add_model_args(parser: argparse.ArgumentParser):
 
 
 def add_infra_args(parser: argparse.ArgumentParser):
-    parser.add_argument("--grad-accum", type=int, default=1)
-    parser.add_argument("--steps-per-dispatch", type=int, default=1)
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="average the gradients of this many steps "
+                             "per update (optax.MultiSteps)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="copy this many same-shape batches to the "
+                             "device at once and issue their steps back to "
+                             "back, reading their losses once")
     parser.add_argument("--grad-clip", type=float, default=10.0)
     parser.add_argument("--nodes", type=int, default=1)
     parser.add_argument("--coordinator", type=str, default=None)
@@ -89,7 +96,10 @@ def add_infra_args(parser: argparse.ArgumentParser):
                              "resume from (its best state)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--precision", type=str, default="32",
-                        choices=("32", "bf16", "16"))
+                        choices=("32", "bf16", "16"),
+                        help="compute dtype of the T5 LM's and the "
+                             "aligner's matmuls (parameters and the DP "
+                             "stay float32)")
     parser.add_argument("--dp-bf16-residuals",
                         action=argparse.BooleanOptionalAction,
                         default="auto",
@@ -139,14 +149,18 @@ def config_from_args(args) -> DeepBLASTConfig:
         backend=args.backend,
         lm_type=args.lm_type,
         vocab_size=args.vocab_size,
+        finetune=bool(args.finetune),
         batch_size=args.batch_size,
         learning_rate=args.learning_rate,
         epochs=args.epochs,
         scheduler=args.scheduler,
         loss=args.loss,
         grad_clip=getattr(args, "grad_clip", None),
+        grad_accum=getattr(args, "grad_accum", 1),
+        steps_per_dispatch=getattr(args, "steps_per_dispatch", 1),
         mask_gaps=bool(args.mask_gaps),
         seed=getattr(args, "seed", 0),
+        precision=getattr(args, "precision", "32"),
         dp_bf16_residuals=getattr(args, "dp_bf16_residuals", "auto"),
         dp_i16_streams=getattr(args, "dp_i16_streams", False),
         dp_decode_menu=getattr(args, "dp_decode_menu", "default"),

@@ -11,9 +11,14 @@ finally writes ``model.pt``, so that
 and the search CLI from the best checkpoint.  It runs on one device
 (``--device``, CUDA by default).  ``--backend pallas_long`` (or
 ``pallas``) trains through the Q-stream DP kernels, which take pairs past
-the default kernels' shared-memory limit (with ``--max-len 4096``); the
-backend is kept in ``config.json``.  Flags of options that are not ported
-yet raise (``cli/common.py``).
+the default kernels' limit (with ``--max-len 4096``); the backend is kept
+in ``config.json``.  ``--precision bf16`` (or ``16``) computes the T5 LM
+and the potentials' contractions in that dtype, ``--finetune True`` trains
+the LM too, ``--grad-accum k`` updates every k steps on their mean
+gradient, and ``--steps-per-dispatch K`` copies K same-shape batches to
+the device at once and issues their steps back to back; all four are kept
+in ``config.json``.  Flags of options that are not ported yet raise
+(``cli/common.py``).
 """
 
 from __future__ import annotations

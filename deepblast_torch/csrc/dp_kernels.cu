@@ -133,12 +133,17 @@
 // EdA and the cotangents Zt, Za float or bf16.  A bf16 difference stream
 // halves the bytes of the stream it replaces; the value recurrences use
 // the unrounded differences, the reverse passes the rounded ones, as the
-// TPU kernels.  The Q-stream kernels stay float (the JAX package gives
-// its Q backends no menu).
+// TPU kernels.  The Q-stream kernels take no menu (the JAX package gives
+// its Q backends none), only the storage of the three Q streams,
+// dp_pallas.Q_DTYPE: float or bf16 (TQ).  The forward rounds its Q stores
+// to nearest even; the other three hold the 2-byte values in their
+// register rings and widen them where a cell reads them; E, EA, Qd, Ed,
+// EdA and the cotangents stay float (dp_pallas.py:212-214, :296-310,
+// :396-398, :499-502).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (ops/dp_cuda.py compiles
-//        the five DP_PART objects in parallel and links them)
+//        the seven DP_PART objects in parallel and links them)
 // No fast math (the traceback compares E values exactly), and no FMA
 // contraction, so each cell rounds as the plain PyTorch version does.
 // Each C entry returns cudaGetLastError() of its launch (the split Q
@@ -413,6 +418,15 @@ __device__ __forceinline__ bf16 from_bits16<bf16>(uint32_t v) {
 template <>
 __device__ __forceinline__ int16_t from_bits16<int16_t>(uint32_t v) {
   return (int16_t)(uint16_t)v;
+}
+// a zero of storage type T (the Q kernels' rings hold stored values)
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return from_bits16<T>(0u);
+}
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.0f;
 }
 
 template <typename TI>
@@ -1118,14 +1132,14 @@ __device__ __forceinline__ void q_arrive() {
 // runs max3 (the gain comes from the SMs the split puts to work, the rows
 // in registers and the lighter barrier).  A is loaded at every slot,
 // theta only where the cell is valid (V is masked there), D rows ahead.
-template <int OP, bool kCluster>
+template <int OP, bool kCluster, typename TQ>
 __global__ void __launch_bounds__(1024)
     forward_q_kernel(const float *__restrict__ th,
                      const float *__restrict__ ad,
                      const int *__restrict__ ln, const int *__restrict__ lm,
                      int K, int S, int lo, int C, float *__restrict__ vt,
-                     float *__restrict__ qxo, float *__restrict__ qmo,
-                     float *__restrict__ qyo) {
+                     TQ *__restrict__ qxo, TQ *__restrict__ qmo,
+                     TQ *__restrict__ qyo) {
   // slot 0 of a strip waits for the barrier, the others do not
   constexpr int T = Q_STRIP, D = Q_FWD_RING, R = Q_EDGE_RING;
   __shared__ float edge[R][32];  // lane 31 of warp w, for warp w+1
@@ -1175,9 +1189,9 @@ __global__ void __launch_bounds__(1024)
         float px, pm, py;
         const float val = max3<OP>(a + v1l, v2l, a + v1[i], px, pm, py);
         if (s < S) {
-          qxo[row + s] = px;
-          qmo[row + s] = pm;
-          qyo[row + s] = py;
+          st(qxo, row + s, px, 0.0f);
+          st(qmo, row + s, pm, 0.0f);
+          st(qyo, row + s, py, 0.0f);
         }
         const float v = cell_valid(s, k, n, m, lo) ? t + val : 0.0f;
         if (s == n && k == n + m) vt[b] = v;
@@ -1232,11 +1246,11 @@ __global__ void __launch_bounds__(1024)
 // where E is zero the kernel stores EA = 0 and carries zero products
 // without reading Q (the plain version forms 0 x Q, a zero that may be
 // -0.0, which compares equal: torch.equal, chip_smoke._exact).
-template <bool kWantGap, bool kCluster>
+template <bool kWantGap, bool kCluster, typename TQ>
 __global__ void __launch_bounds__(1024)
-    backward_q_kernel(const float *__restrict__ qx,
-                      const float *__restrict__ qm,
-                      const float *__restrict__ qy,
+    backward_q_kernel(const TQ *__restrict__ qx,
+                      const TQ *__restrict__ qm,
+                      const TQ *__restrict__ qy,
                       const int *__restrict__ ln, const int *__restrict__ lm,
                       const float *__restrict__ et, int K, int S, int lo,
                       int C, float *__restrict__ eo,
@@ -1256,18 +1270,19 @@ __global__ void __launch_bounds__(1024)
       kCluster && c > 0 ? cluster_map(&xedge[0][0], c - 1) : 0u;
   float x1[T], m1[T], m2[T], y1[T];
   float rx = 0.0f, rma = 0.0f, rmb = 0.0f, dx = 0.0f, dm = 0.0f;
-  float px_[D][T], pm_[D][T], py_[D][T];
+  TQ px_[D][T], pm_[D][T], py_[D][T];
 #pragma unroll
   for (int i = 0; i < T; ++i) x1[i] = m1[i] = m2[i] = y1[i] = 0.0f;
 
-  // issue the loads of slot s0+i of row q into ring slot d: Q on the band
+  // issue the loads of slot s0+i of row q into ring slot d: Q on the band,
+  // as stored (widened where the cell reads it)
   auto fetch = [&](int d, int q, int i) {
     const int s = s0 + i;
     const bool band = q >= 0 && in_band(s, q + 2, n, m, lo);
     const size_t at = base + (size_t)q * S + s;
-    px_[d][i] = band ? qx[at] : 0.0f;
-    pm_[d][i] = band ? qm[at] : 0.0f;
-    py_[d][i] = band ? qy[at] : 0.0f;
+    px_[d][i] = band ? qx[at] : zero_of<TQ>();
+    pm_[d][i] = band ? qm[at] : zero_of<TQ>();
+    py_[d][i] = band ? qy[at] : zero_of<TQ>();
   };
 #pragma unroll
   for (int d = 0; d < D; ++d)
@@ -1289,7 +1304,8 @@ __global__ void __launch_bounds__(1024)
       // slot s0+i of row r, its right neighbours X[r+1], M[r+2] at s0+i+1
       auto cell = [&](int i, float xr, float mr) {
         const int s = s0 + i;
-        float ax = px_[d][i], am = pm_[d][i], ay = py_[d][i];
+        float ax = cvt(px_[d][i], 0.0f), am = cvt(pm_[d][i], 0.0f),
+              ay = cvt(py_[d][i], 0.0f);
         const bool band = in_band(s, k, n, m, lo);
         float e = band ? (xr + mr) + y1[i] : 0.0f;
         if (s == n && k == n + m) e = e + e_t;
@@ -1297,9 +1313,9 @@ __global__ void __launch_bounds__(1024)
         if (e != 0.0f) {
           if (!band) {
             const size_t at = row + s;
-            ax = qx[at];
-            am = qm[at];
-            ay = qy[at];
+            ax = ld(qx, at, 0.0f);
+            am = ld(qm, at, 0.0f);
+            ay = ld(qy, at, 0.0f);
           }
           x = ax * e;
           mm = am * e;
@@ -1378,11 +1394,11 @@ __global__ void __launch_bounds__(1024)
 // band shortcut; Q and Za are loaded at every slot, Zt only where the cell
 // is valid (Vd is masked there), D rows ahead.  The dependent chain of a
 // diagonal is Vd's three products and sums; hessian3 hangs off it.
-template <int OP, bool kHasZa, bool kCluster>
+template <int OP, bool kHasZa, bool kCluster, typename TQ>
 __global__ void __launch_bounds__(1024)
-    adjoint_forward_q_kernel(const float *__restrict__ qx,
-                             const float *__restrict__ qm,
-                             const float *__restrict__ qy,
+    adjoint_forward_q_kernel(const TQ *__restrict__ qx,
+                             const TQ *__restrict__ qm,
+                             const TQ *__restrict__ qy,
                              const float *__restrict__ zt,
                              const float *__restrict__ za,
                              const int *__restrict__ ln,
@@ -1404,18 +1420,20 @@ __global__ void __launch_bounds__(1024)
   const uint32_t right =
       kCluster && c + 1 < C ? cluster_map(&xedge[0], c + 1) : 0u;
   float v1[T], v2[T], l1 = 0.0f, l2 = 0.0f, up = 0.0f;
-  float px_[D][T], pm_[D][T], py_[D][T], pz[D][T], pa[D][T];
+  TQ px_[D][T], pm_[D][T], py_[D][T];
+  float pz[D][T], pa[D][T];
 #pragma unroll
   for (int i = 0; i < T; ++i) v1[i] = v2[i] = 0.0f;
 
-  // issue the loads of slot s0+i of row q into ring slot d
+  // issue the loads of slot s0+i of row q into ring slot d (Q as stored,
+  // widened where the cell reads it)
   auto fetch = [&](int d, int q, int i) {
     const int s = s0 + i;
     const bool in = q < K && s < S;
     const size_t at = base + (size_t)q * S + s;
-    px_[d][i] = in ? qx[at] : 0.0f;
-    pm_[d][i] = in ? qm[at] : 0.0f;
-    py_[d][i] = in ? qy[at] : 0.0f;
+    px_[d][i] = in ? qx[at] : zero_of<TQ>();
+    pm_[d][i] = in ? qm[at] : zero_of<TQ>();
+    py_[d][i] = in ? qy[at] : zero_of<TQ>();
     if (kHasZa) pa[d][i] = in ? za[at] : 0.0f;
     pz[d][i] = q < K && cell_valid(s, q + 2, n, m, lo) ? zt[at] : 0.0f;
   };
@@ -1439,7 +1457,8 @@ __global__ void __launch_bounds__(1024)
       // slot s0+i of row r, its left neighbours Vd[r-1], Vd[r-2] at s0+i-1
       auto cell = [&](int i, float v1l, float v2l) {
         const int s = s0 + i;
-        const float px = px_[d][i], pm = pm_[d][i], py = py_[d][i];
+        const float px = cvt(px_[d][i], 0.0f), pm = cvt(pm_[d][i], 0.0f),
+                    py = cvt(py_[d][i], 0.0f);
         const float z = pz[d][i], a = kHasZa ? pa[d][i] : 0.0f;
         float xd = v1l, yd = v1[i];
         if (kHasZa) {
@@ -1516,11 +1535,11 @@ __global__ void __launch_bounds__(1024)
 // Qdy), a zero that may be -0.0, which compares equal (torch.equal,
 // chip_smoke._exact).  Every row is walked: E may be non-zero past the
 // terminal diagonal.
-template <bool kCluster>
+template <bool kCluster, typename TQ>
 __global__ void __launch_bounds__(1024)
-    adjoint_backward_q_kernel(const float *__restrict__ qx,
-                              const float *__restrict__ qm,
-                              const float *__restrict__ qy,
+    adjoint_backward_q_kernel(const TQ *__restrict__ qx,
+                              const TQ *__restrict__ qm,
+                              const TQ *__restrict__ qy,
                               const float *__restrict__ qdx,
                               const float *__restrict__ qdm,
                               const float *__restrict__ qdy,
@@ -1546,21 +1565,21 @@ __global__ void __launch_bounds__(1024)
       kCluster && c > 0 ? cluster_map(&xedge[0][0], c - 1) : 0u;
   float x1[T], m1[T], m2[T], yd1[T], yq1[T];
   float rx = 0.0f, rma = 0.0f, rmb = 0.0f, dx = 0.0f, dm = 0.0f;
-  float pe[D][T], px_[D][T], pm_[D][T], py_[D][T], hx_[D][T], hm_[D][T],
-      hy_[D][T];
+  float pe[D][T], hx_[D][T], hm_[D][T], hy_[D][T];
+  TQ px_[D][T], pm_[D][T], py_[D][T];
 #pragma unroll
   for (int i = 0; i < T; ++i) x1[i] = m1[i] = m2[i] = yd1[i] = yq1[i] = 0.0f;
 
   // issue the loads of slot s0+i of row q into ring slot d: E at every
-  // slot, Q and Qd on the band
+  // slot, Q (as stored, widened where the cell reads it) and Qd on the band
   auto fetch = [&](int d, int q, int i) {
     const int s = s0 + i;
     const bool band = q >= 0 && in_band(s, q + 2, n, m, lo);
     const size_t at = base + (size_t)q * S + s;
     pe[d][i] = q >= 0 && s < S ? E[at] : 0.0f;
-    px_[d][i] = band ? qx[at] : 0.0f;
-    pm_[d][i] = band ? qm[at] : 0.0f;
-    py_[d][i] = band ? qy[at] : 0.0f;
+    px_[d][i] = band ? qx[at] : zero_of<TQ>();
+    pm_[d][i] = band ? qm[at] : zero_of<TQ>();
+    py_[d][i] = band ? qy[at] : zero_of<TQ>();
     hx_[d][i] = band ? qdx[at] : 0.0f;
     hm_[d][i] = band ? qdm[at] : 0.0f;
     hy_[d][i] = band ? qdy[at] : 0.0f;
@@ -1586,7 +1605,8 @@ __global__ void __launch_bounds__(1024)
       auto cell = [&](int i, float xr, float mr) {
         const int s = s0 + i;
         const float e = pe[d][i];
-        float ax = px_[d][i], am = pm_[d][i], ay = py_[d][i];
+        float ax = cvt(px_[d][i], 0.0f), am = cvt(pm_[d][i], 0.0f),
+              ay = cvt(py_[d][i], 0.0f);
         float hx = hx_[d][i], hm = hm_[d][i], hy = hy_[d][i];
         if (!kLateLoads) fetch(d, r - D, i);
         const bool band = in_band(s, k, n, m, lo);
@@ -1595,9 +1615,9 @@ __global__ void __launch_bounds__(1024)
         if (band || e != 0.0f) {
           if (!band) {
             const size_t at = row + s;
-            ax = qx[at];
-            am = qm[at];
-            ay = qy[at];
+            ax = ld(qx, at, 0.0f);
+            am = ld(qm, at, 0.0f);
+            ay = ld(qy, at, 0.0f);
             hx = qdx[at];
             hm = qdm[at];
             hy = qdy[at];
@@ -1860,7 +1880,8 @@ unsigned unskew_tiles(int B, int N, int M) {
 // DP_PART selects the entries of one object when the library is built by
 // several nvcc processes at once (ops/dp_cuda.py build): 1 the forward, 2
 // the backward, 3 the adjoint backward, 4 the adjoint forward, 5 the split
-// Q kernels, 0 the rest; without it every entry is compiled.
+// Q forward and adjoint backward, 6 the split Q backward and adjoint
+// forward, 0 the rest; without it every entry is compiled.
 #ifndef DP_PART
 #define DP_PART_IS(p) 1
 #else
@@ -2038,112 +2059,163 @@ int dp_adjoint_backward(const void *dx, const void *dm, const void *dxd,
 
 #if DP_PART_IS(5)
 // The split Q kernels: B clusters of C CTAs (C in 1..16, chosen by
-// ops/dp_cuda.py).
+// ops/dp_cuda.py); the Q streams of storage q_dt (float or bf16, written by
+// the forward, read by the others), every other stream float.  Part 5 the
+// forward and the adjoint backward, part 6 the backward and the adjoint
+// forward.
 int dp_forward_q(const float *th, const float *ad, const int *ln,
                  const int *lm, int B, int K, int S, int lo, int op, int C,
-                 float *vt, float *qxo, float *qmo, float *qyo,
+                 int q_dt, float *vt, void *qxo, void *qmo, void *qyo,
                  void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || K <= 0) return (int)cudaSuccess;
-  DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-      C, KCL,
-      return (int)launch_cluster(forward_q_kernel<OP, KCL>, C, B, S, st, th,
-                                 ad, ln, lm, K, S, lo, C, vt, qxo, qmo,
-                                 qyo)))
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      q_dt, TQ,
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return (int)launch_cluster(forward_q_kernel<OP, KCL, TQ>, C, B, S,
+                                     st, th, ad, ln, lm, K, S, lo, C, vt,
+                                     (TQ *)qxo, (TQ *)qmo, (TQ *)qyo))))
 }
 
-int dp_adjoint_backward_q(const float *qx, const float *qm, const float *qy,
-                          const float *qdx, const float *qdm,
+int dp_adjoint_backward_q(const void *qx, const void *qm, const void *qy,
+                          int q_dt, const float *qdx, const float *qdm,
                           const float *qdy, const float *E, const int *ln,
                           const int *lm, int B, int K, int S, int lo, int C,
                           float *edo, float *edao, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || K <= 0) return (int)cudaSuccess;
-  DP_SWITCH_Q_CLUSTER(
-      C, KCL,
-      return (int)launch_cluster(adjoint_backward_q_kernel<KCL>, C, B, S, st,
-                                 qx, qm, qy, qdx, qdm, qdy, E, ln, lm, K, S,
-                                 lo, C, edo, edao))
+  DP_SWITCH_FLOAT(
+      q_dt, TQ,
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return (int)launch_cluster(adjoint_backward_q_kernel<KCL, TQ>, C, B,
+                                     S, st, (const TQ *)qx, (const TQ *)qm,
+                                     (const TQ *)qy, qdx, qdm, qdy, E, ln, lm,
+                                     K, S, lo, C, edo, edao)))
 }
 
+int dp_q_clusters_rev(int kernel, int op, int variant, int q_dt, int S,
+                      int C);
+
+// How many clusters of C CTAs the device holds at once for a pair of S
+// slots: `kernel` 0 forward_q, 1 adjoint_backward_q, 2 backward_q (with the
+// gap output if `variant`), 3 adjoint_forward_q (with a Za stream if
+// `variant`), the instance of operator `op` and Q storage q_dt that
+// launches.  0: a launch of that size would fail; negative: a CUDA error.
+int dp_q_clusters(int kernel, int op, int variant, int q_dt, int S, int C) {
+  switch (kernel) {
+    case 0:
+      DP_SWITCH_OP(DP_SWITCH_FLOAT(
+          q_dt, TQ,
+          DP_SWITCH_Q_CLUSTER(
+              C, KCL,
+              return max_clusters(forward_q_kernel<OP, KCL, TQ>, C, S))))
+    case 1:
+      DP_SWITCH_FLOAT(
+          q_dt, TQ,
+          DP_SWITCH_Q_CLUSTER(
+              C, KCL,
+              return max_clusters(adjoint_backward_q_kernel<KCL, TQ>, C, S)))
+    case 2:
+    case 3:
+      return dp_q_clusters_rev(kernel, op, variant, q_dt, S, C);
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+}
+
+#endif
+
+#if DP_PART_IS(6)
 // eao == nullptr: E only; else also EA = E (Qx + Qy).
-int dp_backward_q(const float *qx, const float *qm, const float *qy,
+int dp_backward_q(const void *qx, const void *qm, const void *qy, int q_dt,
                   const int *ln, const int *lm, const float *et, int B, int K,
                   int S, int lo, int C, float *eo, float *eao,
                   void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || K <= 0) return (int)cudaSuccess;
   if (eao) {
-    DP_SWITCH_Q_CLUSTER(
-        C, KCL,
-        return (int)launch_cluster(backward_q_kernel<true, KCL>, C, B, S, st,
-                                   qx, qm, qy, ln, lm, et, K, S, lo, C, eo,
-                                   eao))
+    DP_SWITCH_FLOAT(
+        q_dt, TQ,
+        DP_SWITCH_Q_CLUSTER(
+            C, KCL,
+            return (int)launch_cluster(backward_q_kernel<true, KCL, TQ>, C, B,
+                                       S, st, (const TQ *)qx, (const TQ *)qm,
+                                       (const TQ *)qy, ln, lm, et, K, S, lo,
+                                       C, eo, eao)))
   }
-  DP_SWITCH_Q_CLUSTER(
-      C, KCL,
-      return (int)launch_cluster(backward_q_kernel<false, KCL>, C, B, S, st,
-                                 qx, qm, qy, ln, lm, et, K, S, lo, C, eo,
-                                 (float *)nullptr))
+  DP_SWITCH_FLOAT(
+      q_dt, TQ,
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return (int)launch_cluster(backward_q_kernel<false, KCL, TQ>, C, B,
+                                     S, st, (const TQ *)qx, (const TQ *)qm,
+                                     (const TQ *)qy, ln, lm, et, K, S, lo, C,
+                                     eo, (float *)nullptr)))
 }
 
 // za == nullptr: no gap cotangent, the kernel without a Za stream.
-int dp_adjoint_forward_q(const float *qx, const float *qm, const float *qy,
-                         const float *zt, const float *za, const int *ln,
-                         const int *lm, int B, int K, int S, int lo, int op,
-                         int C, float *vtd, float *qdxo, float *qdmo,
-                         float *qdyo, void *stream) {
+int dp_adjoint_forward_q(const void *qx, const void *qm, const void *qy,
+                         int q_dt, const float *zt, const float *za,
+                         const int *ln, const int *lm, int B, int K, int S,
+                         int lo, int op, int C, float *vtd, float *qdxo,
+                         float *qdmo, float *qdyo, void *stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || K <= 0) return (int)cudaSuccess;
   if (za) {
-    DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-        C, KCL,
-        return (int)launch_cluster(adjoint_forward_q_kernel<OP, true, KCL>, C,
-                                   B, S, st, qx, qm, qy, zt, za, ln, lm, K, S,
-                                   lo, C, vtd, qdxo, qdmo, qdyo)))
+    DP_SWITCH_OP(DP_SWITCH_FLOAT(
+        q_dt, TQ,
+        DP_SWITCH_Q_CLUSTER(
+            C, KCL,
+            return (int)launch_cluster(
+                adjoint_forward_q_kernel<OP, true, KCL, TQ>, C, B, S, st,
+                (const TQ *)qx, (const TQ *)qm, (const TQ *)qy, zt, za, ln,
+                lm, K, S, lo, C, vtd, qdxo, qdmo, qdyo))))
   }
-  DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-      C, KCL,
-      return (int)launch_cluster(adjoint_forward_q_kernel<OP, false, KCL>, C,
-                                 B, S, st, qx, qm, qy, zt,
-                                 (const float *)nullptr, ln, lm, K, S, lo, C,
-                                 vtd, qdxo, qdmo, qdyo)))
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      q_dt, TQ,
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return (int)launch_cluster(
+              adjoint_forward_q_kernel<OP, false, KCL, TQ>, C, B, S, st,
+              (const TQ *)qx, (const TQ *)qm, (const TQ *)qy, zt,
+              (const float *)nullptr, ln, lm, K, S, lo, C, vtd, qdxo, qdmo,
+              qdyo))))
 }
 
-// How many clusters of C CTAs the device holds at once for a pair of S
-// slots: `kernel` 0 forward_q, 1 adjoint_backward_q, 2 backward_q (with the
-// gap output if `variant`), 3 adjoint_forward_q (with a Za stream if
-// `variant`), the instance of operator `op` that launches.  0: a launch of
-// that size would fail; negative: a CUDA error.
-int dp_q_clusters(int kernel, int op, int variant, int S, int C) {
-  switch (kernel) {
-    case 0:
-      DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-          C, KCL, return max_clusters(forward_q_kernel<OP, KCL>, C, S)))
-    case 1:
-      DP_SWITCH_Q_CLUSTER(
-          C, KCL, return max_clusters(adjoint_backward_q_kernel<KCL>, C, S))
-    case 2:
-      if (variant) {
+// dp_q_clusters for the backward (kernel 2) and the adjoint forward (3),
+// whose instances this part holds.
+int dp_q_clusters_rev(int kernel, int op, int variant, int q_dt, int S,
+                      int C) {
+  if (kernel == 2) {
+    if (variant) {
+      DP_SWITCH_FLOAT(
+          q_dt, TQ,
+          DP_SWITCH_Q_CLUSTER(
+              C, KCL,
+              return max_clusters(backward_q_kernel<true, KCL, TQ>, C, S)))
+    }
+    DP_SWITCH_FLOAT(
+        q_dt, TQ,
         DP_SWITCH_Q_CLUSTER(
-            C, KCL, return max_clusters(backward_q_kernel<true, KCL>, C, S))
-      }
-      DP_SWITCH_Q_CLUSTER(
-          C, KCL, return max_clusters(backward_q_kernel<false, KCL>, C, S))
-    case 3:
-      if (variant) {
-        DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
             C, KCL,
-            return max_clusters(adjoint_forward_q_kernel<OP, true, KCL>, C,
-                                S)))
-      }
-      DP_SWITCH_OP(DP_SWITCH_Q_CLUSTER(
-          C, KCL,
-          return max_clusters(adjoint_forward_q_kernel<OP, false, KCL>, C,
-                              S)))
-    default:
-      return -(int)cudaErrorInvalidValue;
+            return max_clusters(backward_q_kernel<false, KCL, TQ>, C, S)))
   }
+  if (variant) {
+    DP_SWITCH_OP(DP_SWITCH_FLOAT(
+        q_dt, TQ,
+        DP_SWITCH_Q_CLUSTER(
+            C, KCL,
+            return max_clusters(adjoint_forward_q_kernel<OP, true, KCL, TQ>,
+                                C, S))))
+  }
+  DP_SWITCH_OP(DP_SWITCH_FLOAT(
+      q_dt, TQ,
+      DP_SWITCH_Q_CLUSTER(
+          C, KCL,
+          return max_clusters(adjoint_forward_q_kernel<OP, false, KCL, TQ>, C,
+                              S))))
 }
 
 #endif

@@ -13,6 +13,12 @@ into DP potentials and serves them:
 
 ``backend`` names the DP passes of every call and ``dp_dtypes`` their
 storage menu (``ops/dp.py``, ``ops/menu.py``; ``aligner.py:51,56,110,119``).
+``matmul_dtype`` (``aligner.py:93-101``; the trainer's ``--precision``)
+rounds the head features ``zx, zy, gx, gy`` to that dtype before the two
+contractions, which then accumulate and return float32, as JAX's
+``preferred_element_type=jnp.float32``: a product of two bf16 or fp16
+values is exact in float32, so the rounded features are widened and
+contracted in float32.  The heads and the DP stay float32.
 
 ``softplus`` is ``logaddexp(x, 0)``, not ``torch.nn.functional.softplus``,
 which returns ``x`` itself above its threshold where ``jax.nn.softplus``
@@ -45,9 +51,11 @@ class NeuralAligner(nn.Module):
     def __init__(self, embedding_dim=1024, hidden_dim=1024, layers=2,
                  k_size=5, dropout=0.0, layer_type="cnn",
                  alignment_mode="needleman-wunsch", operator="softmax",
-                 backend=None, dp_dtypes=None, device=None, dtype=None):
+                 backend=None, matmul_dtype=None, dp_dtypes=None,
+                 device=None, dtype=None):
         super().__init__()
         self.mode = _MODE_ALIASES[alignment_mode]
+        self.matmul_dtype = matmul_dtype
         self.operator = operator
         self.backend = backend
         self.dp_dtypes = dp_dtypes
@@ -69,6 +77,9 @@ class NeuralAligner(nn.Module):
         ln, lm = lengths if lengths is not None else (None, None)
         zx, gx = self.blosum_factor(hx, ln, generator)
         zy, gy = self.blosum_factor(hy, lm, generator)
+        if self.matmul_dtype is not None:
+            dt = self.matmul_dtype
+            zx, zy, gx, gy = (v.to(dt).float() for v in (zx, zy, gx, gy))
         match = torch.einsum("bid,bjd->bij", zx, zy).float()
         gap = torch.einsum("bid,bjd->bij", gx, gy).float()
         theta = torch.logaddexp(match, torch.zeros((), dtype=match.dtype,

@@ -14,7 +14,11 @@ use the flax submodule names, so the mapping is by name, leaf by leaf:
 
 It covers :class:`~deepblast_torch.models.aligner.NeuralAligner` (CNN and
 linear heads) and :class:`~deepblast_torch.models.lm.T5Encoder` /
-:class:`~deepblast_torch.models.lm.TokenEmbed`.
+:class:`~deepblast_torch.models.lm.TokenEmbed`.  :func:`state_dicts_from_jax`
+takes a JAX ``TrainState`` (or its ``params`` and ``lm_params``) whole:
+the aligner from ``params["aligner"]`` and the LM from ``params["lm"]``
+after a ``finetune`` init (``trainer.py:317-319``, where ``lm_params`` is
+left empty), else from ``lm_params``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "state_dicts_from_jax"]
 
 # flax auto-names of unnamed submodules -> the port's attribute names
 _RENAMES = {"Dense_0": "linear", "Embed_0": "embed"}
@@ -64,3 +68,15 @@ def params_from_jax(tree, dtype=None):
 
     walk(tree, "")
     return sd
+
+
+def state_dicts_from_jax(params, lm_params=None, dtype=None):
+    """``{"aligner": state_dict, "lm": state_dict}`` of a JAX model: from a
+    ``TrainState`` (``params`` with ``.params`` and ``.lm_params``) or from
+    its ``params`` and ``lm_params`` trees.  A finetuned state keeps the LM
+    (token embedding or T5) under ``params["lm"]``."""
+    if hasattr(params, "lm_params"):
+        params, lm_params = params.params, params.lm_params
+    lm = params["lm"] if "lm" in params else lm_params
+    return {"aligner": params_from_jax(params["aligner"], dtype),
+            "lm": params_from_jax(lm, dtype)}

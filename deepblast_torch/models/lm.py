@@ -9,6 +9,21 @@ their softmax and the RMSNorm variance taken in float32 (``lm.py:214``,
 ``:250``), and the output multiplied by the mask (``lm.py:333``).
 Submodule names follow the flax parameter names (``block0.attn.q``, ...)
 so ``models/convert.py`` maps flax trees by name.  The BiLM waits.
+
+Compute dtype (``T5Config.dtype``, the JAX ``T5Config.dtype`` that the
+trainer's ``--precision`` sets, ``trainer.py:158``, ``:250-253``): the
+parameters stay float32 and each layer follows flax's rules for a module
+built with ``dtype=`` (``lm.py:193-330``), written out rather than left to
+``torch.autocast``, whose cast list differs.  ``nn.Embed`` returns the
+table cast to the dtype; every ``Dense`` casts its input and its kernel
+and returns the dtype; the attention scores are float32 products of the
+dtype's values (``preferred_element_type``: a product of two bf16 or fp16
+values is exact in float32, so the operands are widened and multiplied in
+float32), the mask value float32's ``min``, the softmax float32, the
+probabilities cast to the dtype; the relative-position table stays
+float32.  ``RMSNorm`` returns ``(x * rsqrt).astype(x.dtype) * scale`` with
+a float32 scale, so float32, and the residual stream keeps the dtype its
+adds give it.  At ``"float32"`` every cast is the identity.
 """
 
 from __future__ import annotations
@@ -47,6 +62,12 @@ class T5Config:
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "relu"   # "relu" | "gated-gelu"
+    dtype: str = "float32"            # compute dtype: float32 | bfloat16
+    #                                   | float16 (parameters stay float32)
+
+    @property
+    def compute_dtype(self):
+        return getattr(torch, self.dtype)
 
     @classmethod
     def prot_t5_xl(cls, **kw):
@@ -71,6 +92,12 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         var = x.float().square().mean(-1, keepdim=True)
         return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
+
+
+def _dense(linear, x, dtype):
+    """flax ``nn.Dense(dtype=dtype, use_bias=False)``: input and kernel
+    cast to ``dtype``, the product in ``dtype``."""
+    return F.linear(x.to(dtype), linear.weight.to(dtype))
 
 
 def relative_position_bucket(rel_pos, num_buckets=32, max_distance=128):
@@ -115,12 +142,13 @@ class T5Attention(nn.Module):
 
     def forward(self, x, mask, position_bias=None):
         cfg = self.cfg
+        dt = cfg.compute_dtype
         B, L, _ = x.shape
         shape = (B, L, cfg.num_heads, cfg.d_kv)
-        q = self.q(x).view(shape)
-        k = self.k(x).view(shape)
-        v = self.v(x).view(shape)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+        q = _dense(self.q, x, dt).view(shape)
+        k = _dense(self.k, x, dt).view(shape)
+        v = _dense(self.v, x, dt).view(shape)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         if self.relative_attention_bias is not None:
             position_bias = self.position_bias(L, x.device)
         if position_bias is not None:
@@ -128,15 +156,16 @@ class T5Attention(nn.Module):
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None, None, :],
                                         torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
-        return self.o(out), position_bias
+        return _dense(self.o, out, dt), position_bias
 
 
 class T5FF(nn.Module):
     def __init__(self, cfg: T5Config, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
+        self.dtype = cfg.compute_dtype
         self.gated = cfg.feed_forward_proj == "gated-gelu"
         if self.gated:
             self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
@@ -146,11 +175,13 @@ class T5FF(nn.Module):
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
 
     def forward(self, x):
+        dt = self.dtype
         if self.gated:
-            h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
+            h = F.gelu(_dense(self.wi_0, x, dt), approximate="tanh") \
+                * _dense(self.wi_1, x, dt)
         else:
-            h = torch.relu(self.wi(x))
-        return self.wo(h)
+            h = torch.relu(_dense(self.wi, x, dt))
+        return _dense(self.wo, h, dt)
 
 
 class T5Block(nn.Module):
@@ -189,7 +220,7 @@ class T5Encoder(nn.Module):
             mask = torch.ones(tokens.shape, dtype=torch.bool,
                               device=tokens.device)
         mask = mask.bool()
-        x = self.embed(tokens)
+        x = self.embed(tokens).to(self.cfg.compute_dtype)
         position_bias = None
         for i in range(self.cfg.num_layers):
             x, position_bias = getattr(self, f"block{i}")(x, mask,

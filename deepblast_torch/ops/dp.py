@@ -34,12 +34,20 @@ residual that only its own reverse passes read):
 * ``"pallas"`` or ``"pallas_long"`` (:class:`_QStreams`): the forward
   stores the three soft-argmax streams Q and the reverse passes read them,
   which keeps fewer rows per pair on chip, so pairs longer than the
-  default kernels take (S up to ~9,600 slots on an H100, where the default
-  reverse passes stop at 6,144) still run; no score-only forward
+  default kernels take (S up to 32,768 slots on an H100,
+  ``dp_cuda.CLUSTER_SLOTS``, where the default reverse passes stop at
+  6,144) still run; the Q streams in :data:`Q_DTYPE`; no score-only forward
   (:func:`alignment_score` runs the Q forward and keeps ``vt``) and no
   stream accessor (:func:`expected_alignment_stream` raises, as
   ``dp.py:371-373``).  The TPU's two names differ only in their
   relayout kernels; here both use the one skew and unskew.
+
+The Q backends' one storage switch is the module global :data:`Q_DTYPE`,
+the counterpart of ``dp_pallas.Q_DTYPE`` (``dp_pallas.py:74``, ``:234``):
+``None`` stores the Q streams in float32, ``torch.bfloat16`` rounds each
+store to nearest even and the reverse passes widen what they read (E,
+EA, Qd, Ed and EdA stay float32).  It is read at every call and passed
+to the forward; no entry point sets it, as in the JAX package.
 
 The ``dtypes=`` keyword (a :class:`~deepblast_torch.ops.menu.DTypeMenu`)
 sets the storage of the default backend's streams, as the JAX package's
@@ -77,6 +85,7 @@ __all__ = [
     "BACKENDS",
     "DEFAULT_BACKEND",
     "DTypeMenu",
+    "Q_DTYPE",
     "get_backend",
     "alignment_score",
     "expected_alignment",
@@ -140,9 +149,15 @@ class _Residuals:
                                     **kw)
 
 
+#: storage of the Q backends' three Q streams: None (float32) or
+#: ``torch.bfloat16`` (``dp_pallas.Q_DTYPE``); read at every call
+Q_DTYPE = None
+
+
 class _QStreams:
     """The long-sequence passes: stored soft-argmax streams Q and Qd
-    (``ops/dp_pallas.py``'s kernels); float32 storage, the menu ignored."""
+    (``ops/dp_pallas.py``'s kernels); Q stored in :data:`Q_DTYPE`, every
+    other stream float32, the menu ignored."""
 
     stream = False
 
@@ -156,12 +171,13 @@ class _QStreams:
 
     @staticmethod
     def forward(ops, th_s, A_s, ln, lm, kw, menu):
-        vt, qx, qm, qy = ops.forward_q(th_s, A_s, ln, lm, **kw)
+        vt, qx, qm, qy = ops.forward_q(th_s, A_s, ln, lm, q_dtype=Q_DTYPE,
+                                       **kw)
         return vt, (qx, qm, qy)
 
     @staticmethod
     def score(ops, th_s, A_s, ln, lm, kw, menu):
-        return ops.forward_q(th_s, A_s, ln, lm, **kw)[0]
+        return ops.forward_q(th_s, A_s, ln, lm, q_dtype=Q_DTYPE, **kw)[0]
 
     @staticmethod
     def backward(ops, aux, ln, lm, Et, kw, want_gap, menu):

@@ -41,7 +41,12 @@ The default backend's wrappers and the relayouts take the storage menu of
 ``ops/menu.py`` (``dtypes=``; the skew's ``out_dtype`` / ``quant_scale``)
 and launch the kernel instance of those storage types.  Each stream must
 have the type the menu gives it: a stream of another type raises, nothing
-is cast.  The Q-stream wrappers take float32 only.
+is cast.  The Q-stream wrappers take no menu; :func:`forward_q` stores the
+three Q streams in ``q_dtype`` (float32 or bfloat16, the counterpart of
+``dp_pallas.Q_DTYPE``), and the other three read Q streams of either type,
+one type for all three, and launch that instance (counted apart:
+``LAUNCHES["forward_q_bf16"]``, ...).  Every other stream of a Q pass is
+float32.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` (every slot is written by the kernel),
@@ -73,7 +78,7 @@ from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.menu import E_SCALE, I16_MAX, as_menu
 
 __all__ = ["LAUNCHES", "SPLITS", "MAX_SLOTS", "CLUSTER_SLOTS",
-           "Q_CLUSTERS", "Q_STRIP", "reset_launches", "build",
+           "Q_CLUSTERS", "Q_DTYPES", "Q_STRIP", "reset_launches", "build",
            "skew", "skew_pair", "unskew", "forward", "forward_score",
            "backward", "adjoint_forward", "adjoint_backward", "forward_q",
            "backward_q", "adjoint_forward_q", "adjoint_backward_q"]
@@ -85,21 +90,29 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: the source's DP_PART objects (1 the forward, 2 the backward, 3 the
-#: adjoint backward, 4 the adjoint forward, 5 the split Q kernels, 0 the
+#: adjoint backward, 4 the adjoint forward, 5 the split Q forward and
+#: adjoint backward, 6 the split Q backward and adjoint forward, 0 the
 #: rest), compiled by one nvcc each, all at once, then linked
-PARTS = 6
+PARTS = 7
 
 _OPS = {"softmax": 0, "sparsemax": 1, "hardmax": 2}
 # storage codes of the kernels' DT_* (csrc/dp_kernels.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
 
+#: the Q kernels' storage types of the Q streams and the suffix of their
+#: instances' names in :data:`LAUNCHES`
+Q_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 #: launches of each kernel since the last :func:`reset_launches`
-#: (``backward`` counts its launches with and without the gap output)
+#: (``backward`` counts its launches with and without the gap output; a Q
+#: kernel's bf16 instance counts under its name + ``_bf16``)
 LAUNCHES = {"skew": 0, "skew_pair": 0, "unskew": 0, "forward": 0,
             "forward_score": 0,
             "backward": 0, "adjoint_forward": 0, "adjoint_backward": 0,
             "forward_q": 0, "backward_q": 0, "adjoint_forward_q": 0,
-            "adjoint_backward_q": 0}
+            "adjoint_backward_q": 0, "forward_q_bf16": 0,
+            "backward_q_bf16": 0, "adjoint_forward_q_bf16": 0,
+            "adjoint_backward_q_bf16": 0}
 
 #: the most slots a pair may have in the strip kernels, which keep its rows
 #: in registers: 1,024 threads of the widest strip
@@ -121,10 +134,11 @@ Q_MIN_CTA_SLOTS = 32 * Q_STRIP
 CLUSTER_SLOTS = {k: 16 * 1024 * Q_STRIP for k in
                  ("forward_q", "backward_q", "adjoint_forward_q",
                   "adjoint_backward_q")}
-#: the split of each split Q kernel's last launch: pairs ``B``, slots
-#: ``S``, cluster size ``C``, ``threads`` a CTA, and ``clusters``, how many
-#: clusters of that size the device holds at once
-SPLITS = {k: None for k in CLUSTER_SLOTS}
+#: the split of each split Q kernel instance's last launch, under its name
+#: in :data:`LAUNCHES` (``+ "_bf16"`` for bf16 Q streams): pairs ``B``,
+#: slots ``S``, cluster size ``C``, ``threads`` a CTA, and ``clusters``,
+#: how many clusters of that size the device holds at once
+SPLITS = {k + s: None for k in CLUSTER_SLOTS for s in Q_DTYPES.values()}
 _Q_KERNEL_IDS = {"forward_q": 0, "adjoint_backward_q": 1, "backward_q": 2,
                  "adjoint_forward_q": 3}
 
@@ -209,15 +223,15 @@ def _lib():
                                                i, i, i, p, p, p, p]
             lib.dp_adjoint_backward.argtypes = [p, p, p, p, i, p, i, p, p,
                                                 i, i, i, i, i, p, p, p]
-            lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p,
-                                         p, p, p]
-            lib.dp_backward_q.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p,
-                                          p, p]
-            lib.dp_adjoint_forward_q.argtypes = [p, p, p, p, p, p, p, i, i,
+            lib.dp_forward_q.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p,
+                                         p, p, p, p]
+            lib.dp_backward_q.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i,
+                                          p, p, p]
+            lib.dp_adjoint_forward_q.argtypes = [p, p, p, i, p, p, p, p, i, i,
                                                  i, i, i, i, p, p, p, p, p]
-            lib.dp_adjoint_backward_q.argtypes = [p, p, p, p, p, p, p, p, p,
-                                                  i, i, i, i, i, p, p, p]
-            lib.dp_q_clusters.argtypes = [i, i, i, i, i]
+            lib.dp_adjoint_backward_q.argtypes = [p, p, p, i, p, p, p, p, p,
+                                                  p, i, i, i, i, i, p, p, p]
+            lib.dp_q_clusters.argtypes = [i, i, i, i, i, i]
             for fn in (lib.dp_skew, lib.dp_skew_pair, lib.dp_unskew,
                        lib.dp_forward,
                        lib.dp_backward, lib.dp_adjoint_forward,
@@ -283,17 +297,20 @@ def _q_threads(S, C):
     return (S + per - 1) // per * 32
 
 
-def _max_clusters(name, operator, S, C, device, variant=False):
+def _max_clusters(name, operator, S, C, device, variant=False,
+                  q_dtype=torch.float32):
     """How many clusters of C CTAs of ``name`` (at S slots) the device holds
     at once (``cudaOccupancyMaxActiveClusters``; 0: a launch of that size
-    would fail), asked of the instance that launches: ``operator``'s, and
-    with ``variant`` the backward's with the gap output or the adjoint
-    forward's with a Za stream."""
-    key = (name, operator, bool(variant), S, C, device.index)
+    would fail), asked of the instance that launches: ``operator``'s and
+    ``q_dtype``'s (the Q streams' storage), and with ``variant`` the
+    backward's with the gap output or the adjoint forward's with a Za
+    stream."""
+    key = (name, operator, bool(variant), q_dtype, S, C, device.index)
     if key not in _MAX_CLUSTERS:
         with torch.cuda.device(device):
             n = _lib().dp_q_clusters(_Q_KERNEL_IDS[name], _OPS[operator],
-                                     int(bool(variant)), S, C)
+                                     int(bool(variant)), _code(q_dtype), S,
+                                     C)
         if n < 0:
             raise RuntimeError(f"CUDA {name}: the occupancy query for "
                                f"clusters of {C} failed: cudaError {-n}")
@@ -301,7 +318,8 @@ def _max_clusters(name, operator, S, C, device, variant=False):
     return _MAX_CLUSTERS[key]
 
 
-def _cluster_size(name, operator, B, S, device, variant=False):
+def _cluster_size(name, operator, B, S, device, variant=False,
+                  q_dtype=torch.float32):
     """The cluster size of a split Q kernel's launch, the rule: the largest
     of :data:`Q_CLUSTERS` that gives each of the B C CTAs an SM of its own
     (B C <= the SM count) and each at least :data:`Q_MIN_CTA_SLOTS` slots,
@@ -310,34 +328,40 @@ def _cluster_size(name, operator, B, S, device, variant=False):
     launch (:func:`_max_clusters` > 0).  8 pairs of 4,097 slots get 16 CTAs
     each (as fast as 8 and faster than 4 at 8 x 4096 x 4096 and 2 x 3899 x
     3757 on an H100; PERF.md), the bench shape's 256 pairs of 513 slots
-    one each.  Raises if no size can be launched."""
+    one each.  Raises if no size can be launched.  ``variant`` and
+    ``q_dtype`` as :func:`_max_clusters`."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     most = max(1, min(sms // max(B, 1), S // Q_MIN_CTA_SLOTS))
     want = max(c for c in Q_CLUSTERS if c <= most)
     need = min(c for c in Q_CLUSTERS if c * 1024 * Q_STRIP >= S)
     for C in sorted(Q_CLUSTERS, reverse=True):
-        if need <= C <= max(want, need) and \
-                _max_clusters(name, operator, S, C, device, variant) > 0:
+        if need <= C <= max(want, need) and _max_clusters(
+                name, operator, S, C, device, variant, q_dtype) > 0:
             return C
     raise ValueError(f"CUDA {name}: no cluster of {Q_CLUSTERS} CTAs that "
                      f"holds a pair of S = {S} slots can be launched on "
                      f"this device")
 
 
-def _split(name, operator, B, S, device, variant=False):
+def _split(name, operator, B, S, device, variant=False,
+           q_dtype=torch.float32):
     """The cluster size C of a split Q kernel's launch
-    (:func:`_cluster_size`; ``variant`` as :func:`_max_clusters`), recorded
-    in :data:`SPLITS`; raises a ``ValueError`` when C CTAs do not hold the
-    pair or the device cannot launch clusters of that size."""
-    C = _cluster_size(name, operator, B, S, device, variant)
+    (:func:`_cluster_size`; ``variant`` and ``q_dtype`` as
+    :func:`_max_clusters`), recorded in :data:`SPLITS` under the
+    instance's name; raises a
+    ``ValueError`` when C CTAs do not hold the pair or the device cannot
+    launch clusters of that size."""
+    C = _cluster_size(name, operator, B, S, device, variant, q_dtype)
     if C * 1024 * Q_STRIP < S:
         raise ValueError(f"CUDA {name}: a pair of S = {S} slots does not fit "
                          f"{C} CTAs of 1,024 threads of {Q_STRIP} slots")
-    n = _max_clusters(name, operator, S, C, device, variant)
+    n = _max_clusters(name, operator, S, C, device, variant, q_dtype)
     if n <= 0:
         raise ValueError(f"CUDA {name}: this device cannot launch clusters "
                          f"of {C} CTAs of {_q_threads(S, C)} threads")
-    SPLITS[name] = dict(B=B, S=S, C=C, threads=_q_threads(S, C), clusters=n)
+    SPLITS[name + Q_DTYPES[q_dtype]] = dict(B=B, S=S, C=C,
+                                            threads=_q_threads(S, C),
+                                            clusters=n)
     return C
 
 
@@ -348,6 +372,20 @@ def _check_streams(names, streams, dtype=torch.float32):
     for name, t in zip(names[1:], streams[1:]):
         _check_stream(name, t, dtype, streams[0].shape)
     return streams[0].shape
+
+
+def _check_q(streams, others=(), names=("Qx", "Qm", "Qy")):
+    """The three Q streams of one storage type of :data:`Q_DTYPES`, and the
+    streams ``others`` (``(name, tensor)``) float32, all contiguous, on the
+    card, of one shape; returns ``(shape, q_dtype)``."""
+    q_dtype = streams[0].dtype
+    if q_dtype not in Q_DTYPES:
+        raise TypeError(f"Q streams must be float32 or bfloat16, got "
+                        f"{q_dtype}")
+    shape = _check_streams(names, streams, q_dtype)
+    for name, t in others:
+        _check_stream(name, t, torch.float32, shape)
+    return shape, q_dtype
 
 
 def _code(dtype):
@@ -571,45 +609,51 @@ def adjoint_backward(dxs, dms, dxds, dmds, E, ln, lm, *, mode="nw",
     return Ed, EdA
 
 
-def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+              q_dtype=None):
     """``(vt (B,), Qx, Qm, Qy (B, K, S))``: the forward storing the three
-    soft-argmax streams, Q written for every slot; each pair split across
-    a cluster of :func:`_cluster_size` CTAs."""
+    soft-argmax streams in ``q_dtype`` (None: float32; bfloat16 rounds to
+    nearest even), Q written for every slot; each pair split across a
+    cluster of :func:`_cluster_size` CTAs."""
+    q_dtype = torch.float32 if q_dtype is None else q_dtype
+    if q_dtype not in Q_DTYPES:
+        raise TypeError(f"forward_q stores float32 or bfloat16 Q streams, "
+                        f"not {q_dtype}")
     shape = _check_streams(("th_s", "A_s"), (th_s, A_s))
     _check_pass("forward_q", shape, ln, lm, th_s.device)
     B, K, S = shape
-    C = _split("forward_q", operator, B, S, th_s.device)
+    C = _split("forward_q", operator, B, S, th_s.device, False, q_dtype)
     vt = torch.zeros((B,), dtype=torch.float32, device=th_s.device)
-    qx, qm, qy = (torch.empty_like(th_s) for _ in range(3))
+    qx, qm, qy = (torch.empty_like(th_s, dtype=q_dtype) for _ in range(3))
     with torch.cuda.device(th_s.device):
         rc = _lib().dp_forward_q(
             _ptr(th_s), _ptr(A_s), _ptr(ln), _ptr(lm), B, K, S,
-            MODE_BOUNDS[mode][0], _OPS[operator], C, _ptr(vt), _ptr(qx),
-            _ptr(qm), _ptr(qy), _stream(th_s.device))
+            MODE_BOUNDS[mode][0], _OPS[operator], C, _code(q_dtype),
+            _ptr(vt), _ptr(qx), _ptr(qm), _ptr(qy), _stream(th_s.device))
     _raise_on(rc, "forward_q")
-    LAUNCHES["forward_q"] += 1
+    LAUNCHES["forward_q" + Q_DTYPES[q_dtype]] += 1
     return vt, qx, qm, qy
 
 
 def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
     """``(E, EA)``: the expected alignment stream read from the stored Q
     streams, seeded with ``Et``, and with ``want_gap`` ``EA = E (Qx + Qy)``
-    (else None); each pair split across a cluster of
-    :func:`_cluster_size` CTAs."""
-    shape = _check_streams(("Qx", "Qm", "Qy"), (qx, qm, qy))
+    (else None), both float32 whatever the Q streams store; each pair split
+    across a cluster of :func:`_cluster_size` CTAs."""
+    shape, q_dtype = _check_q((qx, qm, qy))
     _check_stream("Et", Et, torch.float32, shape[:1])
     _check_pass("backward_q", shape, ln, lm, qx.device)
     B, K, S = shape
-    C = _split("backward_q", "softmax", B, S, qx.device, want_gap)
-    E = torch.empty_like(qx)
-    EA = torch.empty_like(qx) if want_gap else None
+    C = _split("backward_q", "softmax", B, S, qx.device, want_gap, q_dtype)
+    E = torch.empty_like(qx, dtype=torch.float32)
+    EA = torch.empty_like(E) if want_gap else None
     with torch.cuda.device(qx.device):
         rc = _lib().dp_backward_q(
-            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(ln), _ptr(lm), _ptr(Et), B,
-            K, S, MODE_BOUNDS[mode][1], C, _ptr(E),
+            _ptr(qx), _ptr(qm), _ptr(qy), _code(q_dtype), _ptr(ln), _ptr(lm),
+            _ptr(Et), B, K, S, MODE_BOUNDS[mode][1], C, _ptr(E),
             _ptr(EA) if want_gap else None, _stream(qx.device))
     _raise_on(rc, "backward_q")
-    LAUNCHES["backward_q"] += 1
+    LAUNCHES["backward_q" + Q_DTYPES[q_dtype]] += 1
     return E, EA
 
 
@@ -619,24 +663,22 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
     forward along the skewed cotangents; ``za_s=None`` launches the kernel
     without a Za stream (a zero gap cotangent); each pair split across a
     cluster of :func:`_cluster_size` CTAs."""
-    names, streams = ("Qx", "Qm", "Qy", "Zt"), (qx, qm, qy, zt_s)
-    if za_s is not None:
-        names, streams = names + ("Za",), streams + (za_s,)
-    shape = _check_streams(names, streams)
+    others = [("Zt", zt_s)] + ([] if za_s is None else [("Za", za_s)])
+    shape, q_dtype = _check_q((qx, qm, qy), others)
     _check_pass("adjoint_forward_q", shape, ln, lm, qx.device)
     B, K, S = shape
     C = _split("adjoint_forward_q", operator, B, S, qx.device,
-               za_s is not None)
+               za_s is not None, q_dtype)
     vtd = torch.zeros((B,), dtype=torch.float32, device=qx.device)
-    qdx, qdm, qdy = (torch.empty_like(qx) for _ in range(3))
+    qdx, qdm, qdy = (torch.empty_like(zt_s) for _ in range(3))
     with torch.cuda.device(qx.device):
         rc = _lib().dp_adjoint_forward_q(
-            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(zt_s),
+            _ptr(qx), _ptr(qm), _ptr(qy), _code(q_dtype), _ptr(zt_s),
             None if za_s is None else _ptr(za_s), _ptr(ln), _ptr(lm), B, K,
             S, MODE_BOUNDS[mode][2], _OPS[operator], C, _ptr(vtd), _ptr(qdx),
             _ptr(qdm), _ptr(qdy), _stream(qx.device))
     _raise_on(rc, "adjoint_forward_q")
-    LAUNCHES["adjoint_forward_q"] += 1
+    LAUNCHES["adjoint_forward_q" + Q_DTYPES[q_dtype]] += 1
     return vtd, qdx, qdm, qdy
 
 
@@ -644,18 +686,19 @@ def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
     """``(Ed, EdA)``, both ``(B, K, S)``: the tangent of the Q backward and
     the fused gap adjoint ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``; each
     pair split across a cluster of :func:`_cluster_size` CTAs."""
-    shape = _check_streams(("Qx", "Qm", "Qy", "Qdx", "Qdm", "Qdy", "E"),
-                           (qx, qm, qy, qdx, qdm, qdy, E))
+    shape, q_dtype = _check_q((qx, qm, qy), [("Qdx", qdx), ("Qdm", qdm),
+                                             ("Qdy", qdy), ("E", E)])
     _check_pass("adjoint_backward_q", shape, ln, lm, qx.device)
     B, K, S = shape
-    C = _split("adjoint_backward_q", "softmax", B, S, qx.device)
-    Ed = torch.empty_like(qx)
-    EdA = torch.empty_like(qx)
+    C = _split("adjoint_backward_q", "softmax", B, S, qx.device, False,
+               q_dtype)
+    Ed = torch.empty_like(E)
+    EdA = torch.empty_like(E)
     with torch.cuda.device(qx.device):
         rc = _lib().dp_adjoint_backward_q(
-            _ptr(qx), _ptr(qm), _ptr(qy), _ptr(qdx), _ptr(qdm), _ptr(qdy),
-            _ptr(E), _ptr(ln), _ptr(lm), B, K, S, MODE_BOUNDS[mode][3], C,
-            _ptr(Ed), _ptr(EdA), _stream(qx.device))
+            _ptr(qx), _ptr(qm), _ptr(qy), _code(q_dtype), _ptr(qdx),
+            _ptr(qdm), _ptr(qdy), _ptr(E), _ptr(ln), _ptr(lm), B, K, S,
+            MODE_BOUNDS[mode][3], C, _ptr(Ed), _ptr(EdA), _stream(qx.device))
     _raise_on(rc, "adjoint_backward_q")
-    LAUNCHES["adjoint_backward_q"] += 1
+    LAUNCHES["adjoint_backward_q" + Q_DTYPES[q_dtype]] += 1
     return Ed, EdA

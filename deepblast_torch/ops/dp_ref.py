@@ -328,10 +328,20 @@ def _row(x, r, z):
     return x[:, r] if r < x.shape[1] else z
 
 
-def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
+def _widen(*qs):
+    """Q streams as float32 (a bfloat16 store widens exactly), as the TPU
+    reverse passes read them (``dp_pallas.py:296-310``, ``:396-398``,
+    ``:499-502``)."""
+    return tuple(q.float() for q in qs)
+
+
+def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
+              q_dtype=None):
     """Forward storing the soft-argmax streams: ``(vt (B,), Qx, Qm, Qy
-    (B, K, S))``, Q written for every slot.  Plain version of the
-    ``forward_q`` kernel."""
+    (B, K, S))``, Q written for every slot, in ``q_dtype`` (None:
+    float32; ``torch.bfloat16`` rounds each store to nearest even, as
+    ``dp_pallas.forward_pallas`` under ``Q_DTYPE``, ``:212-214``).  Plain
+    version of the ``forward_q`` kernel."""
     B, K, S = th_s.shape
     lo = MODE_BOUNDS[mode][0]
     slots = torch.arange(S, device=th_s.device)
@@ -339,7 +349,7 @@ def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
     v1 = th_s.new_zeros((B, S))
     v2 = v1
     vt = th_s.new_zeros((B,))
-    qx, qm, qy = (torch.empty_like(th_s) for _ in range(3))
+    qx, qm, qy = (torch.empty_like(th_s, dtype=q_dtype) for _ in range(3))
     for r in range(K):
         a = A_s[:, r]
         val, (px, pm, py) = smooth.max3(operator, a + _shr(v1), _shr(v2),
@@ -356,8 +366,9 @@ def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax"):
 def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
     """Expected alignment ``E (B, K, S)`` from the stored Q streams, seeded
     with ``Et (B,)``, and with ``want_gap`` ``EA = E (Qx + Qy)`` (else
-    None).  Returns ``(E, EA)``.  Plain version of the ``backward_q``
-    kernel."""
+    None).  Returns ``(E, EA)``, float32 whatever the Q streams store.
+    Plain version of the ``backward_q`` kernel."""
+    qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][1]
     slots = torch.arange(S, device=qx.device)
@@ -384,8 +395,9 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
                       operator="softmax"):
     """Tangent of the Q forward along the skewed cotangents ``zt_s`` and
     ``za_s`` (``None``: a zero gap cotangent, no Za term).  Returns
-    ``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``.  Plain version of the
-    ``adjoint_forward_q`` kernel."""
+    ``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``, float32 whatever the Q
+    streams store.  Plain version of the ``adjoint_forward_q`` kernel."""
+    qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][2]
     slots = torch.arange(S, device=qx.device)
@@ -415,8 +427,9 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
 def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
     """Tangent of the Q backward: ``(Ed, EdA)``, both ``(B, K, S)``, from
     the Q and Qd streams and the backward's ``E``, with
-    ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``.  Plain version of the
-    ``adjoint_backward_q`` kernel."""
+    ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``, float32 whatever the Q
+    streams store.  Plain version of the ``adjoint_backward_q`` kernel."""
+    qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][3]
     slots = torch.arange(S, device=qx.device)

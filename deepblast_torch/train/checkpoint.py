@@ -3,14 +3,17 @@
 
 A model directory holds ``config.json`` — the
 :class:`~deepblast_torch.train.trainer.DeepBLASTConfig` fields, plus the
-T5 geometry under ``"t5"`` when the language model is a T5 encoder
-(:func:`save_config`) — and ``model.pt`` with the ``lm`` and ``aligner``
-state dicts (:func:`save_model`).  Training adds ``checkpoints/``, where a
-:class:`Checkpointer` keeps the best *k* training states by a monitored
-metric, one subdirectory per step with ``state.pt`` (step, aligner,
-optimizer and schedule state) and ``metrics.json``.  :func:`load_model`
+T5 geometry and compute dtype under ``"t5"`` when the language model is a
+T5 encoder (:func:`save_config`) — and ``model.pt`` with the ``lm`` and
+``aligner`` state dicts (:func:`save_model`).  Training adds
+``checkpoints/``, where a :class:`Checkpointer` keeps the best *k*
+training states by a monitored metric, one subdirectory per step with
+``state.pt`` (``DeepBLAST.train_state``: step, aligner, with ``finetune``
+the LM, optimizer and schedule state, with ``grad_accum`` the running
+gradient mean and its count) and ``metrics.json``.  :func:`load_model`
 rebuilds the model from ``model.pt`` and, when ``checkpoints/`` holds any,
-takes the aligner and the training state from the best checkpoint.
+takes the aligner, a finetuned LM and the training state from the best
+checkpoint.
 """
 
 from __future__ import annotations
@@ -104,8 +107,9 @@ def save_model(model: DeepBLAST, directory):
 def load_model(directory, device=None, tokenizer=None, step=None):
     """Rebuild a :class:`DeepBLAST` from a model directory on ``device``
     (CUDA unless asked otherwise).  Without ``model.pt`` the weights come
-    from ``init()`` with the config's seed; with checkpoints, the aligner
-    and the training state come from the best one (or ``step``)."""
+    from ``init()`` with the config's seed; with checkpoints, the aligner,
+    the LM of a ``finetune`` run and the training state come from the best
+    one (or ``step``)."""
     device = resolve_device(device)
     with open(os.path.join(directory, "config.json")) as f:
         raw = f.read()

@@ -5,11 +5,12 @@
 serves the entry points of the JAX package:
 
 * :meth:`DeepBLAST.fit` — epochs of length-bucketed, shuffled batches:
-  frozen LM under ``no_grad`` -> heads -> potentials -> differentiable
-  ``expected_alignment`` -> masked loss -> ``backward()`` (the adjoint
-  passes) -> global-norm clip -> AdamW with the schedule -> NaN check; a
-  validation epoch with loss and traceback statistics; best-k
-  checkpoints (``trainer.py:485-629``);
+  LM (frozen under ``no_grad``, or trained with ``finetune``) -> heads ->
+  potentials -> differentiable ``expected_alignment`` -> masked loss ->
+  ``backward()`` (the adjoint passes) -> global-norm clip -> AdamW with
+  the schedule (every ``grad_accum``-th step) -> NaN check; a validation
+  epoch with loss and traceback statistics; best-k checkpoints
+  (``trainer.py:485-629``);
 * :meth:`DeepBLAST.align` — one pair of strings -> alignment state string
   (``trainer.py:704-736``: potentials -> expected-alignment stream ->
   traceback walk on the stream; for a backend without a stream accessor,
@@ -21,8 +22,32 @@ The optimizer is optax's ``clip_by_global_norm`` + ``adamw`` in PyTorch:
 the clip ``g <- g / |g| * c`` when ``|g| >= c`` (``clip_grad_norm_`` adds
 1e-6 to the norm), then ``torch.optim.AdamW`` with optax's defaults
 (weight decay 1e-4, where torch's is 1e-2; eps 1e-8; betas 0.9, 0.999),
-its rate set per update by ``LambdaLR`` over a base rate of 1.  Only the
-aligner trains; the LM is frozen (``finetune`` is a later slice).
+its rate set per update by ``LambdaLR`` over a base rate of 1.  The
+aligner trains, and with ``finetune`` the LM too, in the same AdamW group
+and the same global norm (``trainer.py:317-336``: optax applies the weight
+decay to every leaf).
+
+The other trainer options of the JAX package (``trainer.py:86-99``):
+
+* ``precision`` ("32", "bf16", "16"): the compute dtype of the T5 LM
+  (``T5Config.dtype``; the parameters stay float32) and the aligner's
+  ``matmul_dtype`` (``_PRECISION_DTYPES``, ``:158-159``, ``:197``,
+  ``:250-253``); the token-embedding LM and the heads stay float32, as in
+  JAX, and an LM the caller passes in keeps its own dtype.
+* ``grad_accum`` k: ``optax.MultiSteps`` (``:291-292``; optax 0.2.6): each
+  step folds its gradient into the running mean ``acc + (g - acc) /
+  (n + 1)``; every k-th step clips the mean, updates and advances the
+  schedule, and resets the mean; the other steps change nothing (no
+  weight decay).  ``step`` counts the steps; the mean and its count carry
+  across epochs and into :meth:`train_state`.
+* ``steps_per_dispatch`` K (``:375-398``, ``:524-586``): consecutive
+  batches of one shape form chunks of K; a chunk's batches are stacked in
+  pinned host memory and copied to the device in one asynchronous copy,
+  then its K steps are issued back to back, their losses kept on the
+  device and read (and NaN-checked) once, after the next chunk or step is
+  issued.  A shape change or the end of an epoch sends the batches left
+  over through as single steps.  The steps and the dropout generator run
+  in the same order as at K = 1, so the trajectory is the same.
 
 The DP storage menu (``ops/menu.py``) follows the JAX package's config
 (``trainer.py:100-124``, ``:208-239``): ``dp_bf16_residuals`` ("auto": on
@@ -34,8 +59,10 @@ run the training menu, ``align`` the decode menu.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; without a CUDA device and without ``device="cpu"`` they raise.
-The port runs at precision "32": on CUDA it turns TF32 off for matmuls
-and cuDNN convolutions (process-wide PyTorch flags).  Dropout masks come
+On CUDA the port turns TF32 off for matmuls and cuDNN convolutions, and
+the reduced-precision split-K reductions of bf16 and fp16 matmuls
+(process-wide PyTorch flags), so a float32 product is float32 and a bf16
+or fp16 one accumulates in float32, as on the TPU.  Dropout masks come
 from a ``torch.Generator`` seeded with ``seed + 1``.
 """
 
@@ -67,11 +94,16 @@ __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 #: JAX config.json fields that change nothing the port computes or trains:
 #: the share of validation pairs drawn as figures (no figures yet), the
-#: tensor-parallel mesh (one device), a dispatch amortisation with
-#: identical per-step semantics, and the BiLM feature schema (BiLM itself
-#: is refused by ``lm_type``)
+#: tensor-parallel mesh (one device), and the BiLM feature schema (BiLM
+#: itself is refused by ``lm_type``)
 _DROPPED_FIELDS = ("visualization_fraction", "tp", "use_tp_params",
-                   "steps_per_dispatch", "bilstm_onehot_channel")
+                   "bilstm_onehot_channel")
+
+#: ``precision`` -> the aligner's matmul dtype (None: float32) and the T5
+#: compute dtype (``trainer.py:158-159``)
+_PRECISION_DTYPES = {"32": None, "bf16": torch.bfloat16, "16": torch.float16}
+#: ``precision`` -> the name of the T5 compute dtype (``T5Config.dtype``)
+_PRECISION_NAMES = {"32": "float32", "bf16": "bfloat16", "16": "float16"}
 
 
 @dataclasses.dataclass
@@ -91,6 +123,7 @@ class DeepBLASTConfig:
     backend: Optional[str] = None   # DP passes: None/pallas_bm, pallas(_long)
     lm_type: str = "embed"          # embed | prot_t5
     vocab_size: int = 32
+    finetune: bool = False          # train the LM with the aligner
     # optimisation
     batch_size: int = 32
     learning_rate: float = 5e-5
@@ -98,8 +131,11 @@ class DeepBLASTConfig:
     scheduler: str = "cosine"
     loss: str = "cross_entropy"
     grad_clip: Optional[float] = None
+    grad_accum: int = 1             # optax.MultiSteps every k steps
+    steps_per_dispatch: int = 1     # steps a host-to-device copy
     mask_gaps: bool = True
     seed: int = 0
+    precision: str = "32"           # 32 | bf16 | 16: LM and head matmuls
     # DP storage menu ("auto": on for the pallas backends, the default's
     # pallas_bm included)
     dp_bf16_residuals: "bool | str" = "auto"
@@ -117,9 +153,9 @@ class DeepBLASTConfig:
     def from_json(cls, s):
         """The config of a ``config.json`` written by the port or by the
         JAX package.  A field whose value the port does not take (e.g.
-        ``"finetune": true``, ``"precision": "bf16"``, ``"lm_type":
-        "bilstm"``) raises ``ValueError`` naming its ROADMAP.md item, as
-        does a field neither package writes.  Dropped: the fields of
+        ``"lm_type": "bilstm"``, ``"layer_type": "rnn"``) raises
+        ``ValueError`` naming its ROADMAP.md item, as does a field neither
+        package writes.  Dropped: the fields of
         ``_DROPPED_FIELDS``, which change nothing the port computes or
         trains, and ``"t5"``, the port's own T5 geometry (read by
         ``load_model``)."""
@@ -179,11 +215,20 @@ class DeepBLAST:
 
     def __init__(self, config: DeepBLASTConfig, tokenizer=None, lm=None,
                  lm_params=None, device=None):
+        if config.precision not in _PRECISION_DTYPES:
+            raise ValueError(f"precision {config.precision!r}: expected one "
+                             f"of {sorted(_PRECISION_DTYPES)}")
+        if config.grad_accum < 1 or config.steps_per_dispatch < 1:
+            raise ValueError("grad_accum and steps_per_dispatch must be at "
+                             "least 1")
         self.config = config
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            matmul = torch.backends.cuda.matmul
+            matmul.allow_bf16_reduced_precision_reduction = False
+            matmul.allow_fp16_reduced_precision_reduction = False
         self.tokenizer = tokenizer or ProtT5Tokenizer()
         self.lm = (lm if lm is not None else self._build_lm()).to(
             self.device).eval()
@@ -203,6 +248,7 @@ class DeepBLAST:
             alignment_mode=config.alignment_mode,
             operator=config.operator,
             backend=config.backend,
+            matmul_dtype=_PRECISION_DTYPES[config.precision],
             dp_dtypes=self.dp_dtypes,
             device=self.device,
         ).eval()
@@ -211,6 +257,10 @@ class DeepBLAST:
         self.state = None   # training state to resume from (load_model)
         self._spe = 1
         self._opt = self._sched = None
+        # optax.MultiSteps' state: the running gradient mean (one tensor a
+        # trained parameter) and the steps folded into it
+        self._acc = None
+        self._mini_step = 0
 
     @staticmethod
     def _dp_dtype_menu(config):
@@ -247,7 +297,8 @@ class DeepBLAST:
             return TokenEmbed(c.vocab_size, c.embedding_dim,
                               device=self.device)
         if c.lm_type == "prot_t5":
-            return T5Encoder(T5Config.prot_t5_xl(), device=self.device)
+            return T5Encoder(T5Config.prot_t5_xl(
+                dtype=_PRECISION_NAMES[c.precision]), device=self.device)
         raise ValueError(f"lm_type {c.lm_type!r} is not ported")
 
     def init(self, generator=None):
@@ -276,10 +327,12 @@ class DeepBLAST:
             return self.lm(tokens, mask)
         return self.lm(tokens)
 
-    @torch.no_grad()
-    def _embeddings(self, batch):
-        hx = self._lm_apply(batch["x"], batch["x_len"])
-        hy = self._lm_apply(batch["y"], batch["y_len"])
+    def _embeddings(self, batch, train=False):
+        """LM embeddings of both sides: under ``no_grad`` unless ``train``
+        and ``finetune`` (``trainer.py:326-336``)."""
+        with torch.set_grad_enabled(train and self.config.finetune):
+            hx = self._lm_apply(batch["x"], batch["x_len"])
+            hy = self._lm_apply(batch["y"], batch["y_len"])
         return hx, hy
 
     # -- inference ---------------------------------------------------------
@@ -322,29 +375,56 @@ class DeepBLAST:
 
     # -- training ----------------------------------------------------------
 
+    def _trained(self):
+        """The parameters the optimizer updates: the aligner's, then with
+        ``finetune`` the LM's (``trainer.py:316-320``)."""
+        params = list(self.aligner.parameters())
+        if self.config.finetune:
+            params += list(self.lm.parameters())
+        return params
+
     def _build_optimizer(self):
-        """AdamW over the aligner with optax's defaults, its rate driven by
-        the schedule (``trainer.py:282-293``)."""
+        """AdamW over the trained parameters with optax's defaults, its rate
+        driven by the schedule (``trainer.py:282-293``); then the state of
+        :attr:`state` (a resumed run), if any."""
         c = self.config
         sched = make_schedule(c.scheduler, c.learning_rate, c.epochs,
                               steps_per_epoch=self._spe)
         self._opt = torch.optim.AdamW(
-            self.aligner.parameters(), lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+            self._trained(), lr=1.0, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=1e-4)
         self._sched = torch.optim.lr_scheduler.LambdaLR(self._opt, sched)
+        self._acc, self._mini_step = None, 0
+        state = self.state
+        if state is not None and state.get("optimizer"):
+            self._opt.load_state_dict(state["optimizer"])
+            self._sched.load_state_dict(state["scheduler"])
+        if state is not None and state.get("grad_accum"):
+            acc = state["grad_accum"]
+            self._mini_step = int(acc["mini_step"])
+            self._acc = [a.to(self.device).clone() for a in acc["mean"]]
 
     def train_state(self):
-        """What a checkpoint holds: the step, the aligner's weights and the
-        optimizer's and schedule's state."""
-        return {"step": self.step, "aligner": self.aligner.state_dict(),
-                "optimizer": self._opt.state_dict() if self._opt else None,
-                "scheduler": self._sched.state_dict() if self._sched
-                else None}
+        """What a checkpoint holds: the step, the aligner's weights (and with
+        ``finetune`` the LM's), the optimizer's and schedule's state, and
+        with ``grad_accum`` the running gradient mean and its count."""
+        state = {"step": self.step, "aligner": self.aligner.state_dict(),
+                 "optimizer": self._opt.state_dict() if self._opt else None,
+                 "scheduler": self._sched.state_dict() if self._sched
+                 else None}
+        if self.config.finetune:
+            state["lm"] = self.lm.state_dict()
+        if self._acc is not None:
+            state["grad_accum"] = {"mini_step": self._mini_step,
+                                   "mean": [a.clone() for a in self._acc]}
+        return state
 
     def load_train_state(self, state):
         """Restore a :meth:`train_state` (the optimizer's part on the next
         :meth:`fit`)."""
         self.aligner.load_state_dict(state["aligner"])
+        if "lm" in state:
+            self.lm.load_state_dict(state["lm"])
         self.step = int(state["step"])
         self.state = state
 
@@ -359,37 +439,80 @@ class DeepBLAST:
             target = target.to(aln.dtype)
         return self.loss_fn(target, aln, batch["x_len"], batch["y_len"], G)
 
-    def _loss_batch(self, batch):
-        keys = ["x", "y", "x_len", "y_len", "gmask",
+    def _loss_keys(self):
+        return ["x", "y", "x_len", "y_len", "gmask",
                 "path" if self.config.loss == "path" else "aln"]
-        return self._as_batch(batch, keys)
+
+    def _loss_batch(self, batch):
+        return self._as_batch(batch, self._loss_keys())
+
+    def _device_chunk(self, chunk):
+        """K same-shape batches as K steps' tensors on the device: each key
+        stacked into a ``(K, B, ...)`` array in pinned host memory (on a
+        CUDA device) and copied in one asynchronous copy
+        (``trainer.py:467-475``)."""
+        out = {}
+        for k in self._loss_keys():
+            host = torch.from_numpy(np.stack([np.asarray(b[k])
+                                              for b in chunk]))
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            out[k] = host.to(self.device, non_blocking=True)
+        return [{k: v[i] for k, v in out.items()} for i in range(len(chunk))]
+
+    @staticmethod
+    def _batch_shapes(batch):
+        return tuple(sorted((k, np.asarray(v).shape)
+                            for k, v in batch.items()
+                            if not isinstance(v, list)))
 
     def _clip_grads(self):
         """optax ``clip_by_global_norm``: ``g / |g| * c`` when the global
-        norm ``|g|`` is at least ``c``."""
+        norm ``|g|`` of every trained parameter's gradient is at least
+        ``c``."""
         c = self.config.grad_clip
-        grads = [p.grad for p in self.aligner.parameters()
-                 if p.grad is not None]
+        grads = [p.grad for p in self._trained() if p.grad is not None]
         if not c or not grads:
             return
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         for g in grads:
             g.copy_(torch.where(norm < c, g, g / norm * c))
 
-    def train_step(self, batch, generator=None):
-        """One update on a collated batch; returns the loss (a 0-d tensor on
-        the device, not yet read back)."""
+    def _accumulate(self):
+        """``optax.MultiSteps`` with ``every_k_schedule=grad_accum``: fold
+        this step's gradients into the running mean; True when this is the
+        k-th step, with the mean set as the gradients to clip and apply
+        (and reset once applied), else False (a zero update)."""
+        params = self._trained()
+        if self._acc is None:
+            self._acc = [torch.zeros_like(p) for p in params]
+        n = self._mini_step
+        for a, p in zip(self._acc, params):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            a.copy_(a + (g - a) / (n + 1))
+        self._mini_step = (n + 1) % self.config.grad_accum
+        if self._mini_step:
+            return False
+        for a, p in zip(self._acc, params):
+            p.grad = a.clone()
+            a.zero_()
+        return True
+
+    def _step(self, b, generator):
+        """One step on the tensors of :meth:`_loss_batch` (or of a chunk's
+        step, :meth:`_device_chunk`), already on the device; returns the
+        loss (a 0-d tensor on the device, not yet read back)."""
         self.aligner.train()
-        b = self._loss_batch(batch)
-        hx, hy = self._embeddings(b)
+        hx, hy = self._embeddings(b, train=True)
         aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]),
                                  generator=generator)
         loss = self.compute_loss(b, aln)
         self._opt.zero_grad(set_to_none=True)
         loss.backward()
-        self._clip_grads()
-        self._opt.step()
-        self._sched.step()
+        if self.config.grad_accum == 1 or self._accumulate():
+            self._clip_grads()
+            self._opt.step()
+            self._sched.step()
         self.step += 1
         return loss.detach()
 
@@ -424,14 +547,36 @@ class DeepBLAST:
         return make_batches(dataset, self.config.batch_size, shuffle=shuffle,
                             seed=seed, pad_multiple=self.config.pad_multiple)
 
+    def _losses_to_host(self, losses):
+        """``(host, ready)``: the copy of a dispatch's losses (a device
+        vector) into pinned host memory, started behind the event
+        ``ready``, so that reading them after the next dispatch is issued
+        waits for this one only; on the CPU the losses themselves and no
+        event."""
+        if self.device.type != "cuda":
+            return losses, None
+        host = torch.empty(losses.shape, dtype=losses.dtype, pin_memory=True)
+        host.copy_(losses, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
     def _consume_loss(self, pending, losses, logger):
-        loss, step = pending
-        v = float(loss)
-        if math.isnan(v):
-            raise FloatingPointError(f"NaN training loss at step {step}")
-        losses.append(v)
-        if logger:
-            logger.log_scalar("train_loss", v, step)
+        """Read back ``((loss, ready), step)``: a dispatch's losses whose
+        first step is ``step`` (:meth:`_losses_to_host`), in one wait for
+        ``ready`` when it is set; raise on a NaN."""
+        (loss, ready), step = pending
+        if ready is not None:
+            ready.synchronize()
+        vals = torch.atleast_1d(loss).tolist()
+        for i, v in enumerate(vals):
+            if math.isnan(v):
+                raise FloatingPointError(f"NaN training loss at step "
+                                         f"{step + i}")
+        for i, v in enumerate(vals):
+            losses.append(v)
+            if logger:
+                logger.log_scalar("train_loss", v, step + i)
 
     def fit(self, train_dataset=None, valid_dataset=None, callbacks=(),
             logger=None, checkpointer=None):
@@ -446,23 +591,46 @@ class DeepBLAST:
             self._dataset(c.valid_pairs) if c.valid_pairs else None)
         self._spe = max(1, len(train_dataset) // max(1, c.batch_size))
         self._build_optimizer()
-        if self.state is not None and self.state.get("optimizer"):
-            self._opt.load_state_dict(self.state["optimizer"])
-            self._sched.load_state_dict(self.state["scheduler"])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(c.seed + 1)
+        K = c.steps_per_dispatch
         history = []
         best = math.inf
         for epoch in range(c.epochs):
-            # the loss of step i is read back after step i+1 is issued, so
-            # the host prepares the next batch while the card works
+            # the losses of a step (or chunk) are read back after the next
+            # is issued, so the host prepares it while the card works; the
+            # NaN check fires one step (chunk) late, as in the JAX package
             losses = []
             pending = None
-            for batch in self._batches(train_dataset, True, c.seed + epoch):
-                loss = self.train_step(batch, gen)
+
+            def issue(batches):
+                nonlocal pending
+                steps = self._device_chunk(batches) if len(batches) == K > 1 \
+                    else [self._loss_batch(b) for b in batches]
+                first = self.step + 1
+                out = torch.stack([self._step(b, gen) for b in steps])
+                out = self._losses_to_host(out)
                 if pending is not None:
                     self._consume_loss(pending, losses, logger)
-                pending = (loss, self.step)
+                pending = (out, first)
+
+            chunk, shape = [], None
+            for batch in self._batches(train_dataset, True, c.seed + epoch):
+                if K == 1:
+                    issue([batch])
+                    continue
+                sh = self._batch_shapes(batch)
+                if chunk and sh != shape:
+                    for b in chunk:     # a shape change: single steps
+                        issue([b])
+                    chunk = []
+                chunk.append(batch)
+                shape = sh
+                if len(chunk) == K:
+                    issue(chunk)
+                    chunk = []
+            for b in chunk:             # the epoch's tail: single steps
+                issue([b])
             if pending is not None:
                 self._consume_loss(pending, losses, logger)
             entry = {"epoch": epoch, "train_loss": float(np.mean(losses))}

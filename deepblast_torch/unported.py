@@ -15,12 +15,6 @@ __all__ = ["UNPORTED", "check_ported"]
 
 #: option -> (the values the port takes, ROADMAP.md item)
 UNPORTED = {
-    "finetune": ((False,), "queue A item 1 (trainer options: finetune)"),
-    "precision": (("32",), "queue A item 1 (trainer options: precision "
-                           "bf16/16)"),
-    "grad_accum": ((1,), "queue A item 1 (trainer options: grad_accum)"),
-    "steps_per_dispatch": ((1,), "queue A item 1 (trainer options: "
-                                 "steps_per_dispatch)"),
     "lm_type": (("embed", "prot_t5"), "queue A item 2 (BiLM)"),
     "layer_type": (("cnn",), "queue A item 2 (the RNN head)"),
     "backend": (tuple(BACKENDS), "queue A item 10 (the scan backend, "

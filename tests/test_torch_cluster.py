@@ -49,7 +49,9 @@ backward, which has no operator, with and without the gap output, on the
 Q of each operator in turn), the adjoint forward with and without Za, the
 adjoint backward on the plain backward's E and on an E that is noise at
 every slot; sw pairs of n = 1 or m = 1, whose terminal lies off the band,
-for the backward.  Tolerance: none (``torch.equal``: every cell takes the
+for the backward; and all four with bf16 Q streams (``Q_DTYPE``: the
+forward rounds its stores, the others widen what they read; ``_Once``
+reads into float32) in two of those splits.  Tolerance: none (``torch.equal``: every cell takes the
 same float32 operations; a zero the plain version forms as -0.0 where the
 split stores +0.0 compares equal).
 """
@@ -107,7 +109,7 @@ class _Once:
         idx = slots[take]
         assert not self.seen[b, r, idx].any(), "an element read twice"
         self.seen[b, r, idx] = True
-        out[take] = self.x[b, r, idx]
+        out[take] = self.x[b, r, idx].float()   # a bf16 Q widened
         return out
 
 
@@ -126,13 +128,15 @@ class _Ring:
         return values
 
 
-def split_forward_q(th_s, A_s, ln, lm, mode, operator, C, spare):
+def split_forward_q(th_s, A_s, ln, lm, mode, operator, C, spare,
+                    q_dtype=torch.float32):
     B, K, S = th_s.shape
     lo = MODE_BOUNDS[mode][0]
     Sc = _width(S, C, spare)
     zero = torch.zeros(())
     vt = torch.zeros(B)
-    qs = [torch.full_like(th_s, float("nan")) for _ in range(3)]
+    qs = [torch.full(th_s.shape, float("nan"), dtype=q_dtype)
+          for _ in range(3)]
     th, ad = _Once(th_s), _Once(A_s)
     for b in range(B):
         n, m = int(ln[b]), int(lm[b])
@@ -154,7 +158,7 @@ def split_forward_q(th_s, A_s, ln, lm, mode, operator, C, spare):
                 val, q = smooth.max3(operator, a + left1, left2, a + v1[c])
                 real = s < S
                 for out, part in zip(qs, q):
-                    out[b, r, s[real]] = part[real]
+                    out[b, r, s[real]] = part[real].to(out.dtype)
                 v = torch.where(valid, t + val, zero)
                 at = (s == n) & (k == n + m)
                 if at.any():
@@ -175,8 +179,8 @@ def split_backward_q(qx, qm, qy, ln, lm, Et, mode, want_gap, C, spare):
     lo = MODE_BOUNDS[mode][1]
     Sc = _width(S, C, spare)
     zero = torch.zeros(())
-    E = torch.full_like(qx, float("nan"))
-    EA = torch.full_like(qx, float("nan")) if want_gap else None
+    E = torch.full(qx.shape, float("nan"))
+    EA = torch.full(qx.shape, float("nan")) if want_gap else None
     streams = [_Once(x) for x in (qx, qm, qy)]
     for b in range(B):
         n, m = int(ln[b]), int(lm[b])
@@ -224,7 +228,7 @@ def split_adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, mode, operator,
     Sc = _width(S, C, spare)
     zero = torch.zeros(())
     vtd = torch.zeros(B)
-    qds = [torch.full_like(qx, float("nan")) for _ in range(3)]
+    qds = [torch.full(qx.shape, float("nan")) for _ in range(3)]
     q_in = [_Once(x) for x in (qx, qm, qy)]
     zt, za = _Once(zt_s), za_s is not None and _Once(za_s)
     for b in range(B):
@@ -277,8 +281,8 @@ def split_adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, mode, C,
     lo = MODE_BOUNDS[mode][3]
     Sc = _width(S, C, spare)
     zero = torch.zeros(())
-    Ed = torch.full_like(qx, float("nan"))
-    EdA = torch.full_like(qx, float("nan"))
+    Ed = torch.full(qx.shape, float("nan"))
+    EdA = torch.full(qx.shape, float("nan"))
     streams = [_Once(x) for x in (qx, qm, qy, qdx, qdm, qdy)]
     e_in = _Once(E)
     for b in range(B):
@@ -389,3 +393,40 @@ def test_split_adjoint_forward_q_equals_plain(C, spare, mode, operator):
                                       C, spare)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("C,spare,mode,operator", [
+    (3, 1, "nw", "softmax"), (8, 3, "sw", "sparsemax")])
+def test_split_q_passes_with_bf16_q_equal_plain(C, spare, mode, operator):
+    """bf16 Q storage (the kernels' ``TQ = __nv_bfloat16`` instances): the
+    forward's rounded Q streams, and the three passes that read them
+    (the backward with EA, the adjoint forward with Za, the adjoint
+    backward on the backward's E), bit for bit against the plain passes
+    with ``q_dtype=torch.bfloat16``."""
+    th_s, A_s, ln, lm = _problem(19 * C + spare)
+    kw = dict(mode=mode, operator=operator)
+    bf16 = torch.bfloat16
+    want = dp_ref.forward_q(th_s, A_s, ln, lm, q_dtype=bf16, **kw)
+    got = split_forward_q(th_s, A_s, ln, lm, mode, operator, C, spare, bf16)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    qs = want[1:]
+    assert all(q.dtype == bf16 for q in qs)
+    rng = np.random.default_rng(C + spare + 2)
+    Et = torch.tensor(rng.standard_normal(2), dtype=torch.float32)
+    E, EA = dp_ref.backward_q(*qs, ln, lm, Et, mode=mode, want_gap=True)
+    for g, w in zip(split_backward_q(*qs, ln, lm, Et, mode, True, C, spare),
+                    (E, EA)):
+        assert g.dtype == w.dtype == torch.float32 and torch.equal(g, w)
+    zt_s, za_s = (skew(torch.tensor(rng.standard_normal((2, 17, 23)),
+                                    dtype=torch.float32)) for _ in range(2))
+    want = dp_ref.adjoint_forward_q(*qs, zt_s, za_s, ln, lm, **kw)
+    got = split_adjoint_forward_q(*qs, zt_s, za_s, ln, lm, mode, operator,
+                                  C, spare)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and torch.equal(g, w)
+    qds = want[1:]
+    want = dp_ref.adjoint_backward_q(*qs, *qds, E, ln, lm, mode=mode)
+    got = split_adjoint_backward_q(*qs, *qds, E, ln, lm, mode, C, spare)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and torch.equal(g, w)

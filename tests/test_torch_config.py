@@ -1,7 +1,9 @@
 """The port's configuration against the JAX package's: the storage-menu
 fields (``dp_bf16_residuals``, ``dp_i16_streams``, ``dp_decode_menu``) and
 the menus they resolve to, ``config.json`` in both directions,
-``cli.train``'s menu flags, and ``DeepBLASTConfig.from_json`` refusing a
+``cli.train``'s menu flags, ``load_model`` taking a JAX ``config.json``
+that sets a trainer option (``finetune``, ``precision``, ``grad_accum``,
+``steps_per_dispatch``), and ``DeepBLASTConfig.from_json`` refusing a
 JAX ``config.json`` whose options the port does not have (it used to drop
 them without a word, ROADMAP.md queue C).  Everything is exact: no
 numbers are compared.
@@ -86,10 +88,23 @@ def test_auto_is_on_for_the_default_backend():
     assert tcommon.config_from_args(args).dp_bf16_residuals == "auto"
 
 
+@pytest.mark.parametrize("field,value", [
+    ("finetune", True), ("precision", "bf16"), ("precision", "16"),
+    ("grad_accum", 2), ("steps_per_dispatch", 4)])
+def test_load_model_takes_the_trainer_options(tmp_path, field, value):
+    """A JAX ``config.json`` that sets one of the trainer options (ROADMAP
+    A1) loads, and the value arrives in the port's config and model."""
+    with open(tmp_path / "config.json", "w") as f:
+        f.write(jtrainer.DeepBLASTConfig(**dict(TINY, **{field: value}))
+                .to_json())
+    model = load_model(str(tmp_path), device="cpu")
+    assert getattr(model.config, field) == value
+    if field == "precision":
+        assert model.aligner.matmul_dtype == \
+            ttrainer._PRECISION_DTYPES[value]
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("finetune", True, "queue A item 1"),
-    ("precision", "bf16", "queue A item 1"),
-    ("grad_accum", 2, "queue A item 1"),
     ("lm_type", "bilstm", "queue A item 2"),
     ("layer_type", "rnn", "queue A item 2"),
     ("backend", "scan", "queue A item 10"),
@@ -117,6 +132,7 @@ def test_from_json_drops_only_what_changes_nothing():
                steps_per_dispatch=8)
     cfg = ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))
     assert cfg.embedding_dim == 16 and cfg.dp_bf16_residuals == "auto"
+    assert cfg.steps_per_dispatch == 8
     raw["bogus"] = 1
     with pytest.raises(ValueError, match="'bogus' is not a field"):
         ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))

@@ -22,7 +22,10 @@ instance, also with every cluster size forced at the edges of the split
 (``chip_smoke.SPLIT_EDGE_SLOTS``), at S = 19,801 (past the 19,370 slots
 the first Q backward and adjoint forward held) and at their limit (S =
 32,768), one slot past which each refuses; a ``pallas_long`` training
-step past S = 19,370 equals the plain passes bit for bit.  Every
+step past S = 19,370 equals the plain passes bit for bit.  The bf16 Q
+instances (``ops.dp.Q_DTYPE``) are held the same way, bit for bit: at the
+wrapper's cluster size, at every cluster size at the split's edges, and
+at S = 32,768.  Every
 storage form of the default kernels (the
 menus of ``chip_smoke.MENUS``: bf16 and int16 inputs, bf16 residuals,
 bf16 and int16 expectations) and the pair skew are held to their plain
@@ -312,6 +315,78 @@ def test_split_q_kernels_at_their_limit(cuda):
     assert all(v["S"] == dp_cuda.CLUSTER_SLOTS[k] for k, v in split.items())
 
 
+BF16_Q = [chip_smoke.q_name(k, torch.bfloat16) for k in chip_smoke.Q_KERNELS]
+
+
+@pytest.mark.parametrize("mode,operator", [("nw", "softmax"),
+                                           ("sw", "sparsemax"),
+                                           ("nw", "hardmax")])
+def test_q_kernels_with_bf16_q_match_plain(cuda, mode, operator):
+    """The bf16 Q instances (``ops.dp.Q_DTYPE = torch.bfloat16``) at the
+    wrapper's cluster size: the forward's rounded Q streams and every
+    pass that reads them, bit for bit against the plain passes with
+    ``q_dtype=torch.bfloat16`` (chip_smoke's Q check)."""
+    theta, A, ln, lm = _problem(29 + len(operator), 5, 130, 70, cuda)
+    errs = {}
+    chip_smoke.check_q_kernels(theta, A, ln, lm, mode, operator, errs,
+                               q_dtype=torch.bfloat16)
+    assert errs == dict.fromkeys(BF16_Q, 0.0)
+
+
+@pytest.mark.parametrize("S", chip_smoke.SPLIT_EDGE_SLOTS)
+@pytest.mark.parametrize("mode,operator", [("nw", "softmax"),
+                                           ("sw", "sparsemax"),
+                                           ("nw", "hardmax")])
+def test_split_q_kernels_with_bf16_q_at_every_cluster_size(cuda, S, mode,
+                                                           operator):
+    """Every bf16 Q instance bit for bit at every cluster size that holds
+    the pair, forced, at the split's edges."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S + 1)
+    prob = chip_smoke.split_problem(g, S, mode, operator, torch.bfloat16)
+    for C in dp_cuda.Q_CLUSTERS:
+        if C * 1024 * dp_cuda.Q_STRIP >= S:
+            errs = {}
+            split = chip_smoke.check_split(prob, mode, operator, C, errs)
+            assert errs == dict.fromkeys(BF16_Q, 0.0)
+            assert {v["C"] for v in split.values()} == {C}
+
+
+def test_split_q_kernels_with_bf16_q_at_their_limit(cuda):
+    """The bf16 Q instances at S = 32,768 at the wrapper's cluster size,
+    bit for bit; the limit is the float32 instances' (registers, not Q
+    bytes, bound it)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    errs = {}
+    split, msgs = chip_smoke.check_split_limit(g, errs, torch.bfloat16)
+    assert errs == dict.fromkeys(BF16_Q, 0.0) and len(msgs) == 4
+    assert set(split) == set(BF16_Q)
+    assert all(v["S"] == dp_cuda.CLUSTER_SLOTS[k]
+               for k, v in zip(chip_smoke.Q_KERNELS, map(split.get, BF16_Q)))
+
+
+def test_q_wrappers_take_one_q_dtype(cuda):
+    """The Q streams of one pass are all float32 or all bf16; the forward
+    stores no other type; outputs stay float32."""
+    x = torch.zeros((2, 5, 4), device=cuda)
+    s = dp_cuda.skew(x)
+    b = s.to(torch.bfloat16)
+    n = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    m = torch.full((2,), 4, dtype=torch.int32, device=cuda)
+    et = torch.ones(2, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dp_cuda.forward_q(s, s, n, m, q_dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dp_cuda.backward_q(b, s, b, n, m, et)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dp_cuda.backward_q(*(s.half(),) * 3, n, m, et)
+    with pytest.raises(TypeError, match="float32"):
+        dp_cuda.adjoint_backward_q(b, b, b, b, s, s, s, n, m)
+    E, EA = dp_cuda.backward_q(b, b, b, n, m, et, want_gap=True)
+    assert E.dtype == EA.dtype == torch.float32
+
+
 def test_cluster_size_rule(cuda):
     """The rule's picks: one CTA a pair at the bench shape, 16 at the long
     decode and the long training batch (the largest size the device
@@ -326,10 +401,11 @@ def test_cluster_size_rule(cuda):
     assert pick(1, dp_cuda.CLUSTER_SLOTS["forward_q"]) == 16
     for name in chip_smoke.Q_KERNELS:
         for variant in (False, True):
-            rule = lambda B, S: dp_cuda._cluster_size(
-                name, "softmax", B, S, cuda, variant)
-            assert rule(256, 513) == 1
-            assert rule(1, dp_cuda.CLUSTER_SLOTS[name]) == 16
+            for q_dtype in dp_cuda.Q_DTYPES:
+                rule = lambda B, S: dp_cuda._cluster_size(
+                    name, "softmax", B, S, cuda, variant, q_dtype)
+                assert rule(256, 513) == 1
+                assert rule(1, dp_cuda.CLUSTER_SLOTS[name]) == 16
 
 
 def test_q_wrappers_check_inputs(cuda):

@@ -238,7 +238,8 @@ def test_nan_loss_raises():
     model = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig(**TINY),
                                device="cpu").init()
     with pytest.raises(FloatingPointError, match="NaN training loss"):
-        model._consume_loss((torch.tensor(float("nan")), 3), [], None)
+        model._consume_loss(((torch.tensor(float("nan")), None), 3), [],
+                            None)
 
 
 def test_dropout_uses_the_callers_generator():
@@ -316,9 +317,9 @@ def test_cli_train_then_load_model_aligns(tmp_path):
     assert walls == sorted(walls)
 
 
-@pytest.mark.parametrize("flag", [["--precision", "bf16"],
-                                  ["--finetune", "1"],
-                                  ["--steps-per-dispatch", "8"],
+@pytest.mark.parametrize("flag", [["--nodes", "2"],
+                                  ["--tp", "2"],
+                                  ["--pretrain-path", "x"],
                                   ["--layer-type", "rnn"],
                                   ["--lm-type", "bilstm"],
                                   ["--backend", "scan"]])
