@@ -30,7 +30,11 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              passes under the same menu (``check_menu_kernels``: the
              relayouts and the adjoint passes exactly, the pair = two
              single skews, stored values as float32 to the same
-             tolerance).  Then the redesigned kernels (skew, pair skew,
+             tolerance).
+   worker  — from here to the end of phase 4b a second process on the
+             same card (``phase_worker``; its plain passes are host-bound,
+             so it runs beside the model phases, and phase 4c waits for
+             it): the redesigned kernels (skew, pair skew,
              unskew of every stream form, forward, score-only forward,
              backward, adjoint forward with and without Za, adjoint
              backward on the training E and on an E that is noise at
@@ -40,7 +44,8 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              passes run), in float32 and every storage menu
              (``check_edges``; the whole matrix is
              ``tests/test_torch_cuda.py``'s); one slot further the adjoint
-             forward refuses, naming its limit.
+             forward refuses, naming its limit.  Then phase 5's Q kernels
+             at (16, 200, 150) and at their split edges (below).
 3. serving — ProtT5-XL (24 x 1024, d_ff 16384, 32 heads) + CNN-1024 heads,
              seeded random weights, on the card: ``align`` 4 protein pairs
              of length 100-500, ``score_pairs`` on 32 pairs padded to 512,
@@ -56,13 +61,14 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              softmax, cross entropy, cosine schedule, clip 10, lr 5e-5) on
              synthetic TM-align TSVs: 48 pairs of length 100-500 and 8 of
              600-1000 (one batch padded past 600 slots), 16 valid
-             pairs, batch 16, 2 epochs.  Counters zeroed before, read
+             pairs, batch 16, 1 epoch.  Counters zeroed before, read
              after: every training kernel must have run.  Losses finite,
              aligner changed (against the config's seeded init), at most
              3 checkpoints, ``load_model`` serves ``align``.  Then every
              kernel, and autograd through them, is held against its plain
-             version (and the CPU) at the trained model's potentials of the
-             longest training batch (8, 992, 1024), in float32 and under
+             version (and, for its longest pair, the CPU) at the trained
+             model's potentials of the longest training batch (8, 992,
+             1024), in float32 and under
              the run's menu (bf16 residuals: the default flags resolve
              ``--dp-bf16-residuals auto`` to on, as deepblast-train does;
              checked).  The whole run's
@@ -70,7 +76,7 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              its own ``metrics.jsonl``, and peak device memory.
 4b. options — the trainer options at ProtT5-XL + CNN-1024 width: (a)
              ``cli.train --precision bf16 --grad-accum 2
-             --steps-per-dispatch 4``, batch 16, 2 epochs, on 128 pairs of
+             --steps-per-dispatch 4``, batch 16, 1 epoch, on 128 pairs of
              481-496 residues (every batch (16, 496, 496), so chunks of 4
              form: ``cli.train`` has no pad-multiple flag) and 16
              validation pairs: losses finite, every training kernel ran,
@@ -86,17 +92,45 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              ``load_model`` serves ``align`` with it (the in-memory
              model's states), peak device memory.  ``--precision 16`` is
              held on the CPU only (``tests/test_torch_options.py``).
+4c. bilm   — the BiLM, the RNN head and offline LM weights (``BILM_SIZES``).
+             (a) ``cli.train --lm-type bilstm --layer-type rnn`` at the
+             ``deepblast-train`` defaults (embedding 1024, so the BiLM's
+             hidden width is 256; hidden 1024, 2 layers, dropout 0.5),
+             batch 16, 1 epoch on rows of up to ~1,000 residues: losses
+             finite, torch's second LSTM bias still zero; ``load_model``
+             -> ``align``, ``score_pairs`` and the search CLI; the same at
+             ``--steps-per-dispatch 4`` on 64 rows of one batch shape: one
+             chunk and no synchronizing operation in it
+             (:class:`count_waits`); and so ``--finetune True`` at batch 8
+             (cuDNN's LSTM backward through the BiLM): the BiLM changed.
+             (b) a Bepler-geometry BiLM (nin 22,
+             hidden 1,024, 2 layers: 4,096 features) with seeded weights
+             in the ``lstm2x`` layout -> ``cli.convert_lm`` ->
+             ``cli.train --pretrain-path`` (the Uniprot21 tokenizer, heads
+             of 4,096 + 22 inputs) -> ``align``.  (c) a seeded HF-layout
+             ProtT5-XL state dict cut to 2 blocks -> ``cli.convert_lm`` in
+             float32 and bf16: the float32 artifact's encoder gives the
+             features of the state dict loaded directly exactly, the bf16
+             one's difference reported; ``cli.train --pretrain-path`` for 2
+             steps.  Counters zeroed before each run, read after.  Then
+             every default kernel = plain at a training batch's potentials
+             (0.0, float32 and the run's menu), the BiLM's features and the
+             RNN heads' outputs on the card = on the CPU to 1e-4 of scale,
+             and by CUDA events a training step against its BiLM forward
+             and its RNN heads' forward + backward.
 5. long    — the long-sequence backend (``pallas_long``: the Q-stream
              kernels, each pair split across a thread-block cluster).
-             Each Q kernel against its plain version at (16, 200, 150),
-             nw and sw x softmax / sparsemax / hardmax, outputs over NaN,
-             bit for bit, with float32 and with bf16 Q streams (the
-             instances of ``ops.dp.Q_DTYPE`` bf16), and autograd through
-             them (as phase 2).  The four Q kernels, every instance, bit
-             for bit at every forced cluster size (the bf16 ones at
-             ``BF16_CLUSTERS``) at ``SPLIT_EDGE_SLOTS`` and at the
-             wrapper's size at their limit S = 32,768 (one kernel's
-             outputs live at a time), one slot past which each refuses;
+             In the worker: each Q kernel against its plain version at
+             (16, 200, 150), nw and sw x softmax / sparsemax / hardmax,
+             outputs over NaN, bit for bit, with float32 and with bf16 Q
+             streams (the instances of ``ops.dp.Q_DTYPE`` bf16), and
+             autograd through them (as phase 2, the CPU on the 4 largest
+             pairs); the four Q kernels, every instance, bit for bit at
+             every forced cluster size (the bf16 ones at
+             ``BF16_CLUSTERS``) at ``SPLIT_EDGE_SLOTS``.  Here: the four
+             Q kernels, every instance, at the wrapper's size at their
+             limit S = 32,768 (one kernel's outputs live at a time), one
+             slot past which each refuses;
              a ``pallas_long``
              training step on a pair of 19,800 x 40 (past the 19,370
              slots the first Q backward and adjoint forward held) bit for
@@ -172,8 +206,13 @@ values; a Q kernel's entry also gives its last split on the long path);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import copy
+import dataclasses
 import functools
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1065,7 +1104,7 @@ FIRST_ORDER = (0, 1, 2, 5, 6)
 
 @timed_check
 def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
-                   cpu_second_order=True, dtypes=None):
+                   cpu_second_order=True, dtypes=None, cpu_pairs=None):
     """``torch.autograd.grad`` through the dispatcher on the card (the
     kernels of ``backend``) against the same calls with the plain passes,
     on the card and on CPU copies: ``alignment_score`` to first and second
@@ -1089,7 +1128,12 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
     last bit, and now and then one of them to the neighbouring bf16 value
     (2^-8 apart): the CPU deviation is then recorded as
     ``autograd_cpu_menu`` and held to ``MENU_CPU_RTOL`` of scale; the card
-    = the plain passes on the card is held as without a menu."""
+    = the plain passes on the card is held as without a menu.
+
+    With ``cpu_pairs`` the CPU runs only that many of the longest pairs
+    (by ``n * m``), held to the card's outputs of the same pairs (a pair's
+    outputs depend on its own inputs only): the CPU's cost grows with the
+    batch, the card's plain passes' with the diagonals."""
     from deepblast_torch.ops import dp as dp_ops
     from deepblast_torch.ops import dp_ref
     kw = dict(mode=mode, operator=operator, backend=backend, dtypes=dtypes)
@@ -1098,11 +1142,14 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
     Zt = torch.randn(theta.shape, generator=g, device=theta.device)
     Za = torch.randn(theta.shape, generator=g, device=theta.device)
 
-    def grads(dev):
-        t = theta.detach().to(dev).requires_grad_()
-        a = A.detach().to(dev).requires_grad_()
-        lens = (ln.to(dev), lm.to(dev))
-        zt, za = Zt.to(dev), Za.to(dev)
+    pick = slice(None) if cpu_pairs is None else torch.argsort(
+        (ln.long() * lm.long()).cpu(), descending=True)[:cpu_pairs]
+
+    def grads(dev, rows=slice(None)):
+        t = theta.detach()[rows].to(dev).requires_grad_()
+        a = A.detach()[rows].to(dev).requires_grad_()
+        lens = (ln[rows].to(dev), lm[rows].to(dev))
+        zt, za = Zt[rows].to(dev), Za[rows].to(dev)
         vt = dp_ops.alignment_score(t, a, lens, **kw)
         g1 = torch.autograd.grad(vt.sum(), (t, a), create_graph=True)
         g2 = torch.autograd.grad((g1[0] * g1[0]).sum(), (t, a))
@@ -1120,11 +1167,11 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
     finally:
         dp_ops._passes = passes
     t0 = time.time()
-    cpu = grads("cpu")
+    cpu = grads("cpu", pick)
     add_seconds("check_autograd(cpu side)", t0)
     for i, (k, p, c) in enumerate(zip(kern, plain, cpu)):
         _close("autograd", k, p, errs)
-        err = (k.cpu() - c).abs().max().item()
+        err = (k.cpu()[pick] - c).abs().max().item()
         scale = c.abs().max().item()
         if dtypes is not None:
             key, rtol = "autograd_cpu_menu", MENU_CPU_RTOL
@@ -1173,7 +1220,7 @@ def phase_kernels(seed):
             raise AssertionError(f"{op} scores {vt} differ from the cell "
                                  f"loop's {want}")
     for mode in ("nw", "sw"):
-        for op in ("softmax", "sparsemax", "hardmax"):
+        for op in OPERATORS:
             theta, A, ln, lm = dp_problem(g, 16, 200, 150)
             check_kernels(theta, A, ln, lm, mode, op, errs)
             check_autograd(theta, A, ln, lm, mode, op, errs)
@@ -1186,20 +1233,6 @@ def phase_kernels(seed):
         f"float32 and under the storage menus {sorted(MENUS)}, tracebacks "
         "identical; autograd on the card = on the CPU; max abs diff "
         f"{json.dumps(errs)}")
-    edge_errs, t0 = {}, time.time()
-    check_edges(g, edge_errs)
-    torch.cuda.synchronize()
-    log("phase kernels: skew, skew_pair, unskew, forward, score-only "
-        "forward, adjoint forward, backward and adjoint backward "
-        "bit-identical to plain at the strip "
-        f"edges {EDGE_SHAPES} in float32 (every storage menu up to 301 "
-        "slots); the "
-        "backward and the adjoint backward refuse S = 20,480 and the "
-        "adjoint forward S = 20,481, naming their "
-        f"limit; {time.time() - t0:.1f} s; max abs diff "
-        f"{json.dumps(edge_errs)}")
-    for k, v in edge_errs.items():
-        errs[k] = max(errs.get(k, 0.0), v)
     return errs
 
 
@@ -1402,7 +1435,7 @@ def phase_train(seed, card):
         rc = cli_train.main([
             "--train-pairs", paths[0], "--valid-pairs", paths[1],
             "-o", out, "--lm-type", "prot_t5", "--batch-size", "16",
-            "--epochs", "2", "--seed", str(seed)])
+            "--epochs", "1", "--seed", str(seed)])
         torch.cuda.synchronize()
         t_train = time.time() - t0
         launches = dict(dp_cuda.LAUNCHES)
@@ -1443,9 +1476,10 @@ def phase_train(seed, card):
             check_kernels(theta, A, *lengths, "nw", "softmax", errs)
             check_menu_kernels(theta, A, *lengths, "nw", "softmax",
                                model.dp_dtypes, errs)
-        check_autograd(theta, A, *lengths, "nw", "softmax", errs)
         check_autograd(theta, A, *lengths, "nw", "softmax", errs,
-                       dtypes=model.dp_dtypes)
+                       cpu_pairs=1)
+        check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                       dtypes=model.dp_dtypes, cpu_pairs=1)
         torch.cuda.synchronize()
         checked = tuple(theta.shape)
         menu = model.dp_dtypes
@@ -1459,7 +1493,7 @@ def phase_train(seed, card):
         raise AssertionError(f"cli.train with default flags trained with "
                              f"the storage menu {menu}, not bf16 residuals")
     n_train = sum(t == "train_loss" for t, _ in losses)
-    if n_train != 2 * len(batches) or \
+    if n_train != len(batches) or \
             not all(np.isfinite(v) for _, v in losses):
         raise AssertionError(f"training losses {losses}")
     if batch["x"].shape[1] < 600:
@@ -1474,7 +1508,7 @@ def phase_train(seed, card):
             raise AssertionError("align: states do not consume both strings")
     shapes = [tuple(bt["x"].shape) + (bt["y"].shape[1],) for bt in batches]
     log(f"phase train: cli.train ProtT5-XL + CNN-1024, {len(rows)} train / "
-        f"{len(valid)} valid pairs, batch 16, 2 epochs: {t_train:.2f} s; "
+        f"{len(valid)} valid pairs, batch 16, 1 epoch: {t_train:.2f} s; "
         f"batches (B, Lx, Ly) {shapes}; seconds between train_loss records "
         f"{[round(t, 4) for t in step_intervals(metrics)]}; peak device "
         f"memory {peak / 2**30:.2f} GiB; losses {losses}; checkpoints "
@@ -1589,9 +1623,8 @@ def run_cli_train(argv):
 
 def phase_options(seed, card):
     """(a) ``cli.train --precision bf16 --grad-accum 2
-    --steps-per-dispatch 4`` at ProtT5-XL + CNN-1024, batch 16, 2 epochs,
-    on 128 pairs of 481-496 residues (one batch shape: two whole chunks an
-    epoch) and 16 validation pairs of 100-500: losses finite, every
+    --steps-per-dispatch 4`` at ProtT5-XL + CNN-1024, batch 16, 1 epoch,
+    on 128 pairs of 481-496 residues (one batch shape: two whole chunks) and 16 validation pairs of 100-500: losses finite, every
     training kernel ran (counters zeroed before, read after), the
     optimizer and the schedule stepped once per two steps, no wait for the
     card inside a chunk's steps or copies and one loss readback a chunk;
@@ -1621,7 +1654,7 @@ def phase_options(seed, card):
             run = run_cli_train([
                 "--train-pairs", paths[0], "--valid-pairs", paths[1],
                 "-o", out, "--lm-type", "prot_t5", "--batch-size", "16",
-                "--epochs", "2", "--precision", "bf16", "--grad-accum", "2",
+                "--epochs", "1", "--precision", "bf16", "--grad-accum", "2",
                 "--steps-per-dispatch", "4", "--seed", str(seed)])
         launches = dict(dp_cuda.LAUNCHES)
         model, best = run["model"], run["best"]
@@ -1631,19 +1664,19 @@ def phase_options(seed, card):
         opt_steps = {int(v["step"]) for v in
                      best["optimizer"]["state"].values()}
         sched_steps = best["scheduler"]["last_epoch"]
-        if n_steps != 16 or not all(np.isfinite(v) for _, v in losses):
+        if n_steps != 8 or not all(np.isfinite(v) for _, v in losses):
             raise AssertionError(f"training losses {losses}")
         if any(launches[k] == 0 for k in TRAIN_KERNELS):
             raise AssertionError(f"a kernel did not run on the options' "
                                  f"training path: {launches}")
         if opt_steps != {best["step"] // 2} or \
-                sched_steps != best["step"] // 2 or model.step != 16 or \
+                sched_steps != best["step"] // 2 or model.step != 8 or \
                 model._mini_step != 0:
             raise AssertionError(
                 f"grad_accum 2: {best['step']} steps, optimizer steps "
                 f"{opt_steps}, schedule {sched_steps}")
-        if waits["chunks"] != 4 or waits["steps"] != 16 or \
-                waits["syncs"] != 0 or waits["readbacks"] != 4:
+        if waits["chunks"] != 2 or waits["steps"] != 8 or \
+                waits["syncs"] != 0 or waits["readbacks"] != 2:
             raise AssertionError(f"steps_per_dispatch 4: {waits}")
         if model.lm.cfg.dtype != "bfloat16" or \
                 model.aligner.matmul_dtype != torch.bfloat16:
@@ -1661,7 +1694,7 @@ def phase_options(seed, card):
             check_menu_kernels(theta, A, *lengths, "nw", "softmax",
                                model.dp_dtypes, errs)
         check_autograd(theta, A, *lengths, "nw", "softmax", errs,
-                       dtypes=model.dp_dtypes)
+                       dtypes=model.dp_dtypes, cpu_pairs=2)
         torch.cuda.synchronize()
         checked = tuple(theta.shape)
         # a chunk's losses are logged together, after the next chunk is
@@ -1673,8 +1706,8 @@ def phase_options(seed, card):
         torch.cuda.empty_cache()
         log(f"phase options: cli.train --precision bf16 --grad-accum 2 "
             f"--steps-per-dispatch 4, ProtT5-XL + CNN-1024, {len(rows)} "
-            f"train / {len(valid)} valid pairs, batches (16, 496, 496), 2 "
-            f"epochs: {seconds:.2f} s; {waits['steps']} steps in "
+            f"train / {len(valid)} valid pairs, batches (16, 496, 496), 1 "
+            f"epoch: {seconds:.2f} s; {waits['steps']} steps in "
             f"{waits['chunks']} chunks of 4, {sched_steps} updates at the "
             f"best checkpoint's step {2 * sched_steps}; host waits in the "
             f"training loop: {waits['readbacks']} loss readbacks (one a "
@@ -1739,6 +1772,500 @@ def phase_options(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the BiLM, the RNN head and offline LM weights
+# ---------------------------------------------------------------------------
+
+# phase bilm's sizes: the deepblast-train defaults (embedding 1024, hidden
+# 1024), rows of (count, shortest, longest) residues, the Bepler lstm2x
+# geometry, ProtT5-XL width cut to 2 blocks (for time), and the batch the
+# card is held to the CPU on
+BILM_SIZES = dict(embedding=1024, hidden=1024, rows=[(24, 100, 500),
+                                                     (8, 800, 1000)],
+                  valid=(8, 100, 400), uniform=(64, 241, 256),
+                  artifact_rows=(32, 100, 300),
+                  bepler=dict(nin=22, nout=21, embedding_dim=21,
+                              hidden_dim=1024, num_layers=2),
+                  t5_blocks=2, cpu_batch=(2, 24, 64))
+
+
+def seeded_state_dict(shapes, g):
+    """A torch state dict of ``shapes`` (key -> shape, torch layouts) with
+    seeded weights of ``init_weights``' scales: layer norms one, the
+    relative-position bias normal(0.02), the token tables standard normal,
+    every other matrix and vector normal with std ``1/sqrt(fan_in)`` (its
+    last dimension)."""
+    out = {}
+    for k, shape in shapes.items():
+        if "layer_norm" in k:
+            out[k] = torch.ones(shape)
+        elif "relative_attention_bias" in k:
+            out[k] = torch.randn(shape, generator=g) * 0.02
+        elif k in ("shared.weight", "embed.weight"):
+            out[k] = torch.randn(shape, generator=g)
+        else:
+            out[k] = torch.randn(shape, generator=g) / math.sqrt(shape[-1])
+    return out
+
+
+def lstms(*modules):
+    return [m for mod in modules for m in mod.modules()
+            if isinstance(m, torch.nn.LSTM)]
+
+
+@timed_check
+def check_recurrent(model, seqs, errs):
+    """The BiLM's features and the RNN heads' outputs (match and gap) of
+    ``seqs`` on the card against CPU copies of the same modules, at true
+    positions: each to 1e-4 of its largest magnitude (cuDNN's LSTM and
+    the CPU's sum the same products in other orders).  The heads read
+    the card's LM features on both sides."""
+    from deepblast_torch.data.state_utils import pad_sequences
+    tok, lens = pad_sequences([model.tokenizer(s)[0] for s in seqs])
+    lm_cpu = copy.deepcopy(model.lm).cpu().eval()
+    al_cpu = copy.deepcopy(model.aligner).cpu().eval()
+    model.lm.eval()
+    model.aligner.eval()
+    t_card = torch.as_tensor(tok, device=model.device)
+    l_card = torch.as_tensor(lens, device=model.device)
+    mask = torch.arange(tok.shape[1])[None, :] < torch.as_tensor(lens)[:,
+                                                                     None]
+    with torch.no_grad():
+        pairs = [("bilm", model.lm.encode(t_card, l_card),
+                  lm_cpu.encode(torch.as_tensor(tok), torch.as_tensor(lens)))]
+        h = model._lm_apply(t_card, l_card)
+        for name, card, cpu in (
+                ("rnn_head", model.aligner.match_embedding,
+                 al_cpu.match_embedding),
+                ("rnn_head", model.aligner.gap_embedding,
+                 al_cpu.gap_embedding)):
+            pairs.append((name, card(h, l_card),
+                          cpu(h.cpu(), torch.as_tensor(lens))))
+    for name, card, cpu in pairs:
+        card, cpu = card.cpu()[mask], cpu[mask]
+        err = (card - cpu).abs().max().item()
+        scale = cpu.abs().max().item()
+        errs[f"{name}_cpu"] = max(errs.get(f"{name}_cpu", 0.0), err / scale)
+        if not torch.isfinite(card).all() or err > 1e-4 * scale:
+            raise AssertionError(f"{name}: card vs CPU max abs diff {err} "
+                                 f"at scale {scale}")
+
+
+def step_shares(model, batch, reps=3):
+    """CUDA-event ms (after a warm-up, ``reps`` each) of one training step
+    on ``batch``, of its BiLM forward (the frozen LM: no backward) and of
+    its RNN heads' forward + backward (match and gap, both sides, dropout
+    on); the step updates the model's weights."""
+    b = model._loss_batch(batch)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)
+    step = cuda_ms(lambda: model._step(b, gen), reps)
+    lm = cuda_ms(lambda: model._embeddings(b, train=True), reps)
+    hx, hy = model._embeddings(b)
+    al = model.aligner
+
+    def heads():
+        outs = [head(h, n, gen) for head in (al.match_embedding,
+                                             al.gap_embedding)
+                for h, n in ((hx, b["x_len"]), (hy, b["y_len"]))]
+        torch.autograd.backward([o.sum() for o in outs])
+
+    al.train()
+    heads_ms = cuda_ms(heads, reps)
+    model._opt.zero_grad(set_to_none=True)
+    return dict(shape=tuple(b["x"].shape) + (b["y"].shape[1],),
+                step_ms=round(step, 4), bilm_ms=round(lm, 4),
+                rnn_heads_ms=round(heads_ms, 4),
+                bilm_share=round(lm / step, 4),
+                rnn_heads_share=round(heads_ms / step, 4))
+
+
+def phase_bilm(seed, card):
+    """(a) ``cli.train --lm-type bilstm --layer-type rnn`` at the
+    ``deepblast-train`` defaults -> ``load_model`` -> ``align``,
+    ``score_pairs``, the search CLI, and again at ``--steps-per-dispatch
+    4``; (b) a Bepler-geometry BiLM artifact through ``cli.convert_lm`` and
+    ``cli.train --pretrain-path`` -> ``align``; (c) a ProtT5-XL-width
+    artifact (2 blocks), float32 and bf16, -> ``cli.train
+    --pretrain-path``.  Then the default kernels = plain at a training
+    batch's potentials (0.0), the BiLM and the RNN heads card = CPU, and
+    a step's shares.  Returns the runs' launches and the errors."""
+    from deepblast_torch.cli import convert_lm, search
+    from deepblast_torch.data.alphabet import (ProtT5Tokenizer,
+                                               UniprotPairTokenizer)
+    from deepblast_torch.data.state_utils import pad_sequences
+    from deepblast_torch.models.convert import (bilm_key_shapes,
+                                                hf_t5_encoder_key_shapes,
+                                                load_converted_lm)
+    from deepblast_torch.models.heads import StackedRNN
+    from deepblast_torch.models.lm import (BiLM, T5Config, T5Encoder,
+                                           load_prot_t5)
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.checkpoint import load_model
+    from deepblast_torch.train.trainer import DeepBLAST
+
+    S = BILM_SIZES
+    rng = np.random.default_rng(seed + 6)
+    g = torch.Generator().manual_seed(seed + 6)
+    errs, launches = {}, dict.fromkeys(dp_cuda.LAUNCHES, 0)
+    widths = ["--embedding-dim", str(S["embedding"]), "--hidden-dim",
+              str(S["hidden"])]
+
+    def driven(fn, *args):
+        """``fn(*args)`` with the counters zeroed just before and added to
+        ``launches`` just after."""
+        dp_cuda.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for k, v in dp_cuda.LAUNCHES.items():
+            launches[k] += v
+        return out
+
+    def train(tmp, name, rows, valid, *flags):
+        paths = [os.path.join(tmp, f"{name}_{n}.tsv")
+                 for n in ("train", "valid")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        run = driven(run_cli_train, [
+            "--train-pairs", paths[0], "--valid-pairs", paths[1], "-o",
+            os.path.join(tmp, name), "--batch-size", "16", "--epochs", "1",
+            "--seed", str(seed), *flags])
+        losses = [m["value"] for m in run["metrics"]
+                  if m["tag"] in ("train_loss", "validation_loss")]
+        if not losses or not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        run["train_path"] = paths[0]
+        return run
+
+    def convert(*argv):
+        """``cli.convert_lm`` with its printed manifest read back."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            convert_lm.main(list(argv))
+        return json.loads(out.getvalue())
+
+    def consumed(pairs, states):
+        for (x, y), s in zip(pairs, states):
+            if s.count("1") + s.count(":") != len(x) or \
+                    s.count("2") + s.count(":") != len(y):
+                raise AssertionError("align: states do not consume both "
+                                     "strings")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) BiLM + RNN heads through the CLI, then served
+        rows = [homolog_row(rng, f"b{j}_{i}", lo, hi)
+                for j, (n, lo, hi) in enumerate(S["rows"]) for i in range(n)]
+        n, lo, hi = S["valid"]
+        valid = [homolog_row(rng, f"v{i}", lo, hi) for i in range(n)]
+        run_a = train(tmp, "a", rows, valid, "--lm-type", "bilstm",
+                      "--layer-type", "rnn", *widths)
+        model = run_a["model"]
+        dev = model.device
+        if not (isinstance(model.lm, BiLM) and
+                model.lm.hidden_dim == S["embedding"] // 4 and
+                isinstance(model.aligner.match_embedding, StackedRNN)):
+            raise AssertionError("cli.train did not build the BiLM and the "
+                                 "RNN heads")
+        if any(m.bias_ih_l0.abs().max().item() != 0.0
+               for m in lstms(model.lm, model.aligner)):
+            raise AssertionError("training moved torch's second LSTM bias")
+        longest = max(model._batches(model._dataset(run_a["train_path"]),
+                                     True, seed),
+                      key=lambda bt: bt["x"].shape[1])
+        del model
+        t0 = time.time()
+        served = driven(load_model, os.path.join(tmp, "a"))
+        pairs = [rows[0][5:7], rows[-1][5:7]]
+        states = driven(lambda: [served.align(x, y) for x, y in pairs])
+        t_align = time.time() - t0
+        consumed(pairs, states)
+        xt, xl = pad_sequences([served.tokenizer(r[5])[0] for r in valid])
+        yt, yl = pad_sequences([served.tokenizer(r[6])[0] for r in valid])
+        t0 = time.time()
+        scores = driven(served.score_pairs, dict(x=xt, y=yt, x_len=xl,
+                                                 y_len=yl))
+        t_score = time.time() - t0
+        if scores.shape != (len(valid),) or not torch.isfinite(scores).all():
+            raise AssertionError("score_pairs: non-finite or misshapen")
+        qf, dbf = os.path.join(tmp, "q.fa"), os.path.join(tmp, "db.fa")
+        _write_fasta(qf, [r[5] for r in valid[:4]], "q")
+        _write_fasta(dbf, [r[6] for r in valid[:4]], "d")
+        hits = os.path.join(tmp, "hits")
+        driven(search.main, ["--query-fasta", qf, "--db-fasta", dbf,
+                             "--load-from-checkpoint", os.path.join(tmp, "a"),
+                             "--output-file", hits, "--batch-size", "16"])
+        with open(hits) as f:
+            if len(f.readlines()) != 16:
+                raise AssertionError("search: expected 16 rows")
+        del served
+        torch.cuda.empty_cache()
+
+        # (a) at --steps-per-dispatch 4: one chunk of one batch shape
+        n, lo, hi = S["uniform"]
+        uniform = uniform_rows(rng, n, lo, hi, "u")
+        with count_waits() as waits:
+            run_d = train(tmp, "d", uniform, valid, "--lm-type", "bilstm",
+                          "--layer-type", "rnn", "--steps-per-dispatch", "4",
+                          *widths)
+        if waits["chunks"] != 1 or waits["steps"] != 4 or \
+                waits["syncs"] != 0 or waits["readbacks"] != 1:
+            raise AssertionError(f"steps_per_dispatch 4: {waits}")
+
+        # (a) finetuning the BiLM (cuDNN's LSTM backward) at
+        # --steps-per-dispatch 4: one chunk of batch 8
+        with count_waits() as waits_e:
+            run_e = train(tmp, "e", uniform[:32], valid[:4], "--lm-type",
+                          "bilstm", "--layer-type", "rnn", "--finetune",
+                          "True", "--steps-per-dispatch", "4", *widths,
+                          "--batch-size", "8")
+        if waits_e["chunks"] != 1 or waits_e["steps"] != 4 or \
+                waits_e["syncs"] != 0 or waits_e["readbacks"] != 1:
+            raise AssertionError(f"finetune, steps_per_dispatch 4: {waits_e}")
+        me = run_e["model"]
+        init = DeepBLAST(me.config).init().lm.state_dict()
+        tuned = sum(not torch.equal(v, init[k])
+                    for k, v in me.lm.state_dict().items())
+        if not me.config.finetune or not tuned or any(
+                m.bias_ih_l0.abs().max().item() != 0.0 for m in lstms(me.lm)):
+            raise AssertionError(f"--finetune True: {tuned} of the BiLM's "
+                                 f"tensors changed, or its second LSTM "
+                                 f"bias moved")
+        seconds_e, peak_e = run_e["seconds"], run_e["peak"]
+        del me, run_e, init
+        torch.cuda.empty_cache()
+
+        # (b) a Bepler-geometry BiLM artifact
+        bepler = os.path.join(tmp, "lstm2x.pt")
+        torch.save(seeded_state_dict(bilm_key_shapes(**S["bepler"]), g),
+                   bepler)
+        art_b = os.path.join(tmp, "bilm_artifact")
+        if convert(bepler, "--output", art_b, "--kind", "bilstm")[
+                "config"] != S["bepler"]:
+            raise AssertionError("convert_lm: the BiLM artifact's geometry")
+        n, lo, hi = S["artifact_rows"]
+        rows_b = [homolog_row(rng, f"p{i}", lo, hi) for i in range(n)]
+        run_b = train(tmp, "b", rows_b, valid[:4], "--pretrain-path", art_b,
+                      "--hidden-dim", str(S["hidden"]))
+        mb = run_b["model"]
+        width = 4 * S["bepler"]["hidden_dim"] + S["bepler"]["nin"]
+        if not isinstance(mb.tokenizer, UniprotPairTokenizer) or \
+                mb.aligner.match_embedding.embed.in_features != width:
+            raise AssertionError("the BiLM artifact did not set the "
+                                 "tokenizer and the heads' width")
+        pairs_b = [r[5:7] for r in rows_b[:2]]
+        consumed(pairs_b, driven(lambda: [mb.align(x, y)
+                                          for x, y in pairs_b]))
+        del mb, run_b
+        torch.cuda.empty_cache()
+
+        # (c) a ProtT5-XL-width artifact, float32 and bf16
+        t5 = dataclasses.replace(T5Config.prot_t5_xl(),
+                                 num_layers=S["t5_blocks"])
+        hf = os.path.join(tmp, "hf")
+        os.makedirs(hf)
+        torch.save(seeded_state_dict(hf_t5_encoder_key_shapes(t5), g),
+                   os.path.join(hf, "pytorch_model.bin"))
+        arts = {d: os.path.join(tmp, f"t5_{d}") for d in ("float32",
+                                                           "bfloat16")}
+        t0 = time.time()
+        for d, art in arts.items():
+            if convert(hf, "--output", art, "--dtype", d)[
+                    "storage_dtype"] != d:
+                raise AssertionError(f"convert_lm --dtype {d}")
+        t_convert = time.time() - t0
+        direct, sd = load_prot_t5(hf)
+        encoders = [direct.to(dev)]
+        direct.load_state_dict(sd)
+        for art in arts.values():
+            enc, sd = load_converted_lm(art, device=dev)
+            enc.load_state_dict(sd)
+            encoders.append(enc)
+        if not all(isinstance(e, T5Encoder) and e.cfg == t5
+                   for e in encoders):
+            raise AssertionError("the ProtT5 artifacts' geometry")
+        seqs = [r[5][:256] for r in rows_b[:4]]
+        tok, lens = pad_sequences([ProtT5Tokenizer()(s)[0] for s in seqs])
+        tok = torch.as_tensor(tok, device=dev)
+        mask = torch.arange(tok.shape[1], device=dev)[None, :] < \
+            torch.as_tensor(lens, device=dev)[:, None]
+        with torch.no_grad():
+            feats = [e(tok, mask) for e in encoders]
+        if not torch.equal(feats[1], feats[0]):
+            raise AssertionError("the float32 artifact's features differ "
+                                 "from the state dict's")
+        t5_bf16 = ((feats[2] - feats[0]).abs().max() /
+                   feats[0].abs().max()).item()
+        del encoders, feats, direct, sd, enc
+        torch.cuda.empty_cache()
+        run_c = train(tmp, "c", rows_b, valid[:4], "--pretrain-path",
+                      arts["float32"])
+        n_c = sum(m["tag"] == "train_loss" for m in run_c["metrics"])
+        if n_c != 2 or run_c["model"].lm.cfg != t5:
+            raise AssertionError(f"ProtT5 artifact run: {n_c} steps")
+        seconds_c, peak_c = run_c["seconds"], run_c["peak"]
+        del run_c
+        torch.cuda.empty_cache()
+
+        # the kernels at the path's potentials, the recurrent modules card
+        # vs CPU, a step's shares
+        model = run_d["model"]
+        batch = next(model._batches(model._dataset(run_d["train_path"]),
+                                    True, seed))
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+            check_menu_kernels(theta, A, *lengths, "nw", "softmax",
+                               model.dp_dtypes, errs)
+        if any(v != 0.0 for v in errs.values()):
+            raise AssertionError(f"kernels differ from plain: {errs}")
+        checked = tuple(theta.shape)
+        del hx, hy, theta, A
+        n, lo, hi = S["cpu_batch"]
+        check_recurrent(model, [protein(rng, lo, hi) for _ in range(n)],
+                        errs)
+        shares = [step_shares(model, bt) for bt in (batch, longest)]
+        seconds_d, peak_d = run_d["seconds"], run_d["peak"]
+        del model, run_d
+        torch.cuda.empty_cache()
+
+    log(f"phase bilm: (a) cli.train --lm-type bilstm --layer-type rnn "
+        f"(BiLM hidden {S['embedding'] // 4}, RNN heads {S['hidden']}), "
+        f"{len(rows)} train / {len(valid)} valid pairs, batch 16, 1 epoch: "
+        f"{run_a['seconds']:.2f} s; seconds between train_loss records "
+        f"{[round(t, 4) for t in step_intervals(run_a['metrics'])]}; peak "
+        f"device memory {run_a['peak'] / 2**30:.2f} GiB; load_model + align "
+        f"x2 {t_align:.2f} s, score_pairs {len(valid)} pairs "
+        f"{t_score:.4f} s; --steps-per-dispatch 4: {waits['steps']} steps "
+        f"in {waits['chunks']} chunk, {waits['syncs']} synchronizing "
+        f"operations, {seconds_d:.2f} s, peak {peak_d / 2**30:.2f} GiB; "
+        f"--finetune True --steps-per-dispatch 4, batch 8: "
+        f"{waits_e['steps']} steps in {waits_e['chunks']} chunk, "
+        f"{waits_e['syncs']} synchronizing operations, {tuned} of the "
+        f"BiLM's tensors changed, {seconds_e:.2f} s, peak "
+        f"{peak_e / 2**30:.2f} GiB [{card}]")
+    log(f"phase bilm: (b) Bepler-geometry artifact -> cli.train "
+        f"--pretrain-path (Uniprot21 ids, heads of {width} inputs), "
+        f"{len(rows_b)} pairs, align x2 ok; (c) ProtT5-XL width x "
+        f"{S['t5_blocks']} blocks: convert_lm float32 + bf16 {t_convert:.2f}"
+        f" s, float32 artifact's features = the state dict's exactly, bf16 "
+        f"artifact's {t5_bf16:.3e} of scale; cli.train --pretrain-path 2 "
+        f"steps {seconds_c:.2f} s, peak {peak_c / 2**30:.2f} GiB [{card}]")
+    log(f"phase bilm: kernels = plain at a training batch {checked}, card "
+        f"= CPU (BiLM, RNN heads; of scale); max abs diff "
+        f"{json.dumps(errs)}; step shares by CUDA events "
+        f"{json.dumps(shares)} [{card}]; launches {json.dumps(launches)}")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# the worker: checks that need no model, beside phases 2-4b
+# ---------------------------------------------------------------------------
+
+def phase_worker(seed):
+    """The kernel checks that need no model, on the same card in a second
+    process (:class:`Worker`) while phases kernels to options run: their
+    plain passes walk one diagonal a step in a few hundred small launches,
+    so the host, not the card, sets their time.  (1) ``check_edges``;
+    (2) each Q kernel against its plain version at (16, 200, 150), nw and
+    sw x softmax / sparsemax / hardmax, with float32 and with bf16 Q
+    streams, and autograd through them (``pallas_long``; the CPU on the 4
+    largest pairs); (3) the four split Q kernels at every forced cluster
+    size at ``SPLIT_EDGE_SLOTS`` (the bf16 instances at
+    ``BF16_CLUSTERS``).  Returns the errors."""
+    from deepblast_torch.ops import dp_cuda
+    errs = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7)
+    t0 = time.time()
+    check_edges(g, errs)
+    torch.cuda.synchronize()
+    log("phase worker: skew, skew_pair, unskew, forward, score-only "
+        "forward, adjoint forward, backward and adjoint backward "
+        "bit-identical to plain at the strip "
+        f"edges {EDGE_SHAPES} in float32 (every storage menu up to 301 "
+        "slots); the "
+        "backward and the adjoint backward refuse S = 20,480 and the "
+        "adjoint forward S = 20,481, naming their "
+        f"limit; {time.time() - t0:.1f} s; max abs diff {json.dumps(errs)}")
+    g.manual_seed(seed + 2)
+    for mode in ("nw", "sw"):
+        for op in OPERATORS:
+            theta, A, ln, lm = dp_problem(g, 16, 200, 150)
+            check_q_kernels(theta, A, ln, lm, mode, op, errs)
+            check_q_kernels(theta, A, ln, lm, mode, op, errs,
+                            q_dtype=torch.bfloat16)
+            check_autograd(theta, A, ln, lm, mode, op, errs,
+                           backend="pallas_long", cpu_pairs=4)
+    torch.cuda.synchronize()
+    log("phase worker: Q kernels, float32 and bf16 Q instances, = plain at "
+        "(16, 200, 150) nw/sw x softmax/sparsemax/hardmax, tracebacks "
+        "identical; autograd through them = plain and = CPU; max abs diff "
+        f"{json.dumps(errs)}; {split_line()}")
+    t0 = time.time()
+    check_split_edges(g, errs, torch.bfloat16, BF16_CLUSTERS)
+    check_split_edges(g, errs)
+    torch.cuda.synchronize()
+    log(f"phase worker: the four split Q kernels bit for bit = plain at "
+        f"every cluster size {dp_cuda.Q_CLUSTERS} (forced; the bf16 Q "
+        f"instances at {BF16_CLUSTERS}) at S = {SPLIT_EDGE_SLOTS} "
+        f"({time.time() - t0:.1f} s)")
+    return errs
+
+
+def worker_main(out_path):
+    """The worker's process: :func:`phase_worker` on the library the
+    parent built, its errors and check seconds written to ``out_path``."""
+    from deepblast_torch import native
+    from deepblast_torch.ops import dp_cuda
+    PHASE[0] = "worker"
+    torch.set_num_threads(4)        # the parent's CPU checks run beside it
+    dp_cuda.build()
+    native.build()
+    errs = phase_worker(0)
+    with open(out_path, "w") as f:
+        json.dump(dict(errs=errs, seconds=CHECK_SECONDS), f)
+    return 0
+
+
+class Worker:
+    """:func:`worker_main` in a child process, started on entry; ``join``
+    waits for it (at most ``timeout`` seconds), relays its output and
+    returns its errors and check seconds, and raises if it failed.  On
+    exit a worker still running is killed and reaped."""
+
+    def __init__(self, tmp, timeout=900):
+        self.tmp, self.timeout = tmp, timeout
+
+    def __enter__(self):
+        self.out = os.path.join(self.tmp, "worker.json")
+        self.log = open(os.path.join(self.tmp, "worker.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             self.out], stdout=self.log, stderr=subprocess.STDOUT)
+        return self
+
+    def join(self):
+        try:
+            rc = self.proc.wait(timeout=self.timeout)
+        finally:
+            self.log.seek(0)
+            for line in self.log.read().splitlines():
+                log(line)
+        if rc != 0:
+            raise AssertionError(f"the worker exited with {rc}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the long-sequence backend
 # ---------------------------------------------------------------------------
 
@@ -1752,39 +2279,21 @@ def phase_long(seed, card):
     errs = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 2)
-    for mode in ("nw", "sw"):
-        for op in OPERATORS:
-            theta, A, ln, lm = dp_problem(g, 16, 200, 150)
-            check_q_kernels(theta, A, ln, lm, mode, op, errs)
-            check_q_kernels(theta, A, ln, lm, mode, op, errs,
-                            q_dtype=torch.bfloat16)
-            check_autograd(theta, A, ln, lm, mode, op, errs,
-                           backend="pallas_long")
-    torch.cuda.synchronize()
-    log("phase long: Q kernels, float32 and bf16 Q instances, = plain at "
-        "(16, 200, 150) nw/sw x softmax/sparsemax/hardmax, tracebacks "
-        "identical; autograd through them = plain and = CPU; max abs diff "
-        f"{json.dumps(errs)}; {split_line()}")
     t0 = time.time()
-    check_split_edges(g, errs, torch.bfloat16, BF16_CLUSTERS)
     split_bf16, _ = check_split_limit(g, errs, torch.bfloat16)
     torch.cuda.synchronize()
     log(f"phase long: the bf16 Q instances of the four split kernels bit "
-        f"for bit = plain at the forced cluster sizes {BF16_CLUSTERS} at S "
-        f"= {SPLIT_EDGE_SLOTS}, and at S = "
-        f"{dp_cuda.CLUSTER_SLOTS['forward_q']} ({split_line(split_bf16)}) "
-        f"({time.time() - t0:.1f} s)")
+        f"for bit = plain at S = {dp_cuda.CLUSTER_SLOTS['forward_q']} "
+        f"({split_line(split_bf16)}) ({time.time() - t0:.1f} s)")
     t0 = time.time()
-    check_split_edges(g, errs)
     split, refusals = check_split_limit(g, errs)
     torch.cuda.synchronize()
     log(f"phase long: the four split Q kernels (forward_q, backward_q with "
         f"and without EA, adjoint_forward_q with and without Za, "
-        f"adjoint_backward_q) bit for bit = plain at every cluster size "
-        f"{dp_cuda.Q_CLUSTERS} (forced) at S = {SPLIT_EDGE_SLOTS}, and at "
-        f"their limit S = {dp_cuda.CLUSTER_SLOTS['forward_q']} "
-        f"({split_line(split)}); one slot further each refuses: "
-        f"{refusals[1]} ({time.time() - t0:.1f} s)")
+        f"adjoint_backward_q) bit for bit = plain at their limit S = "
+        f"{dp_cuda.CLUSTER_SLOTS['forward_q']} ({split_line(split)}); one "
+        f"slot further each refuses: {refusals[1]} "
+        f"({time.time() - t0:.1f} s)")
     past = long_step_past(g, errs)
     log(f"phase long: a pallas_long training step past the first Q "
         f"backward's and adjoint forward's limit (S = 19,370): {past}")
@@ -1896,7 +2405,8 @@ def phase_long(seed, card):
     torch.cuda.empty_cache()
     check_q_kernels(theta, A, *lengths, "nw", "softmax", errs)
     check_autograd(theta, A, *lengths, "nw", "softmax", errs,
-                   backend="pallas_long", cpu_second_order=False)
+                   backend="pallas_long", cpu_second_order=False,
+                   cpu_pairs=1)
     torch.cuda.synchronize()
     log(f"phase long: the default backend trains {tuple(theta.shape)} (S = "
         f"{S}): {default}; at S = "
@@ -2878,6 +3388,8 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import deepblast_torch  # noqa: F401  (fails outside a checkout)
+    if argv[:1] == ["--worker"]:
+        return worker_main(argv[1])
     card = card_line()
     log(card)
 
@@ -2891,10 +3403,17 @@ def main(argv):
         return out
 
     timed("build", phase_build)
-    errs = timed("kernels", phase_kernels, seed)
-    serving, path_errs = timed("serving", phase_serving, seed, card)
-    training, train_errs = timed("train", phase_train, seed, card)
-    options, options_errs = timed("options", phase_options, seed, card)
+    with tempfile.TemporaryDirectory() as tmp, Worker(tmp) as worker:
+        errs = timed("kernels", phase_kernels, seed)
+        serving, path_errs = timed("serving", phase_serving, seed, card)
+        training, train_errs = timed("train", phase_train, seed, card)
+        options, options_errs = timed("options", phase_options, seed, card)
+        # the worker's card time would count in the phases timed below
+        done = timed("worker", worker.join)
+    worker_errs = done["errs"]
+    for k, v in done["seconds"].items():
+        CHECK_SECONDS[k] = v
+    bilm, bilm_errs = timed("bilm", phase_bilm, seed, card)
     long_, long_errs = timed("long", phase_long, seed, card)
     # each split Q kernel's last split on the long path (its longest
     # batch); the bf16 instances' in long_times' bf16 DP step
@@ -2910,11 +3429,13 @@ def main(argv):
     kernels = []
     for k in KERNELS + Q_KERNELS + Q_BF16:
         checked = [d[k] for d in (errs, path_errs, train_errs, options_errs,
-                                  long_errs, menu_errs) if k in d]
+                                  worker_errs, bilm_errs, long_errs,
+                                  menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
         launches = bf16_launches[k] if k in Q_BF16 else \
-            serving[k] + training[k] + options[k] + long_[k] + menu[k]
+            serving[k] + training[k] + options[k] + bilm[k] + long_[k] + \
+            menu[k]
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE,
             replaces=REPLACES[k.replace("_bf16", "")],

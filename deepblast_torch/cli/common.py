@@ -1,6 +1,9 @@
 """Shared CLI plumbing of the port (the parts of
 ``deepblast_tpu/cli/common.py`` that ``cli.train`` needs), with the
-``deepblast-train`` defaults.
+``deepblast-train`` defaults, and :func:`build_model`, which loads LM
+weights offline: ``--pretrain-path`` takes a raw HuggingFace ProtT5
+directory (``pytorch_model.bin``) or an LM artifact of
+``cli.convert_lm`` (a ProtT5 or a Bepler BiLM; ``cli/common.py:122-208``).
 
 Flags of options the port does not have yet are accepted so that a
 ``deepblast-train`` command line parses, and :func:`config_from_args`
@@ -11,13 +14,16 @@ the ROADMAP.md item that ports it; none is ignored.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 
 from deepblast_torch.ops.dp import BACKENDS
 from deepblast_torch.train.trainer import DeepBLASTConfig
 from deepblast_torch.unported import UNPORTED, check_ported
 
 __all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
-           "config_from_args"]
+           "config_from_args", "build_model"]
 
 MODE_ALIASES = {
     "needleman-wunch": "needleman-wunsch",     # reference typo kept working
@@ -33,11 +39,17 @@ def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--valid-pairs", required=True,
                         help="Validation pairs file (TM-align TSV)")
     parser.add_argument("--pretrain-path", type=str, default=None,
-                        help="not ported: HF ProtT5 weights")
+                        help="a local HF ProtT5 checkpoint directory "
+                             "(pytorch_model.bin) or an LM artifact of "
+                             "deepblast_torch.cli.convert_lm (ProtT5 or "
+                             "Bepler BiLM); sets --lm-type.  Omit to train "
+                             "the --lm-type LM from seeded random weights")
     parser.add_argument("--lm-type", type=str, default="embed",
                         choices=["embed", "bilstm", "prot_t5"],
-                        help="prot_t5 runs ProtT5-XL geometry with seeded "
-                             "random weights; bilstm is not ported")
+                        help="embed: a token embedding; bilstm: a tied "
+                             "BiLM of hidden width embedding-dim / 4 with a "
+                             "one-hot identity channel; prot_t5: "
+                             "ProtT5-XL geometry")
     parser.add_argument("--vocab-size", type=int, default=32)
     parser.add_argument("--embedding-dim", type=int, default=1024)
     parser.add_argument("--hidden-dim", type=int, default=1024)
@@ -147,7 +159,7 @@ def config_from_args(args) -> DeepBLASTConfig:
         alignment_mode=mode,
         operator=args.operator,
         backend=args.backend,
-        lm_type=args.lm_type,
+        lm_type=_pretrained_lm_type(args),
         vocab_size=args.vocab_size,
         finetune=bool(args.finetune),
         batch_size=args.batch_size,
@@ -170,3 +182,46 @@ def config_from_args(args) -> DeepBLASTConfig:
         max_len=args.max_len,
         output_directory=args.output_directory,
     )
+
+
+def _pretrained_lm_type(args):
+    """The ``lm_type`` that ``--pretrain-path`` implies: an LM artifact's
+    kind, else ProtT5 (a raw HF directory); without it ``--lm-type``."""
+    path = getattr(args, "pretrain_path", None)
+    if not path:
+        return args.lm_type
+    from deepblast_torch.models.convert import is_converted_lm
+    if is_converted_lm(path):
+        with open(os.path.join(path, "manifest.json")) as f:
+            return {"prot_t5": "prot_t5", "bilstm": "bilstm"}[
+                json.load(f)["kind"]]
+    return "prot_t5"
+
+
+def build_model(config, pretrain_path=None, device=None):
+    """A ``DeepBLAST`` on ``device`` (CUDA unless asked otherwise), with
+    the LM weights of ``pretrain_path`` when given: an LM artifact
+    (``models.convert.load_converted_lm``) or a raw HF ProtT5 directory
+    (``models.lm.load_prot_t5``).  An artifact's BiLM sets
+    ``embedding_dim`` to its feature width and ``vocab_size`` to its
+    alphabet, and the tokenizer to ``UniprotPairTokenizer``: a Bepler BiLM
+    embeds Uniprot21 ids, not ProtT5's."""
+    from deepblast_torch.data.alphabet import (ProtT5Tokenizer,
+                                               UniprotPairTokenizer)
+    from deepblast_torch.models.convert import (is_converted_lm,
+                                                load_converted_lm)
+    from deepblast_torch.models.lm import BiLM, load_prot_t5
+    from deepblast_torch.train.trainer import DeepBLAST
+    tokenizer = ProtT5Tokenizer()
+    lm = lm_params = None
+    if pretrain_path:
+        if is_converted_lm(pretrain_path):
+            lm, lm_params = load_converted_lm(pretrain_path)
+            if isinstance(lm, BiLM):
+                config = dataclasses.replace(
+                    config, embedding_dim=lm.hidden_size, vocab_size=lm.nin)
+                tokenizer = UniprotPairTokenizer()
+        else:
+            lm, lm_params = load_prot_t5(pretrain_path)
+    return DeepBLAST(config, tokenizer=tokenizer, lm=lm, lm_params=lm_params,
+                     device=device)

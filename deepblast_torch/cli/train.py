@@ -17,8 +17,13 @@ and the potentials' contractions in that dtype, ``--finetune True`` trains
 the LM too, ``--grad-accum k`` updates every k steps on their mean
 gradient, and ``--steps-per-dispatch K`` copies K same-shape batches to
 the device at once and issues their steps back to back; all four are kept
-in ``config.json``.  Flags of options that are not ported yet raise
-(``cli/common.py``).
+in ``config.json``.  ``--lm-type bilstm`` trains a tied BiLM (float32,
+cuDNN's LSTM on the card) and ``--layer-type rnn`` bidirectional LSTM
+heads; ``--pretrain-path`` loads LM weights offline, from a raw HF ProtT5
+directory or an artifact of ``cli.convert_lm`` (a Bepler BiLM artifact
+switches the tokenizer to Uniprot21 ids and sizes the heads from it), and
+``config.json`` with ``model.pt`` keep the LM's geometry and weights.
+Flags of options that are not ported yet raise (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import argparse
 import os
 
 from deepblast_torch.cli.common import (add_infra_args, add_model_args,
-                                        config_from_args)
+                                        build_model, config_from_args)
 
 
 def main(argv=None):
@@ -39,10 +44,9 @@ def main(argv=None):
 
     from deepblast_torch.train.checkpoint import (Checkpointer, save_config,
                                                   save_model)
-    from deepblast_torch.train.trainer import DeepBLAST
     from deepblast_torch.utils.logging import MetricsLogger
 
-    model = DeepBLAST(config, device=args.device).init()
+    model = build_model(config, args.pretrain_path, device=args.device).init()
     if args.load_from_checkpoint:
         model.load_train_state(Checkpointer(args.load_from_checkpoint)
                                .restore(device=model.device))

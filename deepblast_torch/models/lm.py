@@ -1,5 +1,21 @@
-"""Protein language models: the ProtT5 encoder and a plain token embedding
-(``deepblast_tpu/models/lm.py:165-333``).
+"""Protein language models (``deepblast_tpu/models/lm.py``): the tied
+BiLM, the ProtT5 encoder and a plain token embedding, and their weights
+from torch checkpoints.
+
+:class:`BiLM` (``lm.py:36-110``) is the Bepler et al. 2019 tied
+bidirectional LSTM: one ``torch.nn.LSTM`` a layer (``lstm{i}``, flax's
+``nn.RNN(OptimizedLSTMCell)``) runs both directions over shifted inputs,
+so position ``i``'s features never see token ``i``.  The reverse direction
+flips each sequence within its length (``heads.flip_sequences``), so the
+outputs at true positions equal JAX's whatever the padding.  It computes
+in float32 (cuDNN on the card, TF32 off where the trainer or a loader
+places it there: ``models.exact_cuda_math``).
+:func:`convert_bepler_bilm` / :func:`load_bilm` read the reference's
+``lstm2x.pt`` layout and :func:`convert_hf_t5_encoder` /
+:func:`load_prot_t5` a HuggingFace ``T5EncoderModel`` state dict, both
+through the JAX package's flax trees (``models/convert.py``), so the port
+runs the weights exactly as the JAX package does (the Bepler LSTM's two
+biases summed into one, as flax keeps one).
 
 :class:`T5Encoder` keeps the JAX package's T5 exactly: no ``1/sqrt(d_kv)``
 scaling of the scores (``lm.py:249``), the relative-position bias table
@@ -8,7 +24,7 @@ masked with ``finfo(float32).min`` (``lm.py:264-266``), attention scores,
 their softmax and the RMSNorm variance taken in float32 (``lm.py:214``,
 ``:250``), and the output multiplied by the mask (``lm.py:333``).
 Submodule names follow the flax parameter names (``block0.attn.q``, ...)
-so ``models/convert.py`` maps flax trees by name.  The BiLM waits.
+so ``models/convert.py`` maps flax trees by name.
 
 Compute dtype (``T5Config.dtype``, the JAX ``T5Config.dtype`` that the
 trainer's ``--precision`` sets, ``trainer.py:158``, ``:250-253``): the
@@ -30,13 +46,129 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["TokenEmbed", "T5Config", "RMSNorm", "relative_position_bucket",
-           "T5Attention", "T5FF", "T5Block", "T5Encoder"]
+from deepblast_torch.models import exact_cuda_math
+from deepblast_torch.models.heads import flax_biases, flip_sequences
+
+__all__ = ["BiLM", "convert_bepler_bilm", "load_bilm", "TokenEmbed",
+           "T5Config", "RMSNorm", "relative_position_bucket", "T5Attention",
+           "T5FF", "T5Block", "T5Encoder", "convert_hf_t5_encoder",
+           "load_prot_t5", "pretrained_language_models"]
+
+
+class BiLM(nn.Module):
+    """Tied bidirectional stacked-LSTM language model."""
+
+    def __init__(self, nin=22, nout=21, embedding_dim=21, hidden_dim=1024,
+                 num_layers=2, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.nin, self.nout = nin, nout
+        self.embedding_dim, self.hidden_dim = embedding_dim, hidden_dim
+        self.num_layers = num_layers
+        self.embed = nn.Embedding(nin, embedding_dim, **kw)
+        for i in range(num_layers):
+            self.add_module(f"lstm{i}", flax_biases(nn.LSTM(
+                embedding_dim if i == 0 else hidden_dim, hidden_dim,
+                batch_first=True, **kw)))
+        self.linear = nn.Linear(hidden_dim, nout, **kw)
+
+    @property
+    def hidden_size(self):
+        return 2 * self.num_layers * self.hidden_dim
+
+    def _directional(self, inputs, lengths, reverse):
+        """Each layer's outputs over ``inputs``; ``reverse`` flips the
+        sequences within their lengths once and each output back (flax
+        flips around every layer: the flip is its own inverse)."""
+        h = flip_sequences(inputs, lengths) if reverse else inputs
+        outs = []
+        for i in range(self.num_layers):
+            h, _ = getattr(self, f"lstm{i}")(h)
+            outs.append(h)
+        return [flip_sequences(o, lengths) for o in outs] if reverse \
+            else outs
+
+    def _split_inputs(self, tokens, lengths):
+        """The shifted streams: forward ``[flank, x_1 .. x_{L-1}]``,
+        reverse ``[x_2 .. x_L, 0]`` with the flank at ``lengths - 1``; the
+        flank (start/stop) token is embedding id ``nin - 1``."""
+        B, L = tokens.shape
+        e = self.embed(tokens)
+        flank = self.embed.weight[self.nin - 1].expand(B, 1, -1)
+        fwd_in = torch.cat([flank, e[:, :-1]], dim=1)
+        shifted = torch.cat([e[:, 1:], torch.zeros_like(e[:, :1])], dim=1)
+        pos = torch.arange(L, device=tokens.device)
+        is_last = (pos[None, :] == (lengths[:, None] - 1))[..., None]
+        return fwd_in, torch.where(is_last, flank, shifted)
+
+    def _lengths(self, tokens, lengths):
+        if lengths is None:
+            return torch.full(tokens.shape[:1], tokens.shape[1],
+                              device=tokens.device)
+        return torch.as_tensor(lengths, device=tokens.device)
+
+    def encode(self, tokens, lengths=None):
+        """Context embeddings ``(B, L, 2 * num_layers * hidden_dim)``:
+        ``[fwd_0, rvs_0, fwd_1, rvs_1, ...]``."""
+        lengths = self._lengths(tokens, lengths)
+        fwd_in, rvs_in = self._split_inputs(tokens, lengths)
+        h_fwd = self._directional(fwd_in, lengths, reverse=False)
+        h_rvs = self._directional(rvs_in, lengths, reverse=True)
+        return torch.cat([h for pair in zip(h_fwd, h_rvs) for h in pair],
+                         dim=-1)
+
+    def forward(self, tokens, lengths=None):
+        """Next/previous-token log probabilities ``(B, L, nout)``."""
+        lengths = self._lengths(tokens, lengths)
+        fwd_in, rvs_in = self._split_inputs(tokens, lengths)
+        h_fwd = self._directional(fwd_in, lengths, reverse=False)[-1]
+        h_rvs = self._directional(rvs_in, lengths, reverse=True)[-1]
+        return torch.log_softmax(self.linear(h_fwd) + self.linear(h_rvs),
+                                 dim=-1)
+
+
+def convert_bepler_bilm(state_dict, num_layers=2):
+    """A :class:`BiLM` ``state_dict`` from a Bepler tied-BiLM torch state
+    dict (the ``lstm2x.pt`` layout: ``embed.weight``,
+    ``rnn.{i}.{weight,bias}_{ih,hh}_l0``, ``linear.{weight,bias}``;
+    ``lm.py:113-146``), through the JAX package's flax tree: the same
+    weights, the two LSTM biases summed into ``bias_hh_l0`` and
+    ``bias_ih_l0`` zero, as the JAX BiLM computes."""
+    from deepblast_torch.models.convert import bepler_bilm_tree, \
+        params_from_jax
+    return params_from_jax(bepler_bilm_tree(state_dict, num_layers))
+
+
+def _bilm_geometry(sd):
+    """``(nin, nout, embedding_dim, hidden_dim, num_layers)`` of a Bepler
+    state dict."""
+    nin, emb = tuple(sd["embed.weight"].shape)
+    nl = len({k.split(".")[1] for k in sd if k.startswith("rnn.")})
+    return (int(nin), int(sd["linear.weight"].shape[0]), int(emb),
+            int(sd["rnn.0.weight_hh_l0"].shape[1]), nl)
+
+
+def load_bilm(path, **kw):
+    """``(BiLM, state_dict)`` of a Bepler tied-BiLM checkpoint file
+    (``lm.py:149-162``), read with ``weights_only=True``; a whole-module
+    pickle (when its classes are allow-listed) is unwrapped.  ``kw`` goes
+    to :class:`BiLM` (``device``, ``dtype``); a CUDA ``device`` sets
+    ``exact_cuda_math``'s flags."""
+    if torch.device(kw.get("device") or "cpu").type == "cuda":
+        exact_cuda_math()
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):           # whole-module pickles
+        sd = sd.state_dict()
+    nin, nout, emb, hidden, nl = _bilm_geometry(sd)
+    model = BiLM(nin=nin, nout=nout, embedding_dim=emb, hidden_dim=hidden,
+                 num_layers=nl, **kw)
+    return model, convert_bepler_bilm(sd, num_layers=nl)
 
 
 class TokenEmbed(nn.Module):
@@ -227,3 +359,37 @@ class T5Encoder(nn.Module):
                                                           position_bias)
         x = self.ln_final(x)
         return x * mask[..., None].to(x.dtype)
+
+
+def convert_hf_t5_encoder(state_dict, cfg: T5Config):
+    """A :class:`T5Encoder` ``state_dict`` from a HuggingFace
+    ``T5EncoderModel`` state dict (``lm.py:336-374``), through the JAX
+    package's flax tree: ``shared.weight`` -> ``embed.weight``,
+    ``encoder.block.{i}.layer.0.SelfAttention.{q,k,v,o}`` ->
+    ``block{i}.attn.*``, the relative-position bias of block 0, the two
+    layer norms, ``DenseReluDense.{wi | wi_0, wi_1}, wo`` -> ``ff.*`` and
+    ``encoder.final_layer_norm`` -> ``ln_final``."""
+    from deepblast_torch.models.convert import hf_t5_encoder_tree, \
+        params_from_jax
+    return params_from_jax(hf_t5_encoder_tree(state_dict, cfg))
+
+
+def load_prot_t5(path, cfg: T5Config = None):
+    """``(T5Encoder, state_dict)`` of a local HF checkpoint directory (its
+    ``pytorch_model.bin``) or file, read with ``weights_only=True``
+    (``lm.py:377-387``).  ``cfg`` defaults to the geometry the state dict
+    has (``convert.infer_t5_config``: ProtT5-XL for Rostlab's weights,
+    where the JAX package always assumes ProtT5-XL), float32 compute."""
+    from deepblast_torch.models.convert import infer_t5_config
+    f = os.path.join(path, "pytorch_model.bin") if os.path.isdir(path) \
+        else path
+    sd = torch.load(f, map_location="cpu", weights_only=True)
+    cfg = cfg or infer_t5_config(sd)
+    return T5Encoder(cfg), convert_hf_t5_encoder(sd, cfg)
+
+
+#: ``lm.py:391-394``
+pretrained_language_models = {
+    "bilstm": BiLM,
+    "prot_t5_xl": T5Config.prot_t5_xl,
+}

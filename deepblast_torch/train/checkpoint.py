@@ -4,8 +4,12 @@
 A model directory holds ``config.json`` — the
 :class:`~deepblast_torch.train.trainer.DeepBLASTConfig` fields, plus the
 T5 geometry and compute dtype under ``"t5"`` when the language model is a
-T5 encoder (:func:`save_config`) — and ``model.pt`` with the ``lm`` and
-``aligner`` state dicts (:func:`save_model`).  Training adds
+T5 encoder, or the BiLM's geometry and the name of its tokenizer
+(``data.alphabet.TOKENIZERS``) under ``"bilm"`` when it is a BiLM
+(:func:`save_config`) — and ``model.pt`` with the ``lm`` and ``aligner``
+state dicts (:func:`save_model`).  So a model trained from an LM artifact
+reloads with that LM and its tokenizer: a Bepler-geometry BiLM reads
+Uniprot21 ids, not the ProtT5 ids of the config's own BiLM.  Training adds
 ``checkpoints/``, where a :class:`Checkpointer` keeps the best *k*
 training states by a monitored metric, one subdirectory per step with
 ``state.pt`` (``DeepBLAST.train_state``: step, aligner, with ``finetune``
@@ -26,7 +30,8 @@ import shutil
 
 import torch
 
-from deepblast_torch.models.lm import T5Config, T5Encoder
+from deepblast_torch.data.alphabet import TOKENIZERS, ProtT5Tokenizer
+from deepblast_torch.models.lm import BiLM, T5Config, T5Encoder
 from deepblast_torch.train.trainer import (DeepBLAST, DeepBLASTConfig,
                                            resolve_device)
 
@@ -92,6 +97,18 @@ def save_config(model: DeepBLAST, directory):
     cfg = dataclasses.asdict(model.config)
     if isinstance(model.lm, T5Encoder):
         cfg["t5"] = dataclasses.asdict(model.lm.cfg)
+    if isinstance(model.lm, BiLM):
+        names = [k for k, v in TOKENIZERS.items()
+                 if type(model.tokenizer) is v]
+        if not names:
+            raise ValueError(f"config.json cannot name the tokenizer "
+                             f"{type(model.tokenizer).__name__}: expected "
+                             f"one of {sorted(TOKENIZERS)}")
+        lm = model.lm
+        cfg["bilm"] = dict(nin=lm.nin, nout=lm.nout,
+                           embedding_dim=lm.embedding_dim,
+                           hidden_dim=lm.hidden_dim,
+                           num_layers=lm.num_layers, tokenizer=names[0])
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2)
 
@@ -104,18 +121,57 @@ def save_model(model: DeepBLAST, directory):
                os.path.join(directory, "model.pt"))
 
 
+def _bilm_and_tokenizer(config, block, tokenizer, device):
+    """The BiLM of a config's ``"bilm"`` block and the tokenizer it
+    names (a ``tokenizer`` passed must be of that class).  Without the
+    block (a JAX config.json): the config's own BiLM (``DeepBLAST``'s
+    ``_build_lm``) and the ProtT5 tokenizer, as the JAX ``load_model``
+    builds them, refused when the ProtT5 ids do not fit ``vocab_size``:
+    then the JAX model was trained from a BiLM artifact, whose geometry
+    and Uniprot21 ids its config.json does not record (ROADMAP.md C)."""
+    if block is None:
+        tokenizer = tokenizer or ProtT5Tokenizer()
+        top = max(tokenizer.vocab.values()) \
+            if isinstance(tokenizer, ProtT5Tokenizer) else -1
+        if top >= config.vocab_size:
+            raise ValueError(
+                f"config.json sets lm_type 'bilstm' and vocab_size "
+                f"{config.vocab_size} without the port's 'bilm' block: the "
+                f"ProtT5 ids reach {top}, past the BiLM's table.  A "
+                "JAX model trained from a BiLM artifact (--pretrain-path) "
+                "writes such a config, and neither package can rebuild its "
+                "LM or its Uniprot21 tokenizer from it; retrain with the "
+                "port, which records both")
+        return None, tokenizer
+    want = TOKENIZERS[block["tokenizer"]]
+    if tokenizer is not None and type(tokenizer) is not want:
+        raise ValueError(f"this model's BiLM reads the ids of "
+                         f"{want.__name__}, not of "
+                         f"{type(tokenizer).__name__}")
+    lm = BiLM(**{k: v for k, v in block.items() if k != "tokenizer"},
+              device=device)
+    return lm, tokenizer or want()
+
+
 def load_model(directory, device=None, tokenizer=None, step=None):
     """Rebuild a :class:`DeepBLAST` from a model directory on ``device``
-    (CUDA unless asked otherwise).  Without ``model.pt`` the weights come
-    from ``init()`` with the config's seed; with checkpoints, the aligner,
-    the LM of a ``finetune`` run and the training state come from the best
-    one (or ``step``)."""
+    (CUDA unless asked otherwise), its LM from the ``"t5"`` or ``"bilm"``
+    block of ``config.json`` when there is one, with the tokenizer that
+    block names (:func:`_bilm_and_tokenizer`).  Without ``model.pt`` the
+    weights come from ``init()`` with the config's seed; with checkpoints,
+    the aligner, the LM of a ``finetune`` run and the training state come
+    from the best one (or ``step``)."""
     device = resolve_device(device)
     with open(os.path.join(directory, "config.json")) as f:
         raw = f.read()
     config = DeepBLASTConfig.from_json(raw)
-    t5 = json.loads(raw).get("t5")
-    lm = T5Encoder(T5Config(**t5), device=device) if t5 else None
+    blocks = json.loads(raw)
+    lm = None
+    if blocks.get("t5"):
+        lm = T5Encoder(T5Config(**blocks["t5"]), device=device)
+    elif config.lm_type == "bilstm":
+        lm, tokenizer = _bilm_and_tokenizer(config, blocks.get("bilm"),
+                                            tokenizer, device)
     weights = os.path.join(directory, "model.pt")
     state = torch.load(weights, map_location=device, weights_only=True) \
         if os.path.exists(weights) else None

@@ -49,6 +49,15 @@ The other trainer options of the JAX package (``trainer.py:86-99``):
   over through as single steps.  The steps and the dropout generator run
   in the same order as at K = 1, so the trajectory is the same.
 
+The language model (``lm_type``, ``trainer.py:241-275``): ``"embed"``, a
+token embedding; ``"prot_t5"``, ProtT5-XL geometry; ``"bilstm"``, a
+:class:`~deepblast_torch.models.lm.BiLM` of hidden width
+``embedding_dim // 4`` over ``vocab_size`` ids, float32 whatever
+``precision`` is, whose ``encode`` features follow a one-hot identity
+channel of the token (``bilstm_onehot_channel``), so the heads read
+``vocab_size + 4 * (embedding_dim // 4)`` features.  An LM passed in (an
+artifact's, ``cli.common.build_model``) keeps its own geometry.
+
 The DP storage menu (``ops/menu.py``) follows the JAX package's config
 (``trainer.py:100-124``, ``:208-239``): ``dp_bf16_residuals`` ("auto": on
 for the pallas backends, which includes the default ``pallas_bm``; the Q
@@ -59,10 +68,11 @@ run the training menu, ``align`` the decode menu.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; without a CUDA device and without ``device="cpu"`` they raise.
-On CUDA the port turns TF32 off for matmuls and cuDNN convolutions, and
-the reduced-precision split-K reductions of bf16 and fp16 matmuls
-(process-wide PyTorch flags), so a float32 product is float32 and a bf16
-or fp16 one accumulates in float32, as on the TPU.  Dropout masks come
+On CUDA the port turns TF32 off for matmuls and cuDNN (convolutions and
+the LSTMs), and the reduced-precision split-K reductions of bf16 and fp16
+matmuls (process-wide PyTorch flags, ``models.exact_cuda_math``), so a
+float32 product is float32 and a bf16 or fp16 one accumulates in float32,
+as on the TPU.  Dropout masks come
 from a ``torch.Generator`` seeded with ``seed + 1``.
 """
 
@@ -82,7 +92,9 @@ from deepblast_torch.data.dataset import TMAlignDataset, make_batches
 from deepblast_torch.data.state_utils import revstate_f, states2edges
 from deepblast_torch.eval.score import ROC_COLUMNS, filter_gaps, roc_edges
 from deepblast_torch.models.aligner import NeuralAligner
-from deepblast_torch.models.lm import RMSNorm, T5Config, T5Encoder, TokenEmbed
+from deepblast_torch.models import exact_cuda_math
+from deepblast_torch.models.lm import (BiLM, RMSNorm, T5Config, T5Encoder,
+                                       TokenEmbed)
 from deepblast_torch.ops import dp as dp_ops
 from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.train.losses import get_loss
@@ -93,11 +105,11 @@ __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 
 #: JAX config.json fields that change nothing the port computes or trains:
-#: the share of validation pairs drawn as figures (no figures yet), the
-#: tensor-parallel mesh (one device), and the BiLM feature schema (BiLM
-#: itself is refused by ``lm_type``)
-_DROPPED_FIELDS = ("visualization_fraction", "tp", "use_tp_params",
-                   "bilstm_onehot_channel")
+#: the share of validation pairs drawn as figures (no figures yet) and the
+#: tensor-parallel mesh (one device)
+_DROPPED_FIELDS = ("visualization_fraction", "tp", "use_tp_params")
+#: the port's own LM blocks of config.json (read by ``load_model``)
+_LM_BLOCKS = ("t5", "bilm")
 
 #: ``precision`` -> the aligner's matmul dtype (None: float32) and the T5
 #: compute dtype (``trainer.py:158-159``)
@@ -121,9 +133,13 @@ class DeepBLASTConfig:
     alignment_mode: str = "needleman-wunsch"
     operator: str = "softmax"
     backend: Optional[str] = None   # DP passes: None/pallas_bm, pallas(_long)
-    lm_type: str = "embed"          # embed | prot_t5
+    lm_type: str = "embed"          # embed | bilstm | prot_t5
     vocab_size: int = 32
     finetune: bool = False          # train the LM with the aligner
+    # bilstm: a one-hot identity channel before the BiLM's features (the
+    # JAX package's schema marker, trainer.py:66-74); false rebuilds the
+    # channel-free heads of older JAX checkpoints
+    bilstm_onehot_channel: bool = True
     # optimisation
     batch_size: int = 32
     learning_rate: float = 5e-5
@@ -153,17 +169,26 @@ class DeepBLASTConfig:
     def from_json(cls, s):
         """The config of a ``config.json`` written by the port or by the
         JAX package.  A field whose value the port does not take (e.g.
-        ``"lm_type": "bilstm"``, ``"layer_type": "rnn"``) raises
-        ``ValueError`` naming its ROADMAP.md item, as does a field neither
+        ``"backend": "scan"``) raises ``ValueError`` naming its ROADMAP.md item, as does a field neither
         package writes.  Dropped: the fields of
         ``_DROPPED_FIELDS``, which change nothing the port computes or
-        trains, and ``"t5"``, the port's own T5 geometry (read by
-        ``load_model``)."""
+        trains, and ``"t5"`` / ``"bilm"``, the port's own LM geometry
+        (read by ``load_model``).  A bilstm config without
+        ``bilstm_onehot_channel`` predates the channel and is refused with
+        the JAX package's message (``trainer.py:146-153``)."""
         d = json.loads(s)
+        if d.get("lm_type") == "bilstm" and "bilstm_onehot_channel" not in d:
+            raise ValueError(
+                "this bilstm checkpoint predates the one-hot identity "
+                "channel added to the LM features (head input dim changed "
+                "from embedding_dim to embedding_dim + vocab_size), so its "
+                "head weights cannot load into the current architecture. "
+                "Add '\"bilstm_onehot_channel\": false' to its config.json "
+                "to rebuild the pre-change architecture, or re-train.")
         names = {f.name for f in dataclasses.fields(cls)}
         kept = {}
         for k, v in d.items():
-            if k in _DROPPED_FIELDS or k == "t5":
+            if k in _DROPPED_FIELDS or k in _LM_BLOCKS:
                 continue
             if k in UNPORTED:
                 check_ported(k, v, f"config.json field {k!r} =")
@@ -188,11 +213,18 @@ def resolve_device(device=None):
 
 
 def init_weights(module, generator):
-    """Seeded random weights: Linear/Conv normal with std
+    """Seeded random weights: Linear/Conv and LSTM/GRU normal with std
     ``1/sqrt(fan_in)`` and zero bias, embeddings standard normal, the T5
     relative-position bias normal(0.02), norms one."""
     for name, m in module.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.LSTM, nn.GRU)):
+            for pname, p in m.named_parameters():
+                if pname.startswith("weight"):
+                    nn.init.normal_(p, 0.0, 1.0 / math.sqrt(p.shape[1]),
+                                    generator=generator)
+                else:
+                    nn.init.zeros_(p)
+        elif isinstance(m, (nn.Linear, nn.Conv1d)):
             fan_in = m.weight[0].numel()
             nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(fan_in),
                             generator=generator)
@@ -211,7 +243,8 @@ class DeepBLAST:
 
     ``lm`` defaults to the model of ``config.lm_type`` (ProtT5-XL geometry
     for ``"prot_t5"``); ``lm_params`` is a ``state_dict`` for it (e.g. from
-    :func:`deepblast_torch.models.convert.params_from_jax`)."""
+    :func:`deepblast_torch.models.convert.params_from_jax`).  The heads'
+    input width is the LM's feature width (:meth:`_lm_width`)."""
 
     def __init__(self, config: DeepBLASTConfig, tokenizer=None, lm=None,
                  lm_params=None, device=None):
@@ -224,11 +257,7 @@ class DeepBLAST:
         self.config = config
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            matmul = torch.backends.cuda.matmul
-            matmul.allow_bf16_reduced_precision_reduction = False
-            matmul.allow_fp16_reduced_precision_reduction = False
+            exact_cuda_math()
         self.tokenizer = tokenizer or ProtT5Tokenizer()
         self.lm = (lm if lm is not None else self._build_lm()).to(
             self.device).eval()
@@ -239,7 +268,7 @@ class DeepBLAST:
         self.dp_decode_dtypes = self._dp_decode_dtype_menu(config,
                                                            self.dp_dtypes)
         self.aligner = NeuralAligner(
-            embedding_dim=config.embedding_dim,
+            embedding_dim=self._lm_width(),
             hidden_dim=config.hidden_dim,
             layers=config.layers,
             k_size=config.k_size,
@@ -296,10 +325,27 @@ class DeepBLAST:
         if c.lm_type == "embed":
             return TokenEmbed(c.vocab_size, c.embedding_dim,
                               device=self.device)
+        if c.lm_type == "bilstm":
+            hidden = c.embedding_dim // 4
+            return BiLM(nin=c.vocab_size, nout=c.vocab_size - 1,
+                        embedding_dim=hidden, hidden_dim=hidden, num_layers=2,
+                        device=self.device)
         if c.lm_type == "prot_t5":
             return T5Encoder(T5Config.prot_t5_xl(
                 dtype=_PRECISION_NAMES[c.precision]), device=self.device)
-        raise ValueError(f"lm_type {c.lm_type!r} is not ported")
+        raise ValueError(f"unknown lm_type {c.lm_type!r}")
+
+    def _lm_width(self):
+        """The width of the features ``_lm_apply`` gives the heads, which
+        the JAX heads infer from them: a BiLM's (and its one-hot
+        channel's), a T5's ``d_model``, else ``config.embedding_dim``."""
+        if isinstance(self.lm, BiLM):
+            return self.lm.hidden_size + (
+                self.config.vocab_size
+                if self.config.bilstm_onehot_channel else 0)
+        if isinstance(self.lm, T5Encoder):
+            return self.lm.cfg.d_model
+        return self.config.embedding_dim
 
     def init(self, generator=None):
         """Seeded random weights on the model's device (the language model
@@ -320,6 +366,16 @@ class DeepBLAST:
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
 
     def _lm_apply(self, tokens, lengths):
+        if isinstance(self.lm, BiLM):
+            # the features at position i never see token i (a cloze
+            # contract): the one-hot identity channel gives the heads the
+            # residue itself (trainer.py:256-275)
+            feats = self.lm.encode(tokens, lengths)
+            if not self.config.bilstm_onehot_channel:
+                return feats
+            ids = torch.arange(self.config.vocab_size, device=tokens.device)
+            onehot = (tokens[..., None] == ids).to(feats.dtype)
+            return torch.cat([onehot, feats], dim=-1)
         if isinstance(self.lm, T5Encoder):
             L = tokens.shape[1]
             mask = torch.arange(L, device=tokens.device)[None, :] \
@@ -329,8 +385,11 @@ class DeepBLAST:
 
     def _embeddings(self, batch, train=False):
         """LM embeddings of both sides: under ``no_grad`` unless ``train``
-        and ``finetune`` (``trainer.py:326-336``)."""
-        with torch.set_grad_enabled(train and self.config.finetune):
+        and ``finetune`` (``trainer.py:326-336``), and then with the LM in
+        train mode (no LM has dropout; cuDNN's LSTM backward needs it)."""
+        grad = train and self.config.finetune
+        self.lm.train(grad)
+        with torch.set_grad_enabled(grad):
             hx = self._lm_apply(batch["x"], batch["x_len"])
             hy = self._lm_apply(batch["y"], batch["y_len"])
         return hx, hy
@@ -377,11 +436,13 @@ class DeepBLAST:
 
     def _trained(self):
         """The parameters the optimizer updates: the aligner's, then with
-        ``finetune`` the LM's (``trainer.py:316-320``)."""
+        ``finetune`` the LM's (``trainer.py:316-320``), but for the frozen
+        ones (an LSTM's second bias, which flax's cell does not have:
+        ``heads.flax_biases``)."""
         params = list(self.aligner.parameters())
         if self.config.finetune:
             params += list(self.lm.parameters())
-        return params
+        return [p for p in params if p.requires_grad]
 
     def _build_optimizer(self):
         """AdamW over the trained parameters with optax's defaults, its rate

@@ -15,8 +15,6 @@ __all__ = ["UNPORTED", "check_ported"]
 
 #: option -> (the values the port takes, ROADMAP.md item)
 UNPORTED = {
-    "lm_type": (("embed", "prot_t5"), "queue A item 2 (BiLM)"),
-    "layer_type": (("cnn",), "queue A item 2 (the RNN head)"),
     "backend": (tuple(BACKENDS), "queue A item 10 (the scan backend, "
                                  "ops/dp_scan.py)"),
     "nodes": ((1,), "queue A item 5 (data parallel)"),
@@ -25,7 +23,6 @@ UNPORTED = {
     "tp": ((1,), "queue A item 5 (data parallel)"),
     "visualization_fraction": ((0.0,), "queue A item 7 (visualisations "
                                        "and TensorBoard)"),
-    "pretrain_path": ((None,), "queue A item 8 (HF ProtT5 weights)"),
 }
 
 

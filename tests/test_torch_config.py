@@ -3,10 +3,11 @@ fields (``dp_bf16_residuals``, ``dp_i16_streams``, ``dp_decode_menu``) and
 the menus they resolve to, ``config.json`` in both directions,
 ``cli.train``'s menu flags, ``load_model`` taking a JAX ``config.json``
 that sets a trainer option (``finetune``, ``precision``, ``grad_accum``,
-``steps_per_dispatch``), and ``DeepBLASTConfig.from_json`` refusing a
-JAX ``config.json`` whose options the port does not have (it used to drop
-them without a word, ROADMAP.md queue C).  Everything is exact: no
-numbers are compared.
+``steps_per_dispatch``) or the BiLM and the RNN head (``lm_type="bilstm"``,
+``layer_type="rnn"``, ROADMAP A2), and ``DeepBLASTConfig.from_json``
+refusing a JAX ``config.json`` whose options the port does not have (it
+used to drop them without a word, ROADMAP.md queue C).  Everything is
+exact: no numbers are compared.
 """
 
 import argparse
@@ -18,6 +19,9 @@ import torch
 
 from deepblast_torch.cli import common as tcommon
 from deepblast_torch.cli import train as ttrain
+from deepblast_torch.data.alphabet import ProtT5Tokenizer
+from deepblast_torch.models import heads as theads
+from deepblast_torch.models import lm as tlm
 from deepblast_torch.ops import dp_ref
 from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.train import trainer as ttrainer
@@ -90,10 +94,15 @@ def test_auto_is_on_for_the_default_backend():
 
 @pytest.mark.parametrize("field,value", [
     ("finetune", True), ("precision", "bf16"), ("precision", "16"),
-    ("grad_accum", 2), ("steps_per_dispatch", 4)])
+    ("grad_accum", 2), ("steps_per_dispatch", 4), ("lm_type", "bilstm"),
+    ("layer_type", "rnn")])
 def test_load_model_takes_the_trainer_options(tmp_path, field, value):
     """A JAX ``config.json`` that sets one of the trainer options (ROADMAP
-    A1) loads, and the value arrives in the port's config and model."""
+    A1), the BiLM or the RNN head (A2) loads, and the value arrives in the
+    port's config and model: the JAX trainer's BiLM geometry (hidden
+    ``embedding_dim // 4``, ``vocab_size`` ids, the one-hot channel before
+    its features) with the ProtT5 tokenizer, as the JAX ``load_model``
+    builds them; bidirectional LSTM heads."""
     with open(tmp_path / "config.json", "w") as f:
         f.write(jtrainer.DeepBLASTConfig(**dict(TINY, **{field: value}))
                 .to_json())
@@ -102,11 +111,37 @@ def test_load_model_takes_the_trainer_options(tmp_path, field, value):
     if field == "precision":
         assert model.aligner.matmul_dtype == \
             ttrainer._PRECISION_DTYPES[value]
+    if field == "lm_type":
+        lm = model.lm
+        assert isinstance(lm, tlm.BiLM) and model.config.bilstm_onehot_channel
+        assert (lm.nin, lm.nout, lm.embedding_dim, lm.hidden_dim,
+                lm.num_layers) == (32, 31, 4, 4, 2)
+        assert isinstance(model.tokenizer, ProtT5Tokenizer)
+        assert model.aligner.match_embedding.embed.in_features == 32 + 16
+    if field == "layer_type":
+        for head in (model.aligner.match_embedding,
+                     model.aligner.gap_embedding):
+            assert isinstance(head, theads.StackedRNN)
+            assert isinstance(head.bwd1, torch.nn.LSTM)
+
+
+def test_from_json_refuses_a_bilstm_config_without_the_channel_marker():
+    """A JAX bilstm ``config.json`` from before the one-hot channel (no
+    ``bilstm_onehot_channel``) is refused with the JAX package's message;
+    with the marker false the channel-free heads are rebuilt."""
+    raw = json.loads(jtrainer.DeepBLASTConfig(
+        **dict(TINY, lm_type="bilstm")).to_json())
+    raw.pop("bilstm_onehot_channel")
+    for cls in (ttrainer.DeepBLASTConfig, jtrainer.DeepBLASTConfig):
+        with pytest.raises(ValueError, match="predates the one-hot"):
+            cls.from_json(json.dumps(raw))
+    raw["bilstm_onehot_channel"] = False
+    model = ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig.from_json(
+        json.dumps(raw)), device="cpu")
+    assert model.aligner.match_embedding.embed.in_features == 16
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("lm_type", "bilstm", "queue A item 2"),
-    ("layer_type", "rnn", "queue A item 2"),
     ("backend", "scan", "queue A item 10"),
 ])
 def test_load_model_refuses_unported_jax_fields(tmp_path, field, value,
@@ -115,8 +150,6 @@ def test_load_model_refuses_unported_jax_fields(tmp_path, field, value,
     naming the ROADMAP.md item (before, ``from_json`` dropped it and the
     port computed or trained something else than the JAX model)."""
     cfg = dict(TINY, **{field: value})
-    if field == "lm_type":
-        cfg["bilstm_onehot_channel"] = True
     with open(tmp_path / "config.json", "w") as f:
         f.write(jtrainer.DeepBLASTConfig(**cfg).to_json())
     with pytest.raises(ValueError,

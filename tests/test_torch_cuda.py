@@ -43,7 +43,12 @@ S past 1,024 slots, whole diagonals of padding, the wider strips, S at
 each kernel's limit) in float32 and every storage form
 (``chip_smoke.check_passes``), the skew also at the long path's shapes,
 and one slot past its limit each wrapper raises the error that names it.
+The BiLM and the RNN heads (cuDNN's LSTM, TF32 off) equal their CPU run to
+1e-4 of scale, gradients included, and torch's second LSTM bias stays
+zero through AdamW steps on the card.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -614,3 +619,88 @@ def test_skew_at_long_shapes(cuda, B, N, M):
                              (torch.int16, 2047.9375)):
         for got, z in zip(dp_cuda.skew_pair(x, y, out_dtype, scale), (x, y)):
             assert torch.equal(got, plain_skew(z, out_dtype, scale))
+
+
+# -- the BiLM and the RNN head (cuDNN's LSTM; ROADMAP A2) --------------------
+
+def test_bilm_and_rnn_heads_match_the_cpu(cuda):
+    """``chip_smoke.check_recurrent``: the BiLM's features and the RNN
+    heads' outputs on the card = on the CPU to 1e-4 of scale, ragged
+    lengths; and the heads' gradients (both sides) to 1e-4 of scale."""
+    from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
+    model = DeepBLAST(DeepBLASTConfig(
+        lm_type="bilstm", layer_type="rnn", embedding_dim=64, hidden_dim=32,
+        dropout=0.0), device="cuda").init()
+    errs = {}
+    chip_smoke.check_recurrent(model, ["ACDEFGHIKLMNPQ", "MKTAYIAKQRQISF",
+                                       "W"], errs)
+    assert errs["bilm_cpu"] <= 1e-4 and errs["rnn_head_cpu"] <= 1e-4
+    head = model.aligner.match_embedding
+    cpu = copy.deepcopy(head).cpu()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((3, 17, head.embed.in_features), generator=g)
+    n = torch.tensor([17, 9, 1])
+    mask = (torch.arange(17)[None, :] < n[:, None])[..., None]
+    for m, dev in ((head, "cuda"), (cpu, "cpu")):
+        m.train()       # cuDNN's LSTM backward needs it; dropout is 0
+        (m(x.to(dev), n.to(dev)) * mask.to(dev)).square().sum().backward()
+    for (k, p), q in zip(head.named_parameters(), cpu.parameters()):
+        if not p.requires_grad:     # torch's second LSTM bias, frozen
+            assert p.grad is None and q.grad is None, k
+            continue
+        scale = q.grad.abs().max().item()
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-4 * scale, k
+
+
+def test_lstm_second_bias_stays_zero_on_the_card(cuda):
+    """torch's second LSTM bias (flax has one) stays frozen at zero on the
+    card through AdamW steps, in a deep copy too; the weights stay in one
+    cuDNN buffer (no compaction warning)."""
+    import warnings
+    from deepblast_torch.models.heads import StackedRNN
+    head = StackedRNN(12, 8, 6, device="cuda")
+    assert not any(m.bias_ih_l0.requires_grad for m in
+                   copy.deepcopy(head).modules()
+                   if isinstance(m, torch.nn.LSTM))
+    opt = torch.optim.AdamW(head.parameters(), lr=1e-2)
+    x = torch.randn((2, 9, 12), device="cuda")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            opt.zero_grad()
+            head(x, torch.tensor([9, 4], device="cuda")).sum().backward()
+            opt.step()
+    assert not [w for w in seen if "contiguous chunk" in str(w.message)]
+    for name in ("fwd0", "bwd0", "fwd1", "bwd1"):
+        rnn = getattr(head, name)
+        assert rnn.bias_ih_l0.abs().max().item() == 0.0, name
+        assert rnn.bias_hh_l0.abs().max().item() > 0.0, name
+
+
+def test_gru_head_matches_the_cpu(cuda):
+    """The GRU head (flax's biases kept by ``FlaxGRU.forward``) on the card
+    = on the CPU to 1e-4 of scale, outputs and gradients, in a deep copy
+    too; its hidden-side reset and update biases get no gradient."""
+    from deepblast_torch.models import exact_cuda_math
+    from deepblast_torch.models.heads import StackedRNN
+    exact_cuda_math()
+    head = StackedRNN(12, 8, 6, rnn_type="gru")
+    pair = [copy.deepcopy(head).cuda(), copy.deepcopy(head)]
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 11, 12), generator=g)
+    n = torch.tensor([11, 5, 1])
+    mask = (torch.arange(11)[None, :] < n[:, None])[..., None]
+    outs = []
+    for m in pair:
+        dev = next(m.parameters()).device
+        m.train()
+        out = m(x.to(dev), n.to(dev)) * mask.to(dev)
+        out.square().sum().backward()
+        outs.append(out.detach().cpu())
+    scale = outs[1].abs().max().item()
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4 * scale
+    for (k, p), (_, q) in zip(*(m.named_parameters() for m in pair)):
+        scale = q.grad.abs().max().item()
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-4 * scale, k
+        if k.endswith("bias_hh_l0"):
+            assert p.grad[:16].abs().max().item() == 0.0, k

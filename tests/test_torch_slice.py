@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepblast_torch.cli import common as tcommon
 from deepblast_torch.cli import search as tsearch
 from deepblast_torch.data.state_utils import pad_sequences
 from deepblast_torch.models import lm as tlm
@@ -33,7 +34,8 @@ from deepblast_tpu.models import lm as jlm
 from deepblast_tpu.train import trainer as jtrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepblast_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepblast_tpu",
+             "transformers"}
 # real protein pairs of the JAX package's golden fixtures
 PAIRS = [
     ("HECDRKTCDESFSTKGNLRVHKLGH", "LKCSGCGKNFKSQYAYKRHEQTH"),
@@ -197,6 +199,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrainer.DeepBLAST(ttrainer.DeepBLASTConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcommon.build_model(ttrainer.DeepBLASTConfig(lm_type="bilstm"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
