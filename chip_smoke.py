@@ -198,6 +198,23 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              int16 value), and in turns the decode in float32 / bf16
              residuals / the fast menu, the DP step in float32 / bf16
              residuals, and the pair skew against two single skews.
+8. cli_bench — ``python -m deepblast_torch.cli.benchmark`` in process
+             (``main``), ``--iters 3``: (a) every depth (``fwd``,
+             ``fwd+bwd``, ``decode``, ``train``) at the bench shape, nw,
+             ``--dtype-menu d-bf16``, and ``--backend pallas --depth
+             decode`` at 8 x 4096 x 4096 (its expected alignment), each
+             JSON record printed (each shape drawn once); counters zeroed
+             before each record and read after it: every kernel of the
+             depth (``CLI_BENCH_RUNS``) must have launched; (b) its decode
+             (``time_op``: CUDA events around windows of back-to-back
+             calls) within 10% of phase 7's d_bf16 decode (``cuda_ms``);
+             (c) ``utils.profiling.trace`` (``torch.profiler``; the Chrome
+             trace goes to a temporary directory) of 3 ``train``-depth
+             steps and of 3 of phase 7's DP steps (with a cross entropy)
+             at the bench shape under d-bf16: each step's device time, the
+             card's busy share of the host clock, the shares in
+             ``csrc/dp_kernels.cu``'s kernels and in everything else, and
+             the 10 device operations with the most time.
 
 The line before the last is the kernels JSON, one entry per kernel and
 per bf16 Q instance (``<name>_bf16``: its launches are those of the bf16
@@ -3230,7 +3247,7 @@ def phase_bench(seed, card):
         log(f"phase bench: {name} at (256, 512, 512) nw softmax: "
             f"{min(v):.4f} ms (turns {[round(x, 4) for x in v]}) = "
             f"{B / min(v) * 1e3:.1f} {per} [{card}]")
-    return out
+    return out, min(turns["decode d_bf16"])
 
 
 def log_registers(report):
@@ -3383,6 +3400,138 @@ def menu_forms(theta, A, ln, lm, E, zt, za, band, per_pair, card, report):
             f"{ops:.4f} ms) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the benchmark entry point
+# ---------------------------------------------------------------------------
+
+#: the kernels each record of phase ``cli_bench`` must launch
+CLI_BENCH_RUNS = [
+    (["--depth", "fwd"], ("skew_pair", "forward_score")),
+    (["--depth", "fwd+bwd"], ("skew_pair", "forward", "backward", "unskew")),
+    (["--depth", "decode"], ("skew_pair", "forward", "backward")),
+    (["--depth", "train"], TRAIN_KERNELS),
+    (["--backend", "pallas", "--depth", "decode", "--batch-size", "8",
+      "--length", str(LONG_LEN)], ("skew", "forward_q", "backward_q",
+                                   "unskew")),
+]
+#: kernel names of ``csrc/dp_kernels.cu`` in a profiler trace
+DP_KERNEL_NAME = re.compile(r"\b(skew|skew_pair|unskew|forward|backward|"
+                            r"adjoint_forward|adjoint_backward)(_q)?_kernel\b")
+
+
+def trace_step(label, step, card, errs, top=10):
+    """Trace 3 calls of ``step`` (after one untraced) with
+    ``utils.profiling.trace`` into a temporary directory, and log the
+    step's device time, the card's busy share of the host clock, the share
+    of ``csrc/dp_kernels.cu``'s kernels and the ``top`` device operations
+    with the most time."""
+    from deepblast_torch.utils import profiling
+    step()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev) / 1e3 / 3   # ms
+    if not total:
+        errs.append(f"{label}: the profiler recorded no device time")
+        return
+    dp = sum(e.self_device_time_total for e in dev
+             if DP_KERNEL_NAME.search(e.key)) / 1e3 / 3
+    log(f"phase cli_bench: trace of {label}: a step {total:.4f} ms of "
+        f"device time ({3 * total / wall:.1%} of {wall / 3:.4f} ms of host "
+        f"clock): dp_kernels.cu {dp:.4f} ms ({dp / total:.1%}), everything "
+        f"else {total - dp:.4f} ms ({1 - dp / total:.1%}); chrome trace "
+        f"{trace_bytes} bytes [{card}]")
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    for e in dev[:top]:
+        ms = e.self_device_time_total / 1e3 / 3
+        log(f"phase cli_bench: {label} top device op {ms:.4f} ms a step "
+            f"({ms / total:.1%}, {e.count // 3} a step) "
+            f"{'[dp] ' if DP_KERNEL_NAME.search(e.key) else ''}{e.key[:160]}")
+
+
+def phase_cli_bench(card, decode_ms):
+    """``python -m deepblast_torch.cli.benchmark`` in process: (a) every
+    depth at the bench shape under d-bf16 and the ``pallas`` decode at 8 x
+    4096 x 4096, each record's kernels launched (each shape's inputs drawn
+    once: ``benchmark.inputs`` is cached here, records get copies); (b) its
+    decode against phase 7's (``decode_ms``) within 10%; (c)
+    ``torch.profiler`` traces of 3 ``train``-depth steps and of 3 of phase
+    7's DP steps (``expected_alignment`` + ``backward()`` of a cross
+    entropy) under d-bf16: the device operations with the most time and
+    the DP kernels' share of each step's device time."""
+    from deepblast_torch.cli import benchmark
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.train.losses import matrix_cross_entropy
+    errs, records, drawn = [], {}, {}
+    draw = benchmark.inputs
+
+    def inputs(B, N, M, device):
+        if (B, N, M) not in drawn:
+            drawn[B, N, M] = draw(B, N, M, device)
+        theta, A, (ln, lm) = drawn[B, N, M]
+        return theta.clone(), A.clone(), (ln, lm)
+
+    base = ["--batch-size", "256", "--length", "512", "--mode", "nw",
+            "--dtype-menu", "d-bf16", "--iters", "3"]
+    benchmark.inputs = inputs
+    try:
+        for extra, want in CLI_BENCH_RUNS:
+            out = io.StringIO()
+            dp_cuda.reset_launches()
+            with contextlib.redirect_stdout(out):
+                benchmark.main(base + extra)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in dp_cuda.LAUNCHES.items() if v}
+            rec = json.loads(out.getvalue().splitlines()[-1])
+            records[rec["backend"], rec["depth"]] = rec
+            log(f"phase cli_bench: {json.dumps(rec)}")
+            log(f"phase cli_bench: launches {json.dumps(launches)} [{card}]")
+            missing = [k for k in want if not launches.get(k)]
+            if missing:
+                errs.append(f"{rec['backend']} {rec['depth']}: {missing} "
+                            f"never launched")
+    finally:
+        benchmark.inputs = draw
+    got = records[None, "decode"]["seconds"] * 1e3
+    log(f"phase cli_bench: decode {got:.4f} ms (time_op) against phase "
+        f"bench's {decode_ms:.4f} ms (cuda_ms), ratio {got / decode_ms:.4f} "
+        f"[{card}]")
+    if abs(got / decode_ms - 1) > 0.10:
+        errs.append(f"decode {got:.4f} ms is not within 10% of phase bench's "
+                    f"{decode_ms:.4f} ms")
+
+    # (c) the DP step traced at the bench shape under d-bf16
+    theta, A, lengths = drawn[256, 512, 512]
+    del drawn
+    theta.requires_grad_()
+    A.requires_grad_()
+    menu = benchmark.make_menu("d-bf16")
+    train = benchmark.depth_op("train", lengths, "nw", None, menu)
+    trace_step("3 train-depth steps (256, 512, 512) nw softmax d-bf16",
+               lambda: train(theta, A), card, errs)
+    g = torch.Generator(device=theta.device)
+    g.manual_seed(0)
+    target = (torch.rand(theta.shape, generator=g, device=theta.device)
+              < 1.0 / 512).float()
+    gmask = torch.ones(theta.shape, dtype=torch.bool, device=theta.device)
+
+    def dp_step():
+        aln = dp_ops.expected_alignment(theta, A, lengths, dtypes=menu)
+        matrix_cross_entropy(target, aln, *lengths, gmask).backward()
+    trace_step("3 DP steps with a cross entropy (phase bench's dp_step) "
+               "(256, 512, 512) nw softmax d-bf16", dp_step, card, errs)
+    return errs
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3422,7 +3571,10 @@ def main(argv):
                                           card)
     splits.update(bf16_splits)
     menu, menu_errs = timed("menu", phase_menu, seed, card)
-    bench = timed("bench", phase_bench, seed, card)
+    bench, bench_decode_ms = timed("bench", phase_bench, seed, card)
+    cli_errs = timed("cli_bench", phase_cli_bench, card, bench_decode_ms)
+    if cli_errs:
+        raise AssertionError(f"phase cli_bench: {cli_errs}")
     log(f"seconds per phase {json.dumps(seconds)}")
     log(f"seconds per phase and check (all calls; nested checks count in "
         f"each) {json.dumps(CHECK_SECONDS)}")

@@ -20,7 +20,7 @@ import os
 
 from deepblast_torch.ops.dp import BACKENDS
 from deepblast_torch.train.trainer import DeepBLASTConfig
-from deepblast_torch.unported import UNPORTED, check_ported
+from deepblast_torch.unported import UNPORTED, check_ported, ported_values
 
 __all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
            "config_from_args", "build_model"]
@@ -69,7 +69,7 @@ def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--operator", type=str, default="softmax",
                         choices=["softmax", "sparsemax", "hardmax"])
     parser.add_argument("--backend", type=str, default=None,
-                        choices=[*filter(None, BACKENDS), "scan"],
+                        choices=[*BACKENDS, "scan"],
                         help="DP passes (default: pallas_bm's stored "
                              "differences); pallas and pallas_long store the "
                              "soft-argmax streams and train pairs past the "
@@ -145,8 +145,8 @@ def add_infra_args(parser: argparse.ArgumentParser):
 def config_from_args(args) -> DeepBLASTConfig:
     """The config of a parsed command line; raises ``ValueError`` naming
     the ROADMAP.md item for a flag the port does not have yet."""
-    for dest, (ported, _) in UNPORTED.items():
-        check_ported(dest, getattr(args, dest, ported[0]),
+    for dest in UNPORTED:
+        check_ported(dest, getattr(args, dest, ported_values(dest)[0]),
                      "--" + dest.replace("_", "-"))
     mode = MODE_ALIASES.get(args.alignment_mode, args.alignment_mode)
     return DeepBLASTConfig(

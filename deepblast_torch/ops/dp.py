@@ -14,7 +14,12 @@ PyTorch counterpart of ``deepblast_tpu/ops/dp.py``:
   in the port's layout (``ops/skew.py``), read with :func:`stream_cell`;
   inference only;
 * :func:`traceback`, :func:`traceback_stream` and :func:`_traceback_walk`
-  (``dp.py:399-479``), with the documented border guard (``dp.py:407-412``).
+  (``dp.py:399-479``), with the documented border guard (``dp.py:407-412``);
+* the backend registry, :func:`register_backend`, :func:`get_backend` and
+  :func:`set_default_backend` (``dp.py:151-166``);
+* the decoder façade :class:`AlignmentDecoder`,
+  :class:`NeedlemanWunschDecoder` and :class:`SmithWatermanDecoder`
+  (``dp.py:487-518``), ``nn.Module``s without parameters.
 
 The two ``jax.custom_vjp`` levels become two ``torch.autograd.Function``s:
 ``_Expected`` (forward: skew of theta and A, forward, backward, unskew; backward: skew
@@ -26,9 +31,12 @@ deeper than second order.
 
 The ``backend=`` keyword picks the passes, as the JAX package's backend
 registry does (``dp.py:61-166``; each backend's forward returns an opaque
-residual that only its own reverse passes read):
+residual that only its own reverse passes read).  ``None`` is
+:data:`DEFAULT_BACKEND`, read at every call, which
+:func:`set_default_backend` and ``register_backend(...,
+make_default=True)`` move:
 
-* ``None`` or ``"pallas_bm"`` (:class:`_Residuals`): the forward stores the
+* ``"pallas_bm"``, the default (:class:`_Residuals`): the forward stores the
   differences Dx, Dm and the reverse passes recompute the soft argmax
   from them; a score-only forward; a stream accessor for the traceback;
 * ``"pallas"`` or ``"pallas_long"`` (:class:`_QStreams`): the forward
@@ -82,11 +90,16 @@ from deepblast_torch.ops import dp_cuda, dp_ref
 from deepblast_torch.ops.menu import E_SCALE, DTypeMenu, as_menu
 
 __all__ = [
+    "AlignmentDecoder",
     "BACKENDS",
     "DEFAULT_BACKEND",
     "DTypeMenu",
+    "NeedlemanWunschDecoder",
     "Q_DTYPE",
+    "SmithWatermanDecoder",
     "get_backend",
+    "register_backend",
+    "set_default_backend",
     "alignment_score",
     "expected_alignment",
     "expected_alignment_stream",
@@ -110,6 +123,7 @@ class _Residuals:
     with the storage menu."""
 
     stream = True
+    takes_menu = True
 
     @staticmethod
     def skew_inputs(ops, theta, A, menu):
@@ -160,6 +174,7 @@ class _QStreams:
     other stream float32, the menu ignored."""
 
     stream = False
+    takes_menu = False
 
     @staticmethod
     def skew_inputs(ops, theta, A, menu):
@@ -195,16 +210,39 @@ class _QStreams:
                                       mode=kw["mode"])
 
 
-#: the backend names the port takes, as the JAX package's ``--backend``
-BACKENDS = {None: _Residuals, "pallas_bm": _Residuals, "pallas": _QStreams,
+#: backend name -> its passes (a class like :class:`_Residuals`: ``stream``,
+#: ``takes_menu`` and the static methods ``skew_inputs`` to
+#: ``adjoint_backward``), as the JAX package's ``--backend``;
+#: :func:`register_backend` adds to it
+BACKENDS = {"pallas_bm": _Residuals, "pallas": _QStreams,
             "pallas_long": _QStreams}
-#: the name of the backend ``None`` selects
+#: the name of the backend that ``backend=None`` selects, read at every call
 DEFAULT_BACKEND = "pallas_bm"
 
 
+def register_backend(name, passes, make_default=False):
+    """Add (or replace) backend ``name`` with ``passes``; with
+    ``make_default`` it also becomes :data:`DEFAULT_BACKEND`."""
+    BACKENDS[name] = passes
+    if make_default:
+        set_default_backend(name)
+
+
+def set_default_backend(name):
+    """Make the registered backend ``name`` the one ``backend=None``
+    selects; an unknown name raises ``ValueError``."""
+    global DEFAULT_BACKEND
+    if name not in BACKENDS:
+        raise ValueError(f"unknown DP backend {name!r}; the port has "
+                         f"{sorted(BACKENDS)}")
+    DEFAULT_BACKEND = name
+
+
 def get_backend(name=None):
-    """The passes of backend ``name``; raises ``ValueError`` for a name the
-    port does not have."""
+    """The passes of backend ``name`` (``None``: :data:`DEFAULT_BACKEND`);
+    raises ``ValueError`` for a name the port does not have."""
+    if name is None:
+        name = DEFAULT_BACKEND
     if name in BACKENDS:
         return BACKENDS[name]
     if name == "scan":
@@ -212,7 +250,8 @@ def get_backend(name=None):
                          "deepblast_tpu/ops/dp_scan.py) is not ported to "
                          "deepblast_torch yet: ROADMAP.md queue A item 10")
     raise ValueError(f"unknown DP backend {name!r}; the port has "
-                     f"{sorted(k for k in BACKENDS if k)} and None")
+                     f"{sorted(BACKENDS)} and None (the default, "
+                     f"{DEFAULT_BACKEND!r})")
 
 
 def _lengths(theta, lengths):
@@ -449,3 +488,43 @@ def traceback_stream(stream, n, m, b=0):
                          f"stream of {B} pairs padded to ({N}, {M})")
     flat = s.reshape(-1)[b * K * S + 1:]
     return native.traceback_affine(flat, S + 1, S, n, m)
+
+
+# ---------------------------------------------------------------------------
+# Decoder façade (the reference's nn.Module API, deepblast/nw.py:389-458,
+# deepblast/sw.py:316-384)
+# ---------------------------------------------------------------------------
+
+class AlignmentDecoder(torch.nn.Module):
+    """Score, decode and traceback of one alignment mode, without
+    parameters: calling it gives :func:`alignment_score`."""
+
+    mode = "nw"
+
+    def __init__(self, operator="softmax", backend=None):
+        super().__init__()
+        self.operator = operator
+        self.backend = backend
+
+    def forward(self, theta, A, lengths=None):
+        return alignment_score(theta, A, lengths, mode=self.mode,
+                               operator=self.operator, backend=self.backend)
+
+    def decode(self, theta, A, lengths=None, Et=None, return_gap=False):
+        """:func:`expected_alignment` in this decoder's mode."""
+        return expected_alignment(theta, A, lengths, Et, mode=self.mode,
+                                  operator=self.operator,
+                                  backend=self.backend,
+                                  return_gap=return_gap)
+
+    @staticmethod
+    def traceback(grad):
+        return traceback(grad)
+
+
+class NeedlemanWunschDecoder(AlignmentDecoder):
+    mode = "nw"
+
+
+class SmithWatermanDecoder(AlignmentDecoder):
+    mode = "sw"

@@ -17,7 +17,9 @@ the LM, optimizer and schedule state, with ``grad_accum`` the running
 gradient mean and its count) and ``metrics.json``.  :func:`load_model`
 rebuilds the model from ``model.pt`` and, when ``checkpoints/`` holds any,
 takes the aligner, a finetuned LM and the training state from the best
-checkpoint.
+checkpoint.  A JAX model directory (``deepblast-train``'s orbax
+``checkpoints/``) is refused: ``scripts/torch_import_jax_model.py``
+converts it.
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ from deepblast_torch.train.trainer import (DeepBLAST, DeepBLASTConfig,
                                            resolve_device)
 
 __all__ = ["Checkpointer", "save_config", "save_model", "load_model"]
+
+#: the script that converts a JAX model directory into the port's
+IMPORT_SCRIPT = "scripts/torch_import_jax_model.py"
 
 
 class Checkpointer:
@@ -153,6 +158,26 @@ def _bilm_and_tokenizer(config, block, tokenizer, device):
     return lm, tokenizer or want()
 
 
+def _refuse_orbax(ckpts):
+    """Raise when ``ckpts`` holds a step that the JAX package's orbax
+    ``Checkpointer`` wrote (``_CHECKPOINT_METADATA`` or ``default/``, no
+    ``state.pt``): serving ``init()`` weights in its place would be
+    silent."""
+    if not os.path.isdir(ckpts):
+        return
+    for name in sorted(os.listdir(ckpts)):
+        step = os.path.join(ckpts, name)
+        if name.isdigit() and not os.path.exists(
+                os.path.join(step, "state.pt")) and any(
+                os.path.exists(os.path.join(step, f))
+                for f in ("_CHECKPOINT_METADATA", "default")):
+            raise ValueError(
+                f"{step} is an orbax checkpoint of the JAX package, which "
+                f"deepblast_torch does not read: convert the model "
+                f"directory with python {IMPORT_SCRIPT} "
+                f"{os.path.dirname(ckpts)} <out_dir>")
+
+
 def load_model(directory, device=None, tokenizer=None, step=None):
     """Rebuild a :class:`DeepBLAST` from a model directory on ``device``
     (CUDA unless asked otherwise), its LM from the ``"t5"`` or ``"bilm"``
@@ -160,7 +185,10 @@ def load_model(directory, device=None, tokenizer=None, step=None):
     block names (:func:`_bilm_and_tokenizer`).  Without ``model.pt`` the
     weights come from ``init()`` with the config's seed; with checkpoints,
     the aligner, the LM of a ``finetune`` run and the training state come
-    from the best one (or ``step``)."""
+    from the best one (or ``step``).  Orbax checkpoints (a JAX model
+    directory) raise a ``ValueError`` naming :data:`IMPORT_SCRIPT`."""
+    ckpts = os.path.join(directory, "checkpoints")
+    _refuse_orbax(ckpts)
     device = resolve_device(device)
     with open(os.path.join(directory, "config.json")) as f:
         raw = f.read()
@@ -182,7 +210,6 @@ def load_model(directory, device=None, tokenizer=None, step=None):
         model.aligner.load_state_dict(state["aligner"])
     else:
         model.init()
-    ckpts = os.path.join(directory, "checkpoints")
     if os.path.isdir(ckpts) and Checkpointer(ckpts).steps():
         model.load_train_state(Checkpointer(ckpts).restore(step, device))
     return model

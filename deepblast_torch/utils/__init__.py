@@ -1,1 +1,2 @@
-"""Logging helpers (own copies from ``deepblast_tpu.utils``)."""
+"""Logging, timing and profiling helpers (own copies from
+``deepblast_tpu.utils``)."""

@@ -41,6 +41,7 @@ import torch
 from deepblast_torch.ops import dp_ref, smooth
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.skew import skew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 SHAPES = [(3, 9, 7), (2, 23, 40), (3, 40, 11), (2, 1, 17), (2, 17, 1)]
 

@@ -47,6 +47,7 @@ from deepblast_tpu.models import heads as jheads
 from deepblast_tpu.models import lm as jlm
 from test_torch_train import _write_tsv
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 ATOL = 1e-5
 STRINGS = ["ACDEFGHIKLMNPQRSTVWY", "ouBZ", "mkTAyIAKqr", "XXJ*-", ""]

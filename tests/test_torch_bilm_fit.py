@@ -24,6 +24,7 @@ from deepblast_tpu.data import dataset as jds
 from deepblast_tpu.train import trainer as jtrainer
 from test_torch_train import TINY, _Rec, _rows
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 
 def _bilm_trajectories(**fields):

@@ -63,6 +63,7 @@ import torch
 from deepblast_torch.ops import dp_ref, smooth
 from deepblast_torch.ops.dp_ref import MODE_BOUNDS
 from deepblast_torch.ops.skew import skew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 RING = 3
 OPERATORS = ["softmax", "sparsemax", "hardmax"]

@@ -28,6 +28,7 @@ from deepblast_torch.train import trainer as ttrainer
 from deepblast_torch.train.checkpoint import load_model, save_config
 from deepblast_tpu.train import trainer as jtrainer
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 TINY = dict(embedding_dim=16, hidden_dim=16, layers=2, k_size=5,
             vocab_size=32, lm_type="embed", batch_size=4,

@@ -60,6 +60,7 @@ from deepblast_torch.ops import dp as dp_ops
 from deepblast_torch.ops import dp_cuda, dp_ref
 from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.ops.skew import skew as plain_skew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -20,6 +20,7 @@ from deepblast_torch.ops import dp_cuda
 from deepblast_torch.ops import skew as tskew
 from deepblast_tpu.ops import dp as jdp
 from deepblast_tpu.ops.skew import skew as jskew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 ATOL = 1e-10
 SHAPES = [(3, 24, 17), (2, 40, 96), (2, 96, 40)]

@@ -25,6 +25,7 @@ import torch
 from deepblast_torch.ops import dp as tdp
 from deepblast_tpu.ops import dp as jdp
 from deepblast_tpu.ops import dp_bm
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 RTOL, ATOL = 2e-5, 2e-6
 

@@ -23,6 +23,7 @@ import torch
 from deepblast_torch.ops import dp as tdp
 from deepblast_tpu.ops import dp as jdp
 from deepblast_tpu.ops import dp_bm_train
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 ATOL = 1e-9
 SHAPES = [(3, 24, 17), (2, 40, 33), (2, 33, 40)]

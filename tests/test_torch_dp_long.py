@@ -48,6 +48,7 @@ from deepblast_tpu.ops import dp_pallas
 from deepblast_tpu.train import trainer as jtrainer
 from test_torch_train import TINY, _Rec, _rows
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 # mode x operator: NW and SW with softmax, NW with sparsemax and hardmax

@@ -29,6 +29,7 @@ from deepblast_torch.ops.skew import skew as tskew
 from deepblast_tpu.ops import dp as jdp
 from deepblast_tpu.ops import dp_scan
 from deepblast_tpu.ops.skew import skew as jskew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 ATOL = 1e-9
 SHAPES = [(3, 24, 17), (2, 40, 33), (2, 33, 40)]

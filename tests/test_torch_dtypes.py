@@ -35,6 +35,7 @@ from deepblast_torch.ops import dp_ref, skew as tskew
 from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_tpu.ops import dp as jdp
 from deepblast_tpu.ops import dp_bm, dp_bm_train, skew_bm
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 RTOL, ATOL = 2e-5, 2e-6
 MENUS = {

@@ -47,6 +47,7 @@ from deepblast_tpu.models import lm as jlm
 from deepblast_tpu.train import trainer as jtrainer
 from test_torch_train import _write_tsv
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 TINY_T5 = dict(vocab_size=32, d_model=32, d_kv=8, d_ff=64, num_layers=2,
                num_heads=4, relative_attention_num_buckets=8)

@@ -25,6 +25,7 @@ from deepblast_torch.models.convert import params_from_jax
 from deepblast_tpu.models import aligner as jaligner
 from deepblast_tpu.models import heads as jheads
 from deepblast_tpu.models import lm as jlm
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 
 def _f64(tree):

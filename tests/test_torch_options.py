@@ -64,6 +64,7 @@ from deepblast_tpu.train import trainer as jtrainer
 from test_torch_dp_long import _port, _problem, _tpu
 from test_torch_train import TINY, _Rec, _rows, _write_tsv
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 T5_CFG = dict(embedding_dim=32, hidden_dim=16, layers=2, k_size=5,
               vocab_size=32, lm_type="prot_t5", batch_size=4,

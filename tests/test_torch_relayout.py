@@ -38,6 +38,7 @@ import torch
 
 from deepblast_torch.ops.menu import E_SCALE, dequantize, quantize
 from deepblast_torch.ops.skew import skew, unskew
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 # (B, N, M, R, C): N = 1, M = 1, N < M, N > M, K and S not multiples of
 # the tile (a small one, and the kernel's 32 x 128 at S past one tile)

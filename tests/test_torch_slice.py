@@ -32,6 +32,7 @@ from deepblast_torch.train import trainer as ttrainer
 from deepblast_torch.train.checkpoint import load_model, save_model
 from deepblast_tpu.models import lm as jlm
 from deepblast_tpu.train import trainer as jtrainer
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepblast_tpu",

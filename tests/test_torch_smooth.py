@@ -14,6 +14,7 @@ import torch
 
 from deepblast_torch.ops import smooth as tsmooth
 from deepblast_tpu.ops import smooth as jsmooth
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 OPS = ["softmax", "sparsemax", "hardmax"]
 ATOL = 1e-12

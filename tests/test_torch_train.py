@@ -39,6 +39,7 @@ from deepblast_tpu.train import losses as jlosses
 from deepblast_tpu.train import trainer as jtrainer
 from deepblast_tpu.train.schedules import make_schedule as jsched
 from test_train import fixture_frame
+import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 # tests/test_train.py's tiny config with dropout 0, the cosine schedule,
