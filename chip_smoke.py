@@ -92,6 +92,37 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              ``load_model`` serves ``align`` with it (the in-memory
              model's states), peak device memory.  ``--precision 16`` is
              held on the CPU only (``tests/test_torch_options.py``).
+4d. parallel — data parallel training and search over
+             ``torch.distributed``, after 4b and beside the worker; the card
+             is one GPU, so two ranks share it over gloo, and NCCL runs at
+             world size 1.  (a) two processes of this script (``--rank``,
+             ``rank_main``) join a gloo group (a ``file://`` store) on
+             ``cuda:0`` and run ``cli.train`` at ProtT5-XL width cut to 2
+             of 24 blocks (``PARALLEL_BLOCKS``: seeded weights in a HF
+             directory, ``--pretrain-path``) + CNN-1024 on 24 synthetic
+             rows of 100-300 residues, batch 8 (4 rows a rank), 1 epoch,
+             dropout 0, bf16 residuals (``--dp-bf16-residuals auto``):
+             ``fit(mesh="auto")`` splits each batch over both and wraps the
+             heads in ``DistributedDataParallel``; this process runs the
+             same command alone.  Both ranks' histories and final aligner
+             weights equal each other exactly, and this process's: the
+             first step's loss to ``PARALLEL_FIRST_RTOL`` of scale, the
+             later losses and the weights to ``PARALLEL_RTOL``, the
+             validation statistics to ``PARALLEL_STATS_RTOL``, the
+             training's update to ``PARALLEL_UPDATE_RTOL`` (why:
+             ``PARALLEL_*``); every training kernel launched in each rank
+             (counters zeroed before, read after, reported through each
+             rank's result file); rank 0 then holds the kernels and
+             autograd against their plain versions at its last shard's
+             potentials.  (b) ``python -m deepblast_torch.cli.train
+             --coordinator 127.0.0.1:<port> --nodes 1 --process-id 0``
+             (NCCL) in a subprocess: its ``train_loss`` records equal this
+             process's bit for bit.  (c) ``cli.search --mesh auto`` on the
+             two ranks, on phase 3's FASTA files and rank 0's model, =
+             ``--mesh none`` here to rtol 1e-4 / atol 1e-5, line for line;
+             ``skew_pair`` and the score-only forward launched in each
+             rank.  The phase's launches (both ranks, training and search)
+             are the kernels line's seventh path.
 4c. bilm   — the BiLM, the RNN head and offline LM weights (``BILM_SIZES``).
              (a) ``cli.train --lm-type bilstm --layer-type rnn`` at the
              ``deepblast-train`` defaults (embedding 1024, so the BiLM's
@@ -1263,6 +1294,21 @@ def _write_fasta(path, seqs, prefix):
             f.write(f">{prefix}{i}\n{s}\n")
 
 
+def serving_data(seed):
+    """Phase 3's draws: 4 pairs to align, 32 pairs to score, and the
+    search's 8 queries and 4 database proteins."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(4):
+        x = protein(rng, 100, 500)
+        pairs.append((x, mutate(rng, x)[:500]))
+    xs = [protein(rng, 100, 512) for _ in range(32)]
+    ys = [mutate(rng, x)[:512] for x in xs]
+    queries = [protein(rng, 50, 300) for _ in range(8)]
+    db = [mutate(rng, q) for q in queries[:4]]
+    return pairs, xs, ys, queries, db
+
+
 def phase_serving(seed, card):
     from deepblast_torch.cli import search
     from deepblast_torch.data.state_utils import pad_sequences
@@ -1270,7 +1316,6 @@ def phase_serving(seed, card):
     from deepblast_torch.train.checkpoint import save_model
     from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
 
-    rng = np.random.default_rng(seed)
     cfg = DeepBLASTConfig(lm_type="prot_t5", embedding_dim=1024,
                           hidden_dim=1024, layers=2, k_size=5,
                           layer_type="cnn", alignment_mode="needleman-wunsch",
@@ -1284,20 +1329,13 @@ def phase_serving(seed, card):
     log(f"phase serving: ProtT5-XL + CNN-1024, {n_params} parameters, "
         f"built in {time.time() - t0:.1f} s")
 
-    pairs = []
-    for _ in range(4):
-        x = protein(rng, 100, 500)
-        pairs.append((x, mutate(rng, x)[:500]))
-    xs = [protein(rng, 100, 512) for _ in range(32)]
-    ys = [mutate(rng, x)[:512] for x in xs]
+    pairs, xs, ys, queries, db = serving_data(seed)
     tok = model.tokenizer
     xt, xl = pad_sequences([tok(s)[0] for s in xs])
     yt, yl = pad_sequences([tok(s)[0] for s in ys])
     xt = np.pad(xt, ((0, 0), (0, 512 - xt.shape[1])))
     yt = np.pad(yt, ((0, 0), (0, 512 - yt.shape[1])))
     batch = dict(x=xt, y=yt, x_len=xl, y_len=yl)
-    queries = [protein(rng, 50, 300) for _ in range(8)]
-    db = [mutate(rng, q) for q in queries[:4]]
 
     with tempfile.TemporaryDirectory() as tmp:
         qf, dbf = os.path.join(tmp, "q.fa"), os.path.join(tmp, "db.fa")
@@ -1429,16 +1467,23 @@ def step_intervals(metrics):
     return out
 
 
+def train_rows(seed):
+    """Phase ``train``'s TM-align rows: 48 training pairs of 100-500
+    residues and 8 of 600-1,000, and 16 validation pairs of 100-500."""
+    rng = np.random.default_rng(seed + 1)
+    rows = [homolog_row(rng, f"s{i}", 100, 500) for i in range(48)]
+    rows += [homolog_row(rng, f"l{i}", 600, 1000) for i in range(8)]
+    valid = [homolog_row(rng, f"v{i}", 100, 500) for i in range(16)]
+    return rows, valid
+
+
 def phase_train(seed, card):
     from deepblast_torch.cli import train as cli_train
     from deepblast_torch.ops import dp_cuda
     from deepblast_torch.train.checkpoint import load_model
     from deepblast_torch.train.trainer import DeepBLAST, DeepBLASTConfig
 
-    rng = np.random.default_rng(seed + 1)
-    rows = [homolog_row(rng, f"s{i}", 100, 500) for i in range(48)]
-    rows += [homolog_row(rng, f"l{i}", 600, 1000) for i in range(8)]
-    valid = [homolog_row(rng, f"v{i}", 100, 500) for i in range(16)]
+    rows, valid = train_rows(seed)
     errs = {}
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1459,9 +1504,7 @@ def phase_train(seed, card):
         peak = torch.cuda.max_memory_allocated()
         if rc != 0:
             raise AssertionError(f"cli.train returned {rc}")
-        logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
-        with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
+        metrics = read_metrics(out)
         losses = [(m["tag"], m["value"]) for m in metrics
                   if m["tag"] in ("train_loss", "validation_loss")]
         kept = os.listdir(os.path.join(out, "checkpoints"))
@@ -1604,19 +1647,25 @@ class count_waits:
         self.caught.__exit__(*exc)
 
 
-def run_cli_train(argv):
+def run_cli_train(argv, outputs=True):
     """``cli.train`` in-process; returns the run's seconds, peak device
-    memory, ``metrics.jsonl`` records, the model ``fit`` trained (in
-    memory) and its best checkpoint."""
+    memory, the model ``fit`` trained (in memory), its aligner's weights
+    before ``fit`` (on the CPU) and its history, and with ``outputs`` the
+    ``metrics.jsonl`` records and the best checkpoint of the output
+    directory."""
     from deepblast_torch.cli import train as cli_train
     from deepblast_torch.train.checkpoint import Checkpointer
     from deepblast_torch.train.trainer import DeepBLAST
     out = argv[argv.index("-o") + 1]
-    fit, trained = DeepBLAST.fit, []
+    fit, trained, histories = DeepBLAST.fit, [], []
 
     def keep(self, *a, **k):
         trained.append(self)
-        return fit(self, *a, **k)
+        trained.append({k: v.to("cpu", copy=True) for k, v in
+                        self.aligner.state_dict().items()})
+        out = fit(self, *a, **k)
+        histories.append(out[1])
+        return out
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1630,12 +1679,20 @@ def run_cli_train(argv):
     seconds = time.time() - t0
     if rc != 0:
         raise AssertionError(f"cli.train returned {rc}")
+    run = dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(),
+               model=trained[0], before=trained[1], history=histories[0])
+    if outputs:
+        run.update(metrics=read_metrics(out), best=Checkpointer(
+            os.path.join(out, "checkpoints")).restore())
+    return run
+
+
+def read_metrics(out):
+    """The records of the ``metrics.jsonl`` that ``cli.train`` wrote in
+    ``out``."""
     logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
     with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
-        metrics = [json.loads(line) for line in f]
-    best = Checkpointer(os.path.join(out, "checkpoints")).restore()
-    return dict(seconds=seconds, peak=torch.cuda.max_memory_allocated(),
-                metrics=metrics, model=trained[0], best=best)
+        return [json.loads(line) for line in f]
 
 
 def phase_options(seed, card):
@@ -1785,6 +1842,335 @@ def phase_options(seed, card):
         f"of the LM's tensors changed; load_model serves them (align x"
         f"{len(pairs)} = the in-memory model's states); peak device memory "
         f"{peak_b / 2**30:.2f} GiB; losses {losses_b} [{card}]")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: data parallel training and search (torch.distributed)
+# ---------------------------------------------------------------------------
+
+# the phase's training rows (count, shortest, longest) and validation rows
+PARALLEL_ROWS = (24, 100, 300)
+PARALLEL_VALID = 8
+# two ranks against one process, each of a series' largest magnitude: the
+# first step's loss (the same function of the same weights on the same
+# rows, reduced in another order); the later losses and the final weights
+# (of the aligner's largest), where AdamW has moved each weight whose
+# gradient is near zero by up to the learning rate in the direction that
+# rounding gave it (2.3e-4 and 9.2e-4 read on an H100; PERF.md); the
+# validation traceback's statistics, where a step at a near tie flips
+# (7.1e-3 read); and the training's update (final - initial weights) as a
+# relative L2 distance (7.8e-4 read, 1.05e-2 at float32 residuals)
+PARALLEL_FIRST_RTOL = 1e-4
+PARALLEL_RTOL = 2e-3
+PARALLEL_STATS_RTOL = 2e-2
+PARALLEL_UPDATE_RTOL = 0.1
+# the LM's blocks (of ProtT5-XL's 24): a shard's B = 4 rows and the whole
+# B = 8 round differently in cuBLAS, and 24 blocks of seeded random weights
+# amplify that to 8e-5 of the features' scale and 0.45% of a batch's loss
+# (theta up to 265, a nearly hard DP), where 2 blocks give 2.5e-6 and
+# 8.5e-6 (one process, halves against the whole: PERF.md,
+# scripts/torch_batch_split.py)
+PARALLEL_BLOCKS = 2
+
+
+def parallel_argv(paths, lm, out, extra=()):
+    """``cli.train`` at ProtT5-XL width (the HF directory ``lm``: seeded
+    weights, ``PARALLEL_BLOCKS`` blocks) + CNN-1024, the
+    ``deepblast-train`` defaults but dropout 0 (so that the shards and one
+    process train the same function), batch 8, 1 epoch, then the flags
+    ``extra``."""
+    return ["--train-pairs", paths[0], "--valid-pairs", paths[1], "-o", out,
+            "--pretrain-path", lm, "--batch-size", "8", "--epochs", "1",
+            "--dropout", "0", "--seed", "0", *extra]
+
+
+def parallel_inputs(tmp, seed, n=PARALLEL_ROWS[0]):
+    """Phase ``parallel``'s inputs, written in ``tmp``: TM-align TSVs of
+    ``n`` training rows and ``PARALLEL_VALID`` validation rows of
+    ``PARALLEL_ROWS``' lengths, and the HF directory of a ProtT5-XL-width
+    encoder of ``PARALLEL_BLOCKS`` seeded blocks; returns ``(paths,
+    lm)``."""
+    from deepblast_torch.models.convert import hf_t5_encoder_key_shapes
+    from deepblast_torch.models.lm import T5Config
+    rng = np.random.default_rng(seed + 9)
+    _, lo, hi = PARALLEL_ROWS
+    rows = [homolog_row(rng, f"p{i}", lo, hi) for i in range(n)]
+    valid = [homolog_row(rng, f"pv{i}", lo, hi)
+             for i in range(PARALLEL_VALID)]
+    paths = [os.path.join(tmp, f) for f in ("train.tsv", "valid.tsv")]
+    _write_tsv(paths[0], rows)
+    _write_tsv(paths[1], valid)
+    lm = os.path.join(tmp, "hf")
+    os.makedirs(lm)
+    g = torch.Generator().manual_seed(seed + 9)
+    torch.save(seeded_state_dict(hf_t5_encoder_key_shapes(
+        dataclasses.replace(T5Config.prot_t5_xl(),
+                            num_layers=PARALLEL_BLOCKS)), g),
+        os.path.join(lm, "pytorch_model.bin"))
+    return paths, lm
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(spec_path, r):
+    """One of phase ``parallel``'s two gloo ranks on the card
+    (``chip_smoke.py --rank <spec> <r>``): ``cli.train`` in process
+    (``fit(mesh="auto")``: dp 2), its launches; on rank 0 the kernels and
+    autograd against their plain versions at its last shard's potentials;
+    then ``cli.search --mesh auto`` on rank 0's model and its launches.
+    The results go to ``<dir>/rank<r>.pt``."""
+    import torch.distributed as dist
+    from deepblast_torch import native
+    from deepblast_torch.cli import search
+    from deepblast_torch.ops import dp_cuda
+    from deepblast_torch.parallel import mesh as mesh_lib
+    PHASE[0] = f"parallel rank {r}"
+    torch.set_num_threads(2)
+    dp_cuda.build()
+    native.build()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh_lib.initialize_distributed(f"file://{spec['store']}", 2, r,
+                                    backend="gloo")
+    try:
+        dp_cuda.reset_launches()
+        run = run_cli_train(spec["train"], outputs=False)
+        train_launches = dict(dp_cuda.LAUNCHES)
+        model = run["model"]
+        errs, checked = {}, None
+        if r == 0:
+            t0 = time.time()
+            batches = list(model._batches(
+                model._dataset(spec["train_pairs"]), True, 0))
+            part = model._rows(batches[-1])
+            with torch.no_grad():
+                b = model._as_batch(part)
+                hx, hy = model._embeddings(b)
+                lengths = (b["x_len"].to(torch.int32),
+                           b["y_len"].to(torch.int32))
+                theta, A = model.aligner.potentials(hx, hy, lengths)
+                check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+            check_autograd(theta, A, *lengths, "nw", "softmax", errs,
+                           dtypes=model.dp_dtypes, cpu_pairs=1)
+            checked = (tuple(theta.shape), round(time.time() - t0, 1))
+            del hx, hy, theta, A
+        dist.barrier()              # rank 0 has written model.pt
+        dp_cuda.reset_launches()
+        t0 = time.time()
+        search.main(spec["search"])
+        torch.cuda.synchronize()
+        search_seconds = time.time() - t0
+        search_launches = dict(dp_cuda.LAUNCHES)
+        torch.save(dict(
+            history=run["history"], seconds=run["seconds"],
+            dp=model.mesh.size(0),
+            aligner={k: v.cpu() for k, v in model.aligner.state_dict()
+                     .items()},
+            train_launches=train_launches, search_launches=search_launches,
+            search_seconds=search_seconds, errs=errs, checked=checked,
+            menu=str(model.dp_dtypes)),
+            os.path.join(spec["dir"], f"rank{r}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _relay(procs, timeout):
+    """Wait for each ``(name, Popen, log)``, relay its log, raise if one
+    failed; a process still running at the end is killed."""
+    try:
+        for name, p, log_f in procs:
+            rc = p.wait(timeout=timeout)
+            log_f.seek(0)
+            for line in log_f.read().splitlines()[-40:]:
+                log(f"[{name}] {line}")
+            if rc != 0:
+                raise AssertionError(f"phase parallel: {name} exited with "
+                                     f"{rc}")
+    finally:
+        for _, p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log_f.close()
+
+
+def _of_scale(got, want):
+    """The largest difference over the largest magnitude of ``want``."""
+    got, want = torch.as_tensor(got, dtype=torch.float64), \
+        torch.as_tensor(want, dtype=torch.float64)
+    return ((got - want).abs().max() /
+            want.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_parallel(seed, card, extra=()):
+    """Data parallel training and search through ``torch.distributed``
+    beside the worker, at ProtT5-XL width (``PARALLEL_BLOCKS`` blocks) +
+    CNN-1024 (``parallel_argv``).  (a) two processes on the one card join a
+    gloo group (``rank_main``) and run ``cli.train`` (``fit(mesh="auto")``:
+    4 rows of each batch of 8 a rank) while this process runs the same
+    command alone: both ranks' histories and final aligner weights equal
+    each other exactly and this process's to the ``PARALLEL_*`` limits;
+    every training kernel launched in each rank; rank 0's kernels and
+    autograd = plain at its last shard.  (b) ``python -m
+    deepblast_torch.cli.train --coordinator 127.0.0.1:<port> --nodes 1
+    --process-id 0`` (NCCL, world size 1) in a subprocess: its
+    ``train_loss`` records equal this process's bit for bit.  (c) the two
+    ranks' ``cli.search --mesh auto`` on phase 3's FASTA files and rank
+    0's model = ``--mesh none`` here to rtol 1e-4 / atol 1e-5, line for
+    line; ``skew_pair`` and the score-only forward launched in each rank.
+    ``extra``: flags added to every ``cli.train`` command (e.g. another
+    storage menu; the smoke adds none).  Returns the phase's launches (both ranks, training and search) and
+    rank 0's kernel errors."""
+    import deepblast_torch
+    from deepblast_torch.cli import search
+    # the checkout's root, from which python -m finds the package
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        deepblast_torch.__file__)))
+    n, lo, hi = PARALLEL_ROWS
+    _, _, _, queries, db = serving_data(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, lm = parallel_inputs(tmp, seed)
+        qf, dbf = os.path.join(tmp, "q.fa"), os.path.join(tmp, "db.fa")
+        _write_fasta(qf, queries, "q")
+        _write_fasta(dbf, db, "d")
+        out2, out1, outn = (os.path.join(tmp, d)
+                            for d in ("ranks", "alone", "nccl"))
+        hits = {m: os.path.join(tmp, f"hits_{m}") for m in ("auto", "none")}
+
+        def search_argv(mesh):
+            return ["--query-fasta", qf, "--db-fasta", dbf,
+                    "--load-from-checkpoint", out2, "--output-file",
+                    hits[mesh], "--batch-size", "16", "--pad-multiple", "64",
+                    "--mesh", mesh]
+
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump(dict(store=os.path.join(tmp, "store"), dir=tmp,
+                           train=parallel_argv(paths, lm, out2, extra),
+                           train_pairs=paths[0],
+                           search=search_argv("auto")), f)
+        procs = []
+        t0 = time.time()
+        for r in range(2):
+            log_f = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            procs.append((f"rank {r}", subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", spec,
+                 str(r)], stdout=log_f, stderr=subprocess.STDOUT), log_f))
+        log_f = open(os.path.join(tmp, "nccl.log"), "w+")
+        procs.append(("nccl", subprocess.Popen(
+            [sys.executable, "-m", "deepblast_torch.cli.train",
+             *parallel_argv(paths, lm, outn, extra), "--coordinator",
+             f"127.0.0.1:{free_port()}", "--nodes", "1", "--process-id",
+             "0"], cwd=root, stdout=log_f, stderr=subprocess.STDOUT),
+            log_f))
+        try:
+            alone = run_cli_train(parallel_argv(paths, lm, out1, extra))
+        finally:
+            _relay(procs, timeout=600)
+        t_ranks = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        nccl = read_metrics(outn)
+        t1 = time.time()
+        search.main(search_argv("none"))
+        t_none = time.time() - t1
+        lines = {m: [ln.rstrip("\n").split("\t") for ln in open(hits[m])]
+                 for m in hits}
+        metrics2 = read_metrics(out2)
+
+    # (a) two ranks = one process; (b) NCCL at world size 1 = no flags, bit
+    # for bit; (c) search --mesh auto on the ranks = --mesh none here.
+    # Everything is measured and logged, then the failures raise.
+    bad = []
+    errs = dict(ranks[0]["errs"])
+    hist, hist1 = ranks[0]["history"], alone["history"]
+    if ranks[1]["history"] != hist:
+        bad.append("the ranks' histories differ")
+    steps = {name: [m["value"] for m in ms if m["tag"] == "train_loss"]
+             for name, ms in (("one process", alone["metrics"]),
+                              ("2 ranks", metrics2), ("nccl", nccl))}
+    worst = {key: _of_scale([h[key] for h in hist], [h[key] for h in hist1])
+             for key in hist1[0] if key != "epoch"}
+    worst["first step"] = _of_scale(steps["2 ranks"][:1],
+                                    steps["one process"][:1])
+    worst["train_loss records"] = _of_scale(steps["2 ranks"],
+                                            steps["one process"])
+    al1 = {k: v.cpu() for k, v in alone["model"].aligner.state_dict()
+           .items()}
+    scale = max(v.abs().max().item() for v in al1.values())
+    tensors = {}
+    for k, v in al1.items():
+        if not torch.equal(ranks[1]["aligner"][k], ranks[0]["aligner"][k]):
+            bad.append(f"the ranks' {k} differ")
+        tensors[k] = (ranks[0]["aligner"][k] - v).abs().max().item() / scale
+    worst["weights"] = max(tensors.values())
+    d1, d2 = (torch.cat([(w[k] - v0).flatten()
+                         for k, v0 in alone["before"].items()])
+              for w in (al1, ranks[0]["aligner"]))
+    worst["update"] = ((d2 - d1).norm() / d1.norm()).item()
+    errs["parallel_vs_one_process"] = max(
+        v for k, v in worst.items() if not k.startswith("val_"))
+    limits = {k: PARALLEL_STATS_RTOL if k.startswith("val_") else
+              PARALLEL_FIRST_RTOL if k == "first step" else
+              PARALLEL_UPDATE_RTOL if k == "update" else PARALLEL_RTOL
+              for k in worst}
+    over = {k: v for k, v in worst.items() if v > limits[k]}
+    if over:
+        bad.append(f"2 ranks vs one process beyond their limits {limits}: "
+                   f"{over}")
+    for r, res in enumerate(ranks):
+        if res["dp"] != 2 or any(res["train_launches"][k] == 0
+                                 for k in TRAIN_KERNELS):
+            bad.append(f"rank {r} (dp {res['dp']}) train launches "
+                       f"{res['train_launches']}")
+        if any(res["search_launches"][k] == 0
+               for k in ("skew_pair", "forward_score")):
+            bad.append(f"rank {r} search launches {res['search_launches']}")
+    if steps["nccl"] != steps["one process"] or not steps["nccl"]:
+        bad.append("NCCL world 1 train_loss differs from one process's")
+    if len(lines["auto"]) != len(queries) * len(db) or \
+            [ln[:2] for ln in lines["auto"]] != \
+            [ln[:2] for ln in lines["none"]]:
+        bad.append("search lines differ")
+    sa = torch.tensor([[float(v) for v in ln[2:]] for ln in lines["auto"]])
+    sn = torch.tensor([[float(v) for v in ln[2:]] for ln in lines["none"]])
+    if sa.shape != sn.shape or not torch.allclose(sa, sn, rtol=1e-4,
+                                                  atol=1e-5):
+        bad.append("--mesh auto scores differ from --mesh none")
+    search_err = (sa - sn).abs().max().item() if sa.shape == sn.shape \
+        else math.inf
+    launches = {k: sum(res["train_launches"][k] + res["search_launches"][k]
+                       for res in ranks) for k in ranks[0]["train_launches"]}
+    top = sorted(tensors.items(), key=lambda kv: -kv[1])[:3]
+    log(f"phase parallel: cli.train ProtT5-XL width ({PARALLEL_BLOCKS} of "
+        f"24 blocks) + CNN-1024, {n} train / "
+        f"{PARALLEL_VALID} valid rows of {lo}-{hi}, batch 8, 1 epoch, dropout "
+        f"0, storage menu {ranks[0]['menu']}: two gloo ranks on the card "
+        f"(4 rows a rank) {ranks[0]['seconds']:.2f} / "
+        f"{ranks[1]['seconds']:.2f} s, one process {alone['seconds']:.2f} "
+        f"s; seconds between train_loss records: 2 ranks "
+        f"{[round(t, 4) for t in step_intervals(metrics2)]}, one process "
+        f"{[round(t, 4) for t in step_intervals(alone['metrics'])]}; "
+        f"train_loss records {json.dumps(steps)}; largest differences of "
+        f"scale {json.dumps(worst)} (weights: of the aligner's largest, "
+        f"{scale:.4g}), weights' largest {top}; search --mesh "
+        f"auto on 2 ranks {ranks[0]['search_seconds']:.2f} s, --mesh none "
+        f"{t_none:.2f} s, max abs diff {search_err}; the ranks, the NCCL "
+        f"run and this process's run {t_ranks:.1f} s [{card}]; launches "
+        f"rank 0 train {json.dumps(ranks[0]['train_launches'])} search "
+        f"{json.dumps(ranks[0]['search_launches'])}")
+    log(f"phase parallel: rank 0's kernels = plain and autograd = plain and "
+        f"CPU at its last shard {ranks[0]['checked']} (shape, seconds); max "
+        f"abs diff {json.dumps(ranks[0]['errs'])}")
+    if bad:
+        raise AssertionError(f"phase parallel: {bad}")
     return launches, errs
 
 
@@ -2342,9 +2728,7 @@ def phase_long(seed, card):
         peak_train = torch.cuda.max_memory_allocated()
         if rc != 0:
             raise AssertionError(f"cli.train returned {rc}")
-        logs = [d for d in os.listdir(out) if d.startswith("logdir_")]
-        with open(os.path.join(out, logs[0], "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
+        metrics = read_metrics(out)
         losses = [(m["tag"], m["value"]) for m in metrics
                   if m["tag"] in ("train_loss", "validation_loss")]
 
@@ -2827,9 +3211,7 @@ def phase_menu(seed, card):
         peak = torch.cuda.max_memory_allocated() / 2**30
         if rc != 0:
             raise AssertionError(f"cli.train returned {rc}")
-        logs = [d for d in os.listdir(run) if d.startswith("logdir_")]
-        with open(os.path.join(run, logs[0], "metrics.jsonl")) as f:
-            metrics = [json.loads(line) for line in f]
+        metrics = read_metrics(run)
         losses = [(m["tag"], m["value"]) for m in metrics
                   if m["tag"] in ("train_loss", "validation_loss")]
 
@@ -3539,6 +3921,8 @@ def main(argv):
     import deepblast_torch  # noqa: F401  (fails outside a checkout)
     if argv[:1] == ["--worker"]:
         return worker_main(argv[1])
+    if argv[:1] == ["--rank"]:
+        return rank_main(argv[1], int(argv[2]))
     card = card_line()
     log(card)
 
@@ -3557,6 +3941,7 @@ def main(argv):
         serving, path_errs = timed("serving", phase_serving, seed, card)
         training, train_errs = timed("train", phase_train, seed, card)
         options, options_errs = timed("options", phase_options, seed, card)
+        par, par_errs = timed("parallel", phase_parallel, seed, card)
         # the worker's card time would count in the phases timed below
         done = timed("worker", worker.join)
     worker_errs = done["errs"]
@@ -3581,13 +3966,13 @@ def main(argv):
     kernels = []
     for k in KERNELS + Q_KERNELS + Q_BF16:
         checked = [d[k] for d in (errs, path_errs, train_errs, options_errs,
-                                  worker_errs, bilm_errs, long_errs,
-                                  menu_errs) if k in d]
+                                  par_errs, worker_errs, bilm_errs,
+                                  long_errs, menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
         launches = bf16_launches[k] if k in Q_BF16 else \
-            serving[k] + training[k] + options[k] + bilm[k] + long_[k] + \
-            menu[k]
+            serving[k] + training[k] + options[k] + par[k] + bilm[k] + \
+            long_[k] + menu[k]
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE,
             replaces=REPLACES[k.replace("_bf16", "")],

@@ -99,10 +99,18 @@ def add_infra_args(parser: argparse.ArgumentParser):
                              "device at once and issue their steps back to "
                              "back, reading their losses once")
     parser.add_argument("--grad-clip", type=float, default=10.0)
-    parser.add_argument("--nodes", type=int, default=1)
-    parser.add_argument("--coordinator", type=str, default=None)
-    parser.add_argument("--process-id", type=int, default=None)
-    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--nodes", type=int, default=1,
+                        help="processes in all (one a GPU) with "
+                             "--coordinator")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="torch.distributed coordinator address "
+                             "host:port (multi-process; rank 0 listens "
+                             "there)")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's rank with --coordinator")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel mesh width (replicated "
+                             "work, as in deepblast-train)")
     parser.add_argument("--load-from-checkpoint", type=str, default=None,
                         help="a checkpoints/ directory of an earlier run to "
                              "resume from (its best state)")
@@ -181,6 +189,7 @@ def config_from_args(args) -> DeepBLASTConfig:
         test_pairs=args.test_pairs,
         max_len=args.max_len,
         output_directory=args.output_directory,
+        tp=getattr(args, "tp", 1),
     )
 
 

@@ -8,11 +8,21 @@ It writes ``config.json`` to the output directory, trains with
 three best states by validation loss to ``<out_dir>/checkpoints/``), and
 finally writes ``model.pt``, so that
 ``deepblast_torch.train.checkpoint.load_model(out_dir)`` serves ``align``
-and the search CLI from the best checkpoint.  It runs on one device
-(``--device``, CUDA by default).  ``--backend pallas_long`` (or
-``pallas``) trains through the Q-stream DP kernels, which take pairs past
-the default kernels' limit (with ``--max-len 4096``); the backend is kept
-in ``config.json``.  ``--precision bf16`` (or ``16``) computes the T5 LM
+and the search CLI from the best checkpoint.  It runs on ``--device``
+(CUDA by default), and data parallel on several GPUs, one process each:
+
+    torchrun --nproc-per-node N -m deepblast_torch.cli.train ...
+
+or, without torchrun, each process with ``--coordinator host:port --nodes
+N --process-id r`` (rank 0 listens at the address).  Then ``fit(mesh=
+"auto")`` splits each batch over the largest divisor of ``--batch-size``
+that fits ``N // --tp`` ranks (``deepblast_tpu/cli/train.py:22-46``;
+``--tp`` replicates, as there), rank 0 alone writes the output directory,
+and ``--load-from-checkpoint`` restores on every rank.
+
+``--backend pallas_long`` (or ``pallas``) trains through the Q-stream DP
+kernels, which take pairs past the default kernels' limit (with
+``--max-len 4096``); the backend is kept in ``config.json``.  ``--precision bf16`` (or ``16``) computes the T5 LM
 and the potentials' contractions in that dtype, ``--finetune True`` trains
 the LM too, ``--grad-accum k`` updates every k steps on their mean
 gradient, and ``--steps-per-dispatch K`` copies K same-shape batches to
@@ -31,17 +41,38 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch.distributed as dist
+
 from deepblast_torch.cli.common import (add_infra_args, add_model_args,
                                         build_model, config_from_args)
+from deepblast_torch.parallel import mesh as mesh_lib
 
 
-def main(argv=None):
+def parse_args(argv=None):
     parser = argparse.ArgumentParser("deepblast-train")
     add_infra_args(parser)
     add_model_args(parser)
-    args = parser.parse_args(argv)
-    config = config_from_args(args)
+    return parser.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
+    config = config_from_args(args)
+    # join the process group the command line or torchrun describes,
+    # unless the caller already has
+    started = not dist.is_initialized() and (
+        args.coordinator is not None or mesh_lib.launched_by_torchrun())
+    if started:
+        mesh_lib.initialize_distributed(args.coordinator, args.nodes,
+                                        args.process_id)
+    try:
+        return _train(args, config)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, config):
     from deepblast_torch.train.checkpoint import (Checkpointer, save_config,
                                                   save_model)
     from deepblast_torch.utils.logging import MetricsLogger
@@ -55,7 +86,8 @@ def main(argv=None):
     logger = MetricsLogger(out)
     ckpt = Checkpointer(os.path.join(out, "checkpoints"))
     try:
-        _, history = model.fit(logger=logger, checkpointer=ckpt)
+        _, history = model.fit(logger=logger, checkpointer=ckpt,
+                               mesh="auto")
     finally:
         logger.close()
     save_model(model, out)

@@ -176,9 +176,11 @@ def collate(items, pad_multiple=1):
                 states=[it["states"] for it in items])
 
 
-def make_batches(dataset, batch_size, shuffle=True, seed=0, pad_multiple=16):
+def make_batches(dataset, batch_size, shuffle=True, seed=0, pad_multiple=16,
+                 drop_last=False):
     """Yield collated batches of a :class:`TMAlignDataset`: shuffle, stable
-    sort by length, cut into ``batch_size`` chunks, shuffle the chunks."""
+    sort by length, cut into ``batch_size`` chunks (with ``drop_last``,
+    without a last short one), shuffle the chunks."""
     idx = np.arange(len(dataset))
     rng = np.random.default_rng(seed)
     if shuffle:
@@ -187,6 +189,8 @@ def make_batches(dataset, batch_size, shuffle=True, seed=0, pad_multiple=16):
     if lens.any():
         idx = idx[np.argsort(lens, kind="stable")]
     chunks = [idx[i:i + batch_size] for i in range(0, len(idx), batch_size)]
+    if drop_last and chunks and len(chunks[-1]) < batch_size:
+        chunks = chunks[:-1]
     if shuffle:
         rng.shuffle(chunks)
     for chunk in chunks:

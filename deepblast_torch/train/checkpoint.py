@@ -19,7 +19,9 @@ rebuilds the model from ``model.pt`` and, when ``checkpoints/`` holds any,
 takes the aligner, a finetuned LM and the training state from the best
 checkpoint.  A JAX model directory (``deepblast-train``'s orbax
 ``checkpoints/``) is refused: ``scripts/torch_import_jax_model.py``
-converts it.
+converts it.  Under a process group only rank 0 writes
+(:class:`Checkpointer`'s ``save``, :func:`save_config`,
+:func:`save_model`); every rank reads.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from deepblast_torch.data.alphabet import TOKENIZERS, ProtT5Tokenizer
 from deepblast_torch.models.lm import BiLM, T5Config, T5Encoder
+from deepblast_torch.parallel.mesh import is_writer
 from deepblast_torch.train.trainer import (DeepBLAST, DeepBLASTConfig,
                                            resolve_device)
 
@@ -46,11 +49,12 @@ IMPORT_SCRIPT = "scripts/torch_import_jax_model.py"
 class Checkpointer:
     """Writes training states under ``directory`` and keeps the ``keep``
     best by ``monitor`` (lowest first; a state saved without that metric
-    is ranked by its ``train_loss``)."""
+    is ranked by its ``train_loss``).  Rank 0 alone writes."""
 
     def __init__(self, directory, keep=3, monitor="validation_loss"):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if is_writer():
+            os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
         self.monitor = monitor
 
@@ -70,7 +74,9 @@ class Checkpointer:
 
     def save(self, state, metrics=None):
         """Write ``state`` (a ``DeepBLAST.train_state()``) at its step, then
-        delete all but the ``keep`` best."""
+        delete all but the ``keep`` best (on rank 0; a no-op elsewhere)."""
+        if not is_writer():
+            return
         step = int(state["step"])
         path = os.path.join(self.directory, str(step))
         os.makedirs(path, exist_ok=True)
@@ -97,7 +103,9 @@ class Checkpointer:
 
 def save_config(model: DeepBLAST, directory):
     """Write ``config.json`` for ``model`` to ``directory`` (created if
-    missing)."""
+    missing), on rank 0."""
+    if not is_writer():
+        return
     os.makedirs(directory, exist_ok=True)
     cfg = dataclasses.asdict(model.config)
     if isinstance(model.lm, T5Encoder):
@@ -119,7 +127,9 @@ def save_config(model: DeepBLAST, directory):
 
 
 def save_model(model: DeepBLAST, directory):
-    """Write ``model`` (config and weights) to ``directory``."""
+    """Write ``model`` (config and weights) to ``directory``, on rank 0."""
+    if not is_writer():
+        return
     save_config(model, directory)
     torch.save({"lm": model.lm.state_dict(),
                 "aligner": model.aligner.state_dict()},

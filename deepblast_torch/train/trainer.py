@@ -66,6 +66,30 @@ int16 E in the decode) and ``dp_decode_menu`` ("fast": bf16 residuals and
 int16 E for :meth:`DeepBLAST.align` only).  ``fit`` and ``score_pairs``
 run the training menu, ``align`` the decode menu.
 
+Data parallel training (``fit(mesh=...)``, ``trainer.py:485-522``) runs
+one process a device under ``torch.distributed`` (``parallel/mesh.py``):
+every rank builds the same global batch sequence (the same shuffle seed;
+the last short batch of training and validation dropped, as under the JAX
+mesh) and takes its rows of each batch (``shard_batch``; of each chunk's
+``(K, B, ...)`` arrays on the second axis), padded as the global batch.
+The modules ``fit`` trains run under ``DistributedDataParallel`` over the
+rank's ``data`` group, built after the seeded ``init`` (it broadcasts rank
+0's weights), so the gradients are averaged over the data shards in every
+backward, every ``grad_accum`` micro-step included, before the clip and
+the update; every rank then holds the same weights.  A step's loss is a
+mean over its rows, so the mean of the shards' losses (all-reduced before
+they are logged) is the global batch's; the validation losses and
+statistics of every shard are gathered before their means.  ``tp``
+replicates, as in JAX (the ranks of one ``data`` coordinate take the same
+rows).  ``mesh="auto"`` takes ``dp``, the largest divisor of
+``batch_size`` that fits ``world // tp``, and the first ``dp * tp`` ranks:
+the others take no batches and receive the history and the final weights
+from rank 0.  Dropout draws from a generator seeded with ``seed + 1 + d``
+(``d`` the rank's ``data`` coordinate), so two shards draw different masks:
+with dropout the trajectory is not one process's (nor JAX's, whose RNG
+differs anyway).  Rank 0 alone writes metrics and checkpoints
+(``utils.logging``, ``train.checkpoint``).
+
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; without a CUDA device and without ``device="cpu"`` they raise.
 On CUDA the port turns TF32 off for matmuls and cuDNN (convolutions and
@@ -85,7 +109,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from deepblast_torch.data.alphabet import ProtT5Tokenizer
 from deepblast_torch.data.dataset import TMAlignDataset, make_batches
@@ -97,6 +123,7 @@ from deepblast_torch.models.lm import (BiLM, RMSNorm, T5Config, T5Encoder,
                                        TokenEmbed)
 from deepblast_torch.ops import dp as dp_ops
 from deepblast_torch.ops.menu import DTypeMenu
+from deepblast_torch.parallel import mesh as mesh_lib
 from deepblast_torch.train.losses import get_loss
 from deepblast_torch.train.schedules import make_schedule
 from deepblast_torch.unported import UNPORTED, check_ported
@@ -105,9 +132,9 @@ __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 
 #: JAX config.json fields that change nothing the port computes or trains:
-#: the share of validation pairs drawn as figures (no figures yet) and the
-#: tensor-parallel mesh (one device)
-_DROPPED_FIELDS = ("visualization_fraction", "tp", "use_tp_params")
+#: the share of validation pairs drawn as figures (no figures yet), and
+#: ``use_tp_params``, which the JAX package reads nowhere
+_DROPPED_FIELDS = ("visualization_fraction", "use_tp_params")
 #: the port's own LM blocks of config.json (read by ``load_model``)
 _LM_BLOCKS = ("t5", "bilm")
 
@@ -164,6 +191,8 @@ class DeepBLASTConfig:
     max_len: int = 1024
     pad_multiple: int = 16
     output_directory: Optional[str] = None
+    # the model axis of fit's mesh="auto" (replicated work, as in JAX)
+    tp: int = 1
 
     @classmethod
     def from_json(cls, s):
@@ -290,6 +319,11 @@ class DeepBLAST:
         # trained parameter) and the steps folded into it
         self._acc = None
         self._mini_step = 0
+        # fit's mesh, and under one the rank's data group, its size and
+        # coordinate, and the DistributedDataParallel of _Trained
+        self.mesh = None
+        self._data = None
+        self._ddp = None
 
     @staticmethod
     def _dp_dtype_menu(config):
@@ -507,15 +541,30 @@ class DeepBLAST:
     def _loss_batch(self, batch):
         return self._as_batch(batch, self._loss_keys())
 
+    def _rows(self, batch):
+        """This rank's rows of a global batch under ``fit``'s mesh
+        (``shard_batch``, and the same rows of its lists); the batch itself
+        without one."""
+        if self.mesh is None:
+            return batch
+        part = mesh_lib.shard_batch(batch, self.mesh)
+        _, dp, d = self._data
+        k = len(batch["x_len"]) // dp
+        return {key: v[d * k:(d + 1) * k] if isinstance(v, list) else v
+                for key, v in part.items()}
+
     def _device_chunk(self, chunk):
         """K same-shape batches as K steps' tensors on the device: each key
-        stacked into a ``(K, B, ...)`` array in pinned host memory (on a
-        CUDA device) and copied in one asynchronous copy
-        (``trainer.py:467-475``)."""
+        stacked into a ``(K, B, ...)`` array (under a mesh, the rank's rows
+        of the second axis) in pinned host memory (on a CUDA device) and
+        copied in one asynchronous copy (``trainer.py:467-475``)."""
+        arrays = {k: np.stack([np.asarray(b[k]) for b in chunk])
+                  for k in self._loss_keys()}
+        if self.mesh is not None:
+            arrays = mesh_lib.shard_batch(arrays, self.mesh, stacked=True)
         out = {}
-        for k in self._loss_keys():
-            host = torch.from_numpy(np.stack([np.asarray(b[k])
-                                              for b in chunk]))
+        for k, v in arrays.items():
+            host = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 host = host.pin_memory()
             out[k] = host.to(self.device, non_blocking=True)
@@ -559,14 +608,21 @@ class DeepBLAST:
             a.zero_()
         return True
 
+    def _train_forward(self, b, generator):
+        """A training step's expected alignment: LM features (trained with
+        ``finetune``) -> heads (dropout from ``generator``) -> DP."""
+        hx, hy = self._embeddings(b, train=True)
+        aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]),
+                                 generator=generator)
+        return aln
+
     def _step(self, b, generator):
         """One step on the tensors of :meth:`_loss_batch` (or of a chunk's
         step, :meth:`_device_chunk`), already on the device; returns the
         loss (a 0-d tensor on the device, not yet read back)."""
         self.aligner.train()
-        hx, hy = self._embeddings(b, train=True)
-        aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]),
-                                 generator=generator)
+        forward = self._train_forward if self._ddp is None else self._ddp
+        aln = forward(b, generator)
         loss = self.compute_loss(b, aln)
         self._opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -606,7 +662,8 @@ class DeepBLAST:
 
     def _batches(self, dataset, shuffle, seed):
         return make_batches(dataset, self.config.batch_size, shuffle=shuffle,
-                            seed=seed, pad_multiple=self.config.pad_multiple)
+                            seed=seed, pad_multiple=self.config.pad_multiple,
+                            drop_last=self.mesh is not None)
 
     def _losses_to_host(self, losses):
         """``(host, ready)``: the copy of a dispatch's losses (a device
@@ -639,84 +696,197 @@ class DeepBLAST:
             if logger:
                 logger.log_scalar("train_loss", v, step + i)
 
+    def _data_mean(self, t):
+        """The mean of ``t`` over the ranks of the data group (``t``
+        itself without a mesh): the global batch's mean of equal shards'
+        means."""
+        if self._data is None:
+            return t
+        group, dp, _ = self._data
+        t = t.clone()
+        dist.all_reduce(t, group=group)     # gloo has no AVG: sum, divide
+        return t / dp
+
+    def _gather_validation(self, vlosses, vstats):
+        """Every data shard's validation losses and statistics (one list of
+        rows a batch), gathered in the global batches' order: the batch
+        losses (the mean of its shards') and the rows."""
+        if self._data is not None:
+            group, dp, _ = self._data
+            shards = [None] * dp
+            dist.all_gather_object(shards, (vlosses, vstats), group=group)
+            vlosses = [float(np.mean(ls)) for ls in
+                       zip(*(sh[0] for sh in shards))]
+            vstats = [[row for sh in shards for row in sh[1][i]]
+                      for i in range(len(vstats))]
+        return vlosses, [row for rows in vstats for row in rows]
+
+    def _resolve_mesh(self, mesh):
+        """``fit``'s mesh: ``"auto"`` takes the largest divisor ``dp`` of
+        ``batch_size`` that fits ``world // tp`` and the first ``dp * tp``
+        ranks (``trainer.py:492-505``; None at one rank); an explicit mesh
+        must split ``batch_size`` over its ``data`` axis."""
+        c = self.config
+        if mesh == "auto":
+            world = mesh_lib.world_size()
+            n = world // max(1, c.tp)
+            dp = max((k for k in range(1, n + 1) if c.batch_size % k == 0),
+                     default=1)
+            mesh = None
+            if dp * c.tp > 1:
+                mesh = mesh_lib.make_mesh(
+                    dp=dp, tp=c.tp, devices=range(min(dp * c.tp, world)),
+                    device_type=self.device.type)
+        if mesh is not None and c.batch_size % mesh.size(0) != 0:
+            raise ValueError("batch_size must divide the data mesh axis")
+        return mesh
+
+    def _share_result(self, history):
+        """Rank 0's history, step and final weights (the aligner's, and
+        with ``finetune`` the LM's) to every rank, for the ranks outside
+        the mesh; returns the history."""
+        box = [history, self.step]
+        dist.broadcast_object_list(box, src=0)
+        history, self.step = box
+        mods = [self.aligner] + ([self.lm] if self.config.finetune else [])
+        for m in mods:
+            for t in m.state_dict().values():
+                dist.broadcast(t, src=0)
+        return history
+
     def fit(self, train_dataset=None, valid_dataset=None, callbacks=(),
-            logger=None, checkpointer=None):
+            logger=None, checkpointer=None, mesh=None):
         """Train for ``config.epochs`` epochs; returns ``(state,
         history)`` with one entry per epoch.  Resumes from ``self.state``
         (:meth:`load_train_state`) when set.  With a validation set the
         checkpointer saves when the validation loss improves, else every
-        epoch."""
+        epoch.  ``mesh``: None (this process alone), ``"auto"`` or a
+        ``(data, model)`` ``DeviceMesh`` of ``parallel.make_mesh`` (see the
+        module docstring)."""
         c = self.config
+        self.mesh = mesh = self._resolve_mesh(mesh)
+        self._data = None
+        coord = mesh.get_coordinate() if mesh is not None else None
+        idle = mesh is not None and coord is None
+        spare = mesh is not None and mesh.size() < mesh_lib.world_size()
+        if idle:                        # outside the mesh: no batches
+            history = self._share_result(None)
+            self.state = self.train_state()
+            return self.state, history
+        if mesh is not None:
+            self._data = (mesh.get_group("data"), mesh.size(0), coord[0])
         train_dataset = train_dataset or self._dataset(c.train_pairs)
         valid_dataset = valid_dataset or (
             self._dataset(c.valid_pairs) if c.valid_pairs else None)
         self._spe = max(1, len(train_dataset) // max(1, c.batch_size))
         self._build_optimizer()
+        if mesh is not None:
+            self._ddp = DistributedDataParallel(_Trained(self),
+                                                process_group=self._data[0])
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(c.seed + 1)
-        K = c.steps_per_dispatch
+        gen.manual_seed(c.seed + 1 + (coord[0] if coord else 0))
         history = []
         best = math.inf
-        for epoch in range(c.epochs):
-            # the losses of a step (or chunk) are read back after the next
-            # is issued, so the host prepares it while the card works; the
-            # NaN check fires one step (chunk) late, as in the JAX package
-            losses = []
-            pending = None
-
-            def issue(batches):
-                nonlocal pending
-                steps = self._device_chunk(batches) if len(batches) == K > 1 \
-                    else [self._loss_batch(b) for b in batches]
-                first = self.step + 1
-                out = torch.stack([self._step(b, gen) for b in steps])
-                out = self._losses_to_host(out)
-                if pending is not None:
-                    self._consume_loss(pending, losses, logger)
-                pending = (out, first)
-
-            chunk, shape = [], None
-            for batch in self._batches(train_dataset, True, c.seed + epoch):
-                if K == 1:
-                    issue([batch])
-                    continue
-                sh = self._batch_shapes(batch)
-                if chunk and sh != shape:
-                    for b in chunk:     # a shape change: single steps
-                        issue([b])
-                    chunk = []
-                chunk.append(batch)
-                shape = sh
-                if len(chunk) == K:
-                    issue(chunk)
-                    chunk = []
-            for b in chunk:             # the epoch's tail: single steps
-                issue([b])
-            if pending is not None:
-                self._consume_loss(pending, losses, logger)
-            entry = {"epoch": epoch, "train_loss": float(np.mean(losses))}
-            if valid_dataset is not None:
-                vlosses, vstats = [], []
-                for batch in self._batches(valid_dataset, False, 0):
-                    vloss, aln = self.validation_step(batch)
-                    vlosses.append(float(vloss))
-                    vstats += self.validation_stats(batch, aln)
-                entry["validation_loss"] = float(np.mean(vlosses))
-                means = np.mean(np.asarray(vstats, float), axis=0)
-                for col, v in zip(ROC_COLUMNS, means):
-                    entry[f"val_{col}"] = float(v)
-                    if logger:
-                        logger.log_scalar(f"val_{col}", v, self.step)
-                if logger:
-                    logger.log_scalar("validation_loss",
-                                      entry["validation_loss"], self.step)
-                if checkpointer and entry["validation_loss"] < best:
-                    best = entry["validation_loss"]
+        try:
+            for epoch in range(c.epochs):
+                entry = self._epoch(epoch, train_dataset, valid_dataset,
+                                    gen, logger)
+                if valid_dataset is not None:
+                    if checkpointer and entry["validation_loss"] < best:
+                        best = entry["validation_loss"]
+                        checkpointer.save(self.train_state(), entry)
+                elif checkpointer:
                     checkpointer.save(self.train_state(), entry)
-            elif checkpointer:
-                checkpointer.save(self.train_state(), entry)
-            history.append(entry)
-            for cb in callbacks:
-                cb(self, entry)
+                history.append(entry)
+                for cb in callbacks:
+                    cb(self, entry)
+        finally:
+            self._ddp = None    # its reducer's hooks go with it
+        if spare:
+            history = self._share_result(history)
         self.state = self.train_state()
         return self.state, history
+
+    def _epoch(self, epoch, train_dataset, valid_dataset, gen, logger):
+        """One epoch of :meth:`fit`; returns its history entry."""
+        c = self.config
+        K = c.steps_per_dispatch
+        # the losses of a step (or chunk) are read back after the next is
+        # issued, so the host prepares it while the card works; the NaN
+        # check fires one step (chunk) late, as in the JAX package
+        losses = []
+        pending = None
+
+        def issue(batches):
+            nonlocal pending
+            steps = self._device_chunk(batches) if len(batches) == K > 1 \
+                else [self._loss_batch(self._rows(b)) for b in batches]
+            first = self.step + 1
+            out = torch.stack([self._step(b, gen) for b in steps])
+            out = self._losses_to_host(self._data_mean(out))
+            if pending is not None:
+                self._consume_loss(pending, losses, logger)
+            pending = (out, first)
+
+        chunk, shape = [], None
+        for batch in self._batches(train_dataset, True, c.seed + epoch):
+            if K == 1:
+                issue([batch])
+                continue
+            sh = self._batch_shapes(batch)
+            if chunk and sh != shape:
+                for b in chunk:     # a shape change: single steps
+                    issue([b])
+                chunk = []
+            chunk.append(batch)
+            shape = sh
+            if len(chunk) == K:
+                issue(chunk)
+                chunk = []
+        for b in chunk:             # the epoch's tail: single steps
+            issue([b])
+        if pending is not None:
+            self._consume_loss(pending, losses, logger)
+        entry = {"epoch": epoch, "train_loss": float(np.mean(losses))}
+        if valid_dataset is None:
+            return entry
+        vlosses, vstats = [], []
+        for batch in self._batches(valid_dataset, False, 0):
+            part = self._rows(batch)
+            vloss, aln = self.validation_step(part)
+            vlosses.append(float(vloss))
+            vstats.append(self.validation_stats(part, aln))
+        vlosses, vstats = self._gather_validation(vlosses, vstats)
+        entry["validation_loss"] = float(np.mean(vlosses))
+        means = np.mean(np.asarray(vstats, float), axis=0)
+        for col, v in zip(ROC_COLUMNS, means):
+            entry[f"val_{col}"] = float(v)
+            if logger:
+                logger.log_scalar(f"val_{col}", v, self.step)
+        if logger:
+            logger.log_scalar("validation_loss", entry["validation_loss"],
+                              self.step)
+        return entry
+
+
+class _Trained(nn.Module):
+    """The modules ``fit`` trains under one forward
+    (``DeepBLAST._train_forward``), for ``DistributedDataParallel``: the
+    aligner, and with ``finetune`` the LM's modules that run.  A BiLM's
+    next-token head ``linear`` never gets a gradient (the features come
+    from ``encode``), so it is left out, not searched for as an unused
+    parameter on every step; the cuDNN LSTMs' frozen second biases do not
+    require a gradient, which DDP skips."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.aligner = model.aligner
+        if model.config.finetune:
+            lm = model.lm
+            self.lm = nn.ModuleList(
+                m for n, m in lm.named_children() if n != "linear") \
+                if isinstance(lm, BiLM) else lm
+        self._model = (model,)      # a tuple: not a registered submodule
+
+    def forward(self, b, generator):
+        return self._model[0]._train_forward(b, generator)

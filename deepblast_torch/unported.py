@@ -25,10 +25,6 @@ def _backends():
 UNPORTED = {
     "backend": (_backends, "queue A item 10 (the scan backend, "
                            "ops/dp_scan.py)"),
-    "nodes": ((1,), "queue A item 5 (data parallel)"),
-    "coordinator": ((None,), "queue A item 5 (data parallel)"),
-    "process_id": ((None,), "queue A item 5 (data parallel)"),
-    "tp": ((1,), "queue A item 5 (data parallel)"),
     "visualization_fraction": ((0.0,), "queue A item 7 (visualisations "
                                        "and TensorBoard)"),
 }

@@ -1,5 +1,6 @@
 """Metrics logging to JSON lines (the JSONL part of
-``deepblast_tpu/utils/logging.py:19-40``; TensorBoard is not ported)."""
+``deepblast_tpu/utils/logging.py:19-40``; TensorBoard is not ported).
+Under a process group only rank 0 writes."""
 
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ import json
 import os
 import time
 
+from deepblast_torch.parallel.mesh import is_writer
+
 __all__ = ["MetricsLogger"]
 
 
@@ -15,9 +18,14 @@ class MetricsLogger:
     """Appends one JSON object per scalar to
     ``<root_dir>/<logging_path>/metrics.jsonl``, with the wall-clock time
     it was logged at (``wall_time``, seconds since the epoch, as in a
-    TensorBoard event)."""
+    TensorBoard event).  On a rank other than 0 it writes nothing (its
+    ``path`` is None): the ranks of a data parallel run log the same
+    values, and one output directory takes one writer."""
 
     def __init__(self, root_dir="./", logging_path=None):
+        self.path = self._jsonl = None
+        if not is_writer():
+            return
         if logging_path is None:
             suffix = datetime.datetime.now().strftime("%y%m%d_%H%M%S")
             logging_path = f"logdir_{suffix}"
@@ -26,10 +34,13 @@ class MetricsLogger:
         self._jsonl = open(os.path.join(self.path, "metrics.jsonl"), "a")
 
     def log_scalar(self, tag, value, step):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step),
              "wall_time": time.time()}) + "\n")
         self._jsonl.flush()
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

@@ -160,13 +160,15 @@ def test_load_model_refuses_unported_jax_fields(tmp_path, field, value,
 
 def test_from_json_drops_only_what_changes_nothing():
     """The JAX fields that change nothing the port computes load (and are
-    dropped); a field neither package writes raises."""
+    dropped, ``use_tp_params`` among them); the mesh's ``tp`` is kept; a
+    field neither package writes raises."""
     raw = json.loads(jtrainer.DeepBLASTConfig(**TINY).to_json())
     raw.update(visualization_fraction=0.5, tp=2, use_tp_params=True,
                steps_per_dispatch=8)
     cfg = ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))
     assert cfg.embedding_dim == 16 and cfg.dp_bf16_residuals == "auto"
     assert cfg.steps_per_dispatch == 8
+    assert cfg.tp == 2 and not hasattr(cfg, "use_tp_params")
     raw["bogus"] = 1
     with pytest.raises(ValueError, match="'bogus' is not a field"):
         ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))

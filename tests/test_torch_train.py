@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepblast_torch.cli import common as tcommon
 from deepblast_torch.cli import train as ttrain
 from deepblast_torch.data import dataset as tds
 from deepblast_torch.data import state_utils as tsu
@@ -338,20 +339,53 @@ def test_cli_train_then_load_model_aligns(tmp_path):
     assert walls == sorted(walls)
 
 
-@pytest.mark.parametrize("flag", [["--nodes", "2"],
-                                  ["--tp", "2"],
-                                  ["--visualization-fraction", "0.1"],
-                                  ["--coordinator", "localhost:1"],
-                                  ["--process-id", "1"],
+@pytest.mark.parametrize("flag", [["--visualization-fraction", "0.1"],
                                   ["--backend", "scan"]])
 def test_cli_train_rejects_unported_flags(tmp_path, flag):
     """Each flag of an option the port does not have yet raises, naming
     its ROADMAP.md item (``--pretrain-path``, ``--layer-type rnn`` and
     ``--lm-type bilstm`` are ported: ``tests/test_torch_bilm.py``,
-    ``tests/test_torch_lm_convert.py``)."""
+    ``tests/test_torch_lm_convert.py``; ``--nodes``, ``--tp``,
+    ``--coordinator`` and ``--process-id``:
+    ``test_cli_train_takes_the_distributed_flags``)."""
     with pytest.raises(ValueError, match="not ported.*ROADMAP.md"):
         ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
                      "-o", str(tmp_path), "--device", "cpu", *flag])
+
+
+class _Joined(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag,key,value", [
+    (["--nodes", "2"], "world_size", 2),
+    (["--tp", "2"], "tp", 2),
+    (["--coordinator", "localhost:1"], "init_method", "tcp://localhost:1"),
+    (["--process-id", "1"], "rank", 1)])
+def test_cli_train_takes_the_distributed_flags(tmp_path, monkeypatch, flag,
+                                               key, value):
+    """``--nodes``, ``--coordinator`` and ``--process-id`` reach
+    ``init_process_group`` (through ``initialize_distributed``, with the
+    others set to a coordinator's defaults: 2 processes, rank 0), and
+    ``--tp`` the config (``deepblast_tpu/cli/train.py:22-46``); the process
+    group is monkeypatched, so nothing is joined."""
+    seen = {}
+
+    def join(backend, **kw):
+        seen.update(kw, backend=backend)
+        raise _Joined
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", join)
+    argv = ["--train-pairs", "t", "--valid-pairs", "v", "-o", str(tmp_path),
+            "--device", "cpu", "--coordinator", "127.0.0.1:29500",
+            "--nodes", "2", "--process-id", "0", *flag]
+    config = tcommon.config_from_args(ttrain.parse_args(argv))
+    with pytest.raises(_Joined):
+        ttrain.main(argv)
+    assert seen["backend"] == ("nccl" if torch.cuda.is_available()
+                               else "gloo")
+    got = config.tp if key == "tp" else seen[key]
+    assert got == value
 
 
 def test_cli_train_needs_cuda_unless_told(monkeypatch, tmp_path):
