@@ -73,7 +73,35 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              ``--dp-bf16-residuals auto`` to on, as deepblast-train does;
              checked).  The whole run's
              time, the intervals between the ``train_loss`` records of
-             its own ``metrics.jsonl``, and peak device memory.
+             its own ``metrics.jsonl``, and peak device memory.  The
+             model directory stays for phase 4a.
+4a. evaluate — the evaluation entry points on phase 4's model directory
+             (``phase_evaluate``).  (a) ``python -m
+             deepblast_torch.cli.evaluate`` in process on 16 synthetic
+             TM-align rows of 100-500 residues with chain names: counters
+             zeroed before, read after, the pair skew, the forward, the
+             backward and the unskew must have run; the CSV has 16 rows,
+             the JAX header and the names in batch order, and its
+             statistics equal ``test()`` run with the plain passes on the
+             card at the same weights; then every kernel = plain at the
+             potentials of the evaluate batch, in float32 and under the
+             run's menu.  (b) ``python -m deepblast_torch.cli.mali_align``
+             on 4 homolog structure pairs of 100-300 residues
+             (``dssp.build_backbone`` over a ``homolog_row`` alignment's
+             columns, the two chains written as PDB files): counters as in
+             (a), the pair skew, the forward and the backward must have
+             run; each ``deepblast`` string = the in-memory model's
+             ``align(s1.seq, s0.seq)``; ``process_alignment`` TM-scores of
+             the predicted and the true state strings finite, in (0, 1],
+             printed; then every kernel = plain at the potentials of the
+             longest pair as ``align`` gives it (a batch of 1), in
+             float32 and under the decode menu.  (c) ``python -m deepblast_torch.cli.tensorboard2csv``
+             on phase 4's logdir: one row per scalar record of its
+             ``metrics.jsonl``.  The seconds of each ``load_model``,
+             ``test()`` and ``align``; the launches of (a) and (b) are the
+             kernels line's eighth path.  (``hmm_simulate`` needs HMMER's
+             ``hmmemit``, which the card's machine lacks: it is held on the
+             CPU only, ``tests/test_torch_eval.py``.)
 4b. options — the trainer options at ProtT5-XL + CNN-1024 width: (a)
              ``cli.train --precision bf16 --grad-accum 2
              --steps-per-dispatch 4``, batch 16, 1 epoch, on 128 pairs of
@@ -272,10 +300,27 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+
+def _load_helpers():
+    """``tests/synthetic_pairs.py`` of this checkout, by its path (a
+    ``tests`` package installed elsewhere cannot shadow it)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "synthetic_pairs.py")
+    spec = importlib.util.spec_from_file_location("synthetic_pairs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_pairs = _load_helpers()
+RESIDUES, protein, homolog_row, write_structure_pair = (
+    _pairs.RESIDUES, _pairs.protein, _pairs.homolog_row,
+    _pairs.write_structure_pair)
+
 RTOL, ATOL = 1e-4, 1e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-RESIDUES = "ACDEFGHIKLMNPQRSTVWY"
 SOURCE = "deepblast_torch/csrc/dp_kernels.cu"
 KERNELS = ("skew", "skew_pair", "unskew", "forward", "forward_score",
            "backward", "adjoint_forward", "adjoint_backward")
@@ -480,10 +525,6 @@ def mutate(rng, x):
         if rng.random() < 0.03:
             out.extend(rng.choice(list(RESIDUES), rng.integers(1, 4)))
     return "".join(out)
-
-
-def protein(rng, lo, hi):
-    return "".join(rng.choice(list(RESIDUES), int(rng.integers(lo, hi + 1))))
 
 
 # ---------------------------------------------------------------------------
@@ -1420,30 +1461,6 @@ def phase_serving(seed, card):
 # phase 4: training through the CLI at ProtT5-XL width
 # ---------------------------------------------------------------------------
 
-def homolog_row(rng, name, lo, hi, cap=1024):
-    """A TM-align TSV row: a protein of length lo..hi, a homolog with
-    substitutions and short indels (both shorter than ``cap``), and the
-    alignment that made it."""
-    while True:
-        x = protein(rng, lo, hi)
-        y, states = [], []
-        for c in x:
-            u = rng.random()
-            if u < 0.04:
-                states.append("1")              # deleted from y
-                continue
-            y.append(rng.choice(list(RESIDUES)) if u < 0.25 else c)
-            states.append(":")
-            if rng.random() < 0.03:             # inserted into y
-                ins = rng.integers(1, 4)
-                y.extend(rng.choice(list(RESIDUES), ins))
-                states.extend("2" * ins)
-        if max(len(x), len(y)) < cap:
-            tm = rng.uniform(0.5, 0.9)
-            return [f"{name}_a", f"{name}_b", f"{tm:.4f}", f"{tm:.4f}",
-                    "1.0", x, "".join(y), "".join(states)]
-
-
 def _write_tsv(path, rows):
     with open(path, "w") as f:
         for r in rows:
@@ -1477,7 +1494,9 @@ def train_rows(seed):
     return rows, valid
 
 
-def phase_train(seed, card):
+def phase_train(seed, card, out):
+    """``cli.train`` into the model directory ``out``, which phase
+    ``evaluate`` reads after it."""
     from deepblast_torch.cli import train as cli_train
     from deepblast_torch.ops import dp_cuda
     from deepblast_torch.train.checkpoint import load_model
@@ -1490,7 +1509,6 @@ def phase_train(seed, card):
         paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
         _write_tsv(paths[0], rows)
         _write_tsv(paths[1], valid)
-        out = os.path.join(tmp, "out")
         torch.cuda.reset_peak_memory_stats()
         dp_cuda.reset_launches()
         t0 = time.time()
@@ -1527,6 +1545,7 @@ def phase_train(seed, card):
         # every training kernel, and autograd through them, against the
         # plain versions at the potentials of the longest training batch
         batches = list(model._batches(model._dataset(paths[0]), True, seed))
+        mode, operator = model.aligner.mode, model.config.operator
         batch = max(batches, key=lambda b: b["x"].shape[1])
         with torch.no_grad():
             b = model._as_batch(batch)
@@ -1577,6 +1596,230 @@ def phase_train(seed, card):
     log(f"phase train: kernels = plain and autograd = plain and CPU at the "
         f"longest training batch {checked}; max abs diff "
         f"{json.dumps(errs)}")
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the evaluation entry points on phase 4's model
+# ---------------------------------------------------------------------------
+
+#: the kernels of ``cli.evaluate``'s validation forward and of
+#: ``cli.mali_align``'s stream decode
+EVAL_KERNELS = ("skew_pair", "forward", "backward", "unskew")
+MALI_KERNELS = ("skew_pair", "forward", "backward")
+TEST_COLUMNS = [f"test_{c}" for c in ("tp", "fp", "fn", "perc_id", "ppv",
+                                      "fnr", "fdr")] + ["query_name",
+                                                        "key_name"]
+
+
+def phase_evaluate(seed, card, out):
+    """The evaluation CLIs on phase 4's model directory ``out``: (a)
+    ``cli.evaluate`` on 16 TM-align rows = ``test()`` with the plain
+    passes, then the kernels = plain at the batch's potentials; (b)
+    ``cli.mali_align`` on 4 structure pairs = the in-memory ``align``, the
+    TM-scores of the predicted and the true alignments, then the kernels =
+    plain at the longest pair's potentials under the decode menu; (c)
+    ``cli.tensorboard2csv`` on phase 4's logdir."""
+    import csv
+
+    from deepblast_torch.cli import evaluate as cli_evaluate
+    from deepblast_torch.cli import mali_align as cli_mali
+    from deepblast_torch.cli import tensorboard2csv as cli_tb
+    from deepblast_torch.data.parse_pdb import readPDB
+    from deepblast_torch.eval.metrics import process_alignment
+    from deepblast_torch.ops import dp as dp_ops
+    from deepblast_torch.ops import dp_cuda, dp_ref
+    from deepblast_torch.train import checkpoint
+    from deepblast_torch.train.trainer import DeepBLAST
+    from deepblast_torch.utils.table import read_csv, write_csv
+
+    rng = np.random.default_rng(seed + 14)
+    rows = [homolog_row(rng, f"e{i}", 100, 500) for i in range(16)]
+    pairs = [homolog_row(rng, f"m{i}", 100, 300) for i in range(4)]
+    errs, seconds, loaded = {}, {}, []
+    originals = checkpoint.load_model, DeepBLAST.test, DeepBLAST.align
+
+    def timed_call(name, fn):
+        """``fn`` adding the synchronized seconds of each call to
+        ``seconds[name]``."""
+        def wrapped(*a, **k):
+            t0 = time.time()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.setdefault(name, []).append(round(time.time() - t0, 3))
+            return r
+        return wrapped
+
+    def keep(*a, **k):
+        loaded.append(originals[0](*a, **k))
+        return loaded[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv, res = os.path.join(tmp, "test.tsv"), os.path.join(tmp, "eval")
+        _write_tsv(tsv, rows)
+        mali, table = os.path.join(tmp, "mali"), os.path.join(tmp, "m.csv")
+        os.makedirs(mali)
+        for t, r in enumerate(pairs):
+            write_structure_pair(rng, r, os.path.join(mali, f"p{t}_x.pdb"),
+                                 os.path.join(mali, f"p{t}_y.pdb"))
+        # column 0 the y chain, 1 the x chain: the CLI aligns (s1, s0)
+        write_csv(os.path.join(tmp, "pairs.csv"),
+                  [{"0": f"p{t}_y.pdb", "1": f"p{t}_x.pdb", "2": r[7]}
+                   for t, r in enumerate(pairs)])
+        checkpoint.load_model = timed_call("load_model", keep)
+        DeepBLAST.test = timed_call("test", originals[1])
+        DeepBLAST.align = timed_call("align", originals[2])
+        try:
+            dp_cuda.reset_launches()
+            t0 = time.time()
+            rc = cli_evaluate.main(["--load-from-checkpoint", out,
+                                    "--test-pairs", tsv, "-o", res])
+            torch.cuda.synchronize()
+            seconds["cli.evaluate"] = round(time.time() - t0, 3)
+            eval_launches = dict(dp_cuda.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.evaluate returned {rc}")
+            dp_cuda.reset_launches()
+            t0 = time.time()
+            rc = cli_mali.main(["--mali-pairs", os.path.join(tmp,
+                                                             "pairs.csv"),
+                                "--input-mali-dir", mali,
+                                "--load-from-checkpoint", out,
+                                "--output-alignments", table])
+            torch.cuda.synchronize()
+            seconds["cli.mali_align"] = round(time.time() - t0, 3)
+            mali_launches = dict(dp_cuda.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.mali_align returned {rc}")
+        finally:
+            checkpoint.load_model, DeepBLAST.test, DeepBLAST.align = \
+                originals
+        model = loaded.pop(0)
+        loaded.clear()
+        torch.cuda.empty_cache()
+
+        # (a) the CSV against test() with the plain passes, same weights
+        label, index, got = read_csv(os.path.join(res,
+                                                  "test.tsv-results.csv"))
+        ds = model._dataset(tsv, return_names=True)
+        batches = list(model._batches(ds, False, 0))
+        names = [n for b in batches for n in b["names"]]
+        passes = dp_ops._passes
+        dp_ops._passes = lambda t: dp_ref
+        try:
+            t0 = time.time()
+            plain = model.test(ds)
+            torch.cuda.synchronize()
+            seconds["test (plain passes)"] = round(time.time() - t0, 3)
+        finally:
+            dp_ops._passes = passes
+        if label != "" or index != list(range(16)) or len(got) != 16 or \
+                any(list(r) != TEST_COLUMNS for r in got):
+            raise AssertionError(f"cli.evaluate's CSV: index {label!r} "
+                                 f"{index}, columns {list(got[0])}")
+        if [(r["query_name"], r["key_name"]) for r in got] != names:
+            raise AssertionError("cli.evaluate's CSV: names not in batch "
+                                 "order")
+        if [list(r.values()) for r in got] != \
+                [list(r.values()) for r in plain]:
+            raise AssertionError("cli.evaluate's statistics differ from "
+                                 "test() with the plain passes")
+        mode, operator = model.aligner.mode, model.config.operator
+        batch = max(batches, key=lambda b: b["x"].shape[1])
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            check_kernels(theta, A, *lengths, mode, operator, errs)
+            check_menu_kernels(theta, A, *lengths, mode, operator,
+                               model.dp_dtypes, errs)
+        torch.cuda.synchronize()
+        checked = tuple(theta.shape)
+        del hx, hy, theta, A
+
+        # (b) the alignments against the in-memory model's, and TM-scores
+        _, _, aligned = read_csv(table)
+        tm = []
+        for t, (r, a) in enumerate(zip(pairs, aligned)):
+            px, py = (os.path.join(mali, f"p{t}_{c}.pdb") for c in "xy")
+            _, s0 = readPDB(py)
+            _, s1 = readPDB(px)
+            if (s1.seq, s0.seq) != (r[5], r[6]):
+                raise AssertionError(f"pair {t}: readPDB's sequences are not "
+                                     f"the row's")
+            if list(a) != ["query_seq", "hit_seq", "manual", "deepblast"] \
+                    or a["deepblast"] != model.align(s1.seq, s0.seq):
+                raise AssertionError(f"cli.mali_align row {t}: {a}")
+            scores = [process_alignment(s, pdb0=px, pdb1=py).TM
+                      for s in (a["deepblast"], r[7])]
+            if not all(math.isfinite(v) and 0 < v <= 1 for v in scores):
+                raise AssertionError(f"pair {t}: TM-scores {scores}")
+            tm.append([round(float(v), 4) for v in scores])
+        if len(aligned) != 4:
+            raise AssertionError(f"cli.mali_align wrote {len(aligned)} rows")
+        # the kernels at the stream decode's own shape: the longest pair as
+        # align gives it (s1 against s0, a batch of 1), the decode's menu
+        x, y = max(((r[5], r[6]) for r in pairs),
+                   key=lambda p: len(p[0]) * len(p[1]))
+        tok = model.tokenizer
+        mali_errs = {}
+        with torch.no_grad():
+            b = model._as_batch(dict(
+                x=tok(x)[0][None], y=tok(y)[0][None],
+                x_len=np.asarray([len(x)], np.int32),
+                y_len=np.asarray([len(y)], np.int32)))
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+            check_kernels(theta, A, *lengths, mode, operator, mali_errs)
+            check_menu_kernels(theta, A, *lengths, mode, operator,
+                               model.dp_decode_dtypes, mali_errs)
+        torch.cuda.synchronize()
+        checked_mali = tuple(theta.shape)
+        del hx, hy, theta, A
+
+        # (c) phase 4's metrics.jsonl as a CSV
+        logdir = os.path.join(out, next(d for d in os.listdir(out)
+                                        if d.startswith("logdir_")))
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            scalars = sum("value" in json.loads(line) for line in f)
+        m_csv = os.path.join(tmp, "metrics.csv")
+        if cli_tb.main(["--logdir", logdir, "--output-csv", m_csv]) != 0:
+            raise AssertionError("cli.tensorboard2csv failed")
+        with open(m_csv, newline="") as f:
+            lines = list(csv.reader(f))
+        if lines[0] != ["tag", "value", "step", "wall_time"] or \
+                len(lines) - 1 != scalars:
+            raise AssertionError(f"tensorboard2csv: header {lines[0]}, "
+                                 f"{len(lines) - 1} rows of {scalars}")
+    model_menus = model.dp_dtypes, model.dp_decode_dtypes
+    del model
+    torch.cuda.empty_cache()
+
+    for name, launches, need in (("cli.evaluate", eval_launches,
+                                  EVAL_KERNELS),
+                                 ("cli.mali_align", mali_launches,
+                                  MALI_KERNELS)):
+        if any(launches[k] == 0 for k in need):
+            raise AssertionError(f"a kernel did not run on {name}'s path: "
+                                 f"{launches}")
+    launches = {k: eval_launches[k] + mali_launches[k] for k in eval_launches}
+    log(f"phase evaluate: cli.evaluate on 16 rows of 100-500 residues, "
+        f"batches {[tuple(b['x'].shape) + (b['y'].shape[1],) for b in batches]}"
+        f", = test() with the plain passes; cli.mali_align on 4 structure "
+        f"pairs of 100-300 residues = align; TM-score (predicted, true) "
+        f"{tm}; tensorboard2csv {scalars} rows; seconds "
+        f"{json.dumps(seconds)} [{card}]; launches evaluate "
+        f"{json.dumps(eval_launches)}, mali_align {json.dumps(mali_launches)}")
+    log(f"phase evaluate: kernels = plain at the evaluate batch {checked}, "
+        f"float32 and the menu {model_menus[0]}; max abs diff "
+        f"{json.dumps(errs)}")
+    log(f"phase evaluate: kernels = plain at mali_align's longest pair "
+        f"{checked_mali}, float32 and the decode menu {model_menus[1]}; max "
+        f"abs diff {json.dumps(mali_errs)}")
+    for k, v in mali_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
     return launches, errs
 
 
@@ -2751,6 +2994,7 @@ def phase_long(seed, card):
         # the "pallas" name: the same Q kernels behind the same skew and
         # unskew kernels (TPU rows 19-20), at the longest batch
         batches = list(model._batches(model._dataset(paths[0]), True, seed))
+        mode, operator = model.aligner.mode, model.config.operator
         batch = max(batches, key=lambda b: b["x"].shape[1])
         with torch.no_grad():
             b = model._as_batch(batch)
@@ -3939,7 +4183,11 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp, Worker(tmp) as worker:
         errs = timed("kernels", phase_kernels, seed)
         serving, path_errs = timed("serving", phase_serving, seed, card)
-        training, train_errs = timed("train", phase_train, seed, card)
+        model_dir = os.path.join(tmp, "train")
+        training, train_errs = timed("train", phase_train, seed, card,
+                                     model_dir)
+        evaluate, eval_errs = timed("evaluate", phase_evaluate, seed, card,
+                                    model_dir)
         options, options_errs = timed("options", phase_options, seed, card)
         par, par_errs = timed("parallel", phase_parallel, seed, card)
         # the worker's card time would count in the phases timed below
@@ -3965,14 +4213,14 @@ def main(argv):
         f"each) {json.dumps(CHECK_SECONDS)}")
     kernels = []
     for k in KERNELS + Q_KERNELS + Q_BF16:
-        checked = [d[k] for d in (errs, path_errs, train_errs, options_errs,
-                                  par_errs, worker_errs, bilm_errs,
-                                  long_errs, menu_errs) if k in d]
+        checked = [d[k] for d in (errs, path_errs, train_errs, eval_errs,
+                                  options_errs, par_errs, worker_errs,
+                                  bilm_errs, long_errs, menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
         launches = bf16_launches[k] if k in Q_BF16 else \
-            serving[k] + training[k] + options[k] + par[k] + bilm[k] + \
-            long_[k] + menu[k]
+            serving[k] + training[k] + evaluate[k] + options[k] + par[k] + \
+            bilm[k] + long_[k] + menu[k]
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE,
             replaces=REPLACES[k.replace("_bf16", "")],

@@ -1,8 +1,9 @@
 """Datasets and batching (own copies of
-``deepblast_tpu/data/dataset.py:40-118,154-249``), without pandas.
+``deepblast_tpu/data/dataset.py``), without pandas.
 
 :class:`TMAlignDataset` reads the 8-column TM-align TSV with ``csv`` (or
-takes a list of row tuples); :func:`collate` pads items into one batch and
+takes a list of row tuples); :class:`MaliAlignmentDataset` takes gapped
+pairs (Malidup/Malisam); :func:`collate` pads items into one batch and
 :func:`make_batches` shuffles and length-buckets with numpy's
 ``default_rng(seed)``, in the JAX package's order.  :class:`FastaDataset`
 streams query x database pairs for search.
@@ -15,11 +16,12 @@ import math
 
 import numpy as np
 
-from deepblast_torch.data.alphabet import ProtT5Tokenizer
+from deepblast_torch.data.alphabet import ProtT5Tokenizer, UniprotTokenizer
 from deepblast_torch.data.state_utils import (
     clip_boundaries,
     gap_mask,
     path_distance_matrix,
+    state_f,
     states2edges,
     states2matrix,
     tmstate_f,
@@ -28,6 +30,7 @@ from deepblast_torch.data.state_utils import (
 __all__ = [
     "TM_COLUMNS",
     "TMAlignDataset",
+    "MaliAlignmentDataset",
     "FastaDataset",
     "read_fasta",
     "collate",
@@ -59,16 +62,17 @@ def _read_rows(path):
 
 
 class TMAlignDataset:
-    """TM-align training pairs (8 columns in ``TM_COLUMNS`` order), from a
-    TSV path or a list of row tuples.  Pairs with ``max(tmscore1,
-    tmscore2) <= tm_threshold`` or a chain of ``max_len`` or more residues
-    are dropped.  Items have leading and trailing gaps clipped and the
-    gap mask of the confident (``:``) cells; ``construct_paths`` fills
-    ``path`` with each cell's distance to the alignment path (else
-    zeros)."""
+    """TM-align pairs (8 columns in ``TM_COLUMNS`` order), from a TSV path
+    or a list of row tuples.  Pairs with ``max(tmscore1, tmscore2) <=
+    tm_threshold`` or a chain of ``max_len`` or more residues are dropped.
+    Items have leading and trailing gaps clipped and the gap mask of the
+    confident (``:``) cells; ``construct_paths`` fills ``path`` with each
+    cell's distance to the alignment path (else zeros); ``return_names``
+    adds ``names`` (the two chain names) and ``seqs`` (the two clipped
+    sequences)."""
 
     def __init__(self, path, tokenizer=None, tm_threshold=0.4, max_len=1024,
-                 construct_paths=False):
+                 return_names=False, construct_paths=False):
         self.tokenizer = tokenizer or ProtT5Tokenizer()
         rows = _read_rows(path) if isinstance(path, str) else list(path)
         self.pairs = []
@@ -78,6 +82,7 @@ class TMAlignDataset:
             length = max(len(rec["chain1"]), len(rec["chain2"]))
             if tm > tm_threshold and length < max_len:
                 self.pairs.append(rec)
+        self.return_names = return_names
         self.construct_paths = construct_paths
 
     def __len__(self):
@@ -105,8 +110,50 @@ class TMAlignDataset:
         else:
             path = np.zeros((lg, lp), np.float32)
         g = _reshape(gap_mask(st), lg, lp)
-        return dict(x=x_tok, y=y_tok, states=states,
+        item = dict(x=x_tok, y=y_tok, states=states,
                     aln=aln, path=path.astype(np.float32), gmask=g)
+        if self.return_names:
+            item["names"] = (row["chain1_name"], row["chain2_name"])
+            item["seqs"] = (gene, pos)
+        return item
+
+
+class MaliAlignmentDataset:
+    """Gapped pairs (Malidup/Malisam): ``pairs`` is a list of rows whose
+    items 0 and 1 are the two gapped sequences of one alignment (tuples,
+    or mappings keyed 0 and 1).  Items have
+    the Uniprot21 ids (``UniprotTokenizer`` by default) of the ungapped
+    sequences, the states, the alignment matrix, a zero ``path`` and an
+    all-ones gap mask."""
+
+    def __init__(self, pairs, tokenizer=None):
+        self.pairs = list(pairs)
+        self.tokenizer = tokenizer or UniprotTokenizer()
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def lengths(self):
+        """Per-pair max ungapped sequence length (batching sort key)."""
+        return np.array([
+            max(len(str(r[0]).replace("-", "")),
+                len(str(r[1]).replace("-", "")))
+            for r in self.pairs], np.int64)
+
+    def __getitem__(self, i):
+        gene, pos = self.pairs[i][0], self.pairs[i][1]
+        if len(gene) != len(pos):
+            raise ValueError(f"pair {i}: gapped sequences of lengths "
+                             f"{len(gene)} and {len(pos)}")
+        states = np.asarray(
+            [state_f(z) for z in zip(gene, pos)], np.int32)
+        aln = states2matrix(states).astype(np.float32)
+        x_tok = np.asarray(self.tokenizer(gene.replace("-", "")), np.int32)
+        y_tok = np.asarray(self.tokenizer(pos.replace("-", "")), np.int32)
+        lg, lp = len(gene.replace("-", "")), len(pos.replace("-", ""))
+        aln = _reshape(aln, lg, lp)
+        return dict(x=x_tok, y=y_tok, states=states, aln=aln,
+                    path=np.zeros_like(aln), gmask=np.ones_like(aln, bool))
 
 
 def read_fasta(path):
@@ -153,8 +200,9 @@ def _bucket(n, multiple):
 def collate(items, pad_multiple=1):
     """Pad a list of dataset items into one fixed-shape batch dict:
     ``x, y (B, Lx|Ly) int32``, ``x_len, y_len (B,)``, ``aln, path
-    (B, Lx, Ly) float32``, ``gmask (B, Lx, Ly) bool`` and the ragged
-    ``states`` list for host-side evaluation."""
+    (B, Lx, Ly) float32``, ``gmask (B, Lx, Ly) bool``, the ragged
+    ``states`` list for host-side evaluation and, where the items have
+    them, the ``names`` and ``seqs`` lists."""
     B = len(items)
     xl = np.array([len(it["x"]) for it in items], np.int32)
     yl = np.array([len(it["y"]) for it in items], np.int32)
@@ -172,15 +220,19 @@ def collate(items, pad_multiple=1):
         aln[b, :n, :mm] = it["aln"]
         path[b, :n, :mm] = it["path"]
         g[b, :n, :mm] = it["gmask"]
-    return dict(x=x, y=y, x_len=xl, y_len=yl, aln=aln, path=path, gmask=g,
-                states=[it["states"] for it in items])
+    batch = dict(x=x, y=y, x_len=xl, y_len=yl, aln=aln, path=path,
+                 gmask=g, states=[it["states"] for it in items])
+    if "names" in items[0]:
+        batch["names"] = [it["names"] for it in items]
+        batch["seqs"] = [it["seqs"] for it in items]
+    return batch
 
 
 def make_batches(dataset, batch_size, shuffle=True, seed=0, pad_multiple=16,
                  drop_last=False):
-    """Yield collated batches of a :class:`TMAlignDataset`: shuffle, stable
-    sort by length, cut into ``batch_size`` chunks (with ``drop_last``,
-    without a last short one), shuffle the chunks."""
+    """Yield collated batches of a dataset: shuffle, stable sort by length,
+    cut into ``batch_size`` chunks (with ``drop_last``, without a last
+    short one), shuffle the chunks."""
     idx = np.arange(len(dataset))
     rng = np.random.default_rng(seed)
     if shuffle:

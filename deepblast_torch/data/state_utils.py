@@ -1,5 +1,5 @@
 """Alignment-state helpers (own copies from
-``deepblast_tpu/data/state_utils.py:38-195`` and
+``deepblast_tpu/data/state_utils.py:38-274`` and
 ``deepblast_tpu/constants.py``).
 
 States are (x, m, y) = (0, 1, 2): ``x`` consumes a residue of the first
@@ -26,7 +26,11 @@ __all__ = [
     "clip_boundaries",
     "gap_mask",
     "path_distance_matrix",
+    "remove_orphans",
+    "trim_gap_span",
+    "trim_gap",
     "pad_sequences",
+    "decode_tokens",
 ]
 
 x, m, y = 0, 1, 2
@@ -177,6 +181,71 @@ def path_distance_matrix(pi):
     return out
 
 
+def _window(seq, n):
+    for i in range(len(seq) - n + 1):
+        yield tuple(seq[i:i + n])
+
+
+def _replace_orphan(w, s):
+    i = len(w) // 2
+    sw = "".join(w)
+    if w[i] == ":" and (("1" * s in sw[:i] and "1" * s in sw[i:])
+                        or ("2" * s in sw[:i] and "2" * s in sw[i:])):
+        return ["1", "2"]
+    return [w[i]]
+
+
+def remove_orphans(states: str, threshold: int = 11) -> str:
+    """Replace a match orphaned inside long gaps (a run of ``threshold //
+    2`` of one gap state on both sides within the window) by a gap pair
+    ``12``; the ends are kept as the JAX package keeps them (one more
+    state at the end than at the start)."""
+    wins = list(_window(states, threshold))
+    out = []
+    for w in wins:
+        out.extend(_replace_orphan(w, threshold // 2))
+    out = list(states[:threshold // 2]) + out
+    out += list(states[-threshold // 2 + 1:])
+    return "".join(out)
+
+
+def trim_gap_span(is_match, k=10):
+    """Longest half-open span ``[i, j)`` of the alignment containing no run
+    of ``k`` consecutive gaps, by one linear scan."""
+    is_match = np.asarray(is_match).astype(bool)
+    best_i = best_j = 0
+    start = 0
+    run = 0
+    for idx, v in enumerate(is_match):
+        run = 0 if v else run + 1
+        if run >= k:
+            # a window holding positions [idx-k+1, idx] is invalid: it
+            # must start after the first gap of the run
+            start = idx - k + 2
+        if idx + 1 - start > best_j - best_i:
+            best_i, best_j = start, idx + 1
+    return best_i, best_j
+
+
+def trim_gap(row, k=10):
+    """A TM-align record (a mapping with ``chain1``, ``chain2`` and
+    ``alignment``, e.g. a ``TMAlignDataset`` row) cut to its longest span
+    without ``k`` consecutive gaps; a copy of the record when it has no
+    such run."""
+    aln = row["alignment"]
+    is_match = np.array(list(aln)) == ":"
+    if "0" * k not in "".join(map(str, is_match.astype(int))):
+        return dict(row)
+    i, j = trim_gap_span(is_match, k)
+    states = np.array([tmstate_f(s) for s in aln])
+    ax, ay = states2alignment(states, row["chain1"], row["chain2"])
+    out = dict(row)
+    out["chain1"] = ax[i:j].replace("-", "")
+    out["chain2"] = ay[i:j].replace("-", "")
+    out["alignment"] = aln[i:j]
+    return out
+
+
 def pad_sequences(seqs, pad_value=0, dtype=None):
     """Stack variable-length 1-D arrays into a padded matrix + lengths."""
     lengths = np.array([len(s) for s in seqs], dtype=np.int32)
@@ -186,3 +255,10 @@ def pad_sequences(seqs, pad_value=0, dtype=None):
     for i, s in enumerate(seqs):
         out[i, :len(s)] = s
     return out, lengths
+
+
+def decode_tokens(codes, vocab):
+    """Token ids -> string, given a token -> id ``vocab`` (sentencepiece's
+    word marker ``▁`` dropped)."""
+    inv = {v: k for k, v in vocab.items()}
+    return "".join(inv[int(c)] for c in codes).replace("▁", "")

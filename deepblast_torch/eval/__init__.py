@@ -1,1 +1,2 @@
-"""Alignment-accuracy statistics (own copies from ``deepblast_tpu.eval``)."""
+"""Alignment-accuracy statistics and structural metrics (own copies from
+``deepblast_tpu.eval``)."""

@@ -16,7 +16,10 @@ serves the entry points of the JAX package:
   traceback walk on the stream; for a backend without a stream accessor,
   the natural expected alignment -> traceback);
 * :meth:`DeepBLAST.score_pairs` — a padded batch -> alignment scores
-  (``trainer.py:738-749``), the search path.
+  (``trainer.py:738-749``), the search path;
+* :meth:`DeepBLAST.test` — a TM-align test set -> per-pair traceback
+  statistics of the natural expected alignment (``trainer.py:683-699``),
+  the ``evaluate`` CLI's path.
 
 The optimizer is optax's ``clip_by_global_norm`` + ``adamw`` in PyTorch:
 the clip ``g <- g / |g| * c`` when ``|g| >= c`` (``clip_grad_norm_`` adds
@@ -656,9 +659,28 @@ class DeepBLAST:
             stats.append(roc_edges(true_edges, pred_edges))
         return stats
 
-    def _dataset(self, path):
+    def _dataset(self, path, **kw):
         return TMAlignDataset(path, tokenizer=self.tokenizer,
-                              max_len=self.config.max_len)
+                              max_len=self.config.max_len, **kw)
+
+    def test(self, test_dataset=None):
+        """Per-pair traceback statistics of a test set, one row a pair
+        (``trainer.py:683-699``): ``test_<c>`` for each of ``ROC_COLUMNS``,
+        and ``query_name`` and ``key_name`` where the batches carry names;
+        the batches unshuffled, in eval mode (no dropout), one process
+        (no sharding under a process group).  The set defaults to
+        ``config.test_pairs`` with names."""
+        test_dataset = test_dataset or self._dataset(
+            self.config.test_pairs, return_names=True)
+        rows = []
+        for batch in self._batches(test_dataset, False, 0):
+            _, aln = self.validation_step(batch)
+            for b, st in enumerate(self.validation_stats(batch, aln)):
+                row = {f"test_{c}": v for c, v in zip(ROC_COLUMNS, st)}
+                if "names" in batch:
+                    row["query_name"], row["key_name"] = batch["names"][b]
+                rows.append(row)
+        return rows
 
     def _batches(self, dataset, shuffle, seed):
         return make_batches(dataset, self.config.batch_size, shuffle=shuffle,

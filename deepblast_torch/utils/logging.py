@@ -1,6 +1,7 @@
 """Metrics logging to JSON lines (the JSONL part of
-``deepblast_tpu/utils/logging.py:19-40``; TensorBoard is not ported).
-Under a process group only rank 0 writes."""
+``deepblast_tpu/utils/logging.py:19-86``; TensorBoard is not ported, see
+ROADMAP.md queue A item 7).  Under a process group only rank 0 writes.
+:func:`tensorboard_to_csv` exports the scalars of a ``metrics.jsonl``."""
 
 from __future__ import annotations
 
@@ -10,8 +11,9 @@ import os
 import time
 
 from deepblast_torch.parallel.mesh import is_writer
+from deepblast_torch.utils.table import write_csv
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "tensorboard_to_csv"]
 
 
 class MetricsLogger:
@@ -44,3 +46,25 @@ class MetricsLogger:
     def close(self):
         if self._jsonl is not None:
             self._jsonl.close()
+
+
+def tensorboard_to_csv(logdir, out_csv, pattern=None):
+    """Write the scalar records of ``<logdir>/metrics.jsonl`` (those with a
+    ``value``; with ``pattern``, those whose tag contains it) to
+    ``out_csv``, one row each, the keys in order of first appearance as
+    columns (this logger's ``wall_time`` among them), no index; returns
+    the rows.  A logdir without ``metrics.jsonl`` (TensorBoard event
+    files only) raises: reading event files is ROADMAP.md queue A item 7."""
+    jsonl = os.path.join(logdir, "metrics.jsonl")
+    if not os.path.exists(jsonl):
+        raise FileNotFoundError(
+            f"{jsonl} does not exist: reading TensorBoard event files is "
+            "not ported to deepblast_torch yet (ROADMAP.md queue A item 7)")
+    rows = []
+    with open(jsonl) as f:
+        for line in f:
+            d = json.loads(line)
+            if "value" in d and (pattern is None or pattern in d["tag"]):
+                rows.append(d)
+    write_csv(out_csv, rows, index=False)
+    return rows
