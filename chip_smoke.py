@@ -177,6 +177,29 @@ CUDA device or no ``deepblast_torch`` package beside it.  Phases:
              RNN heads' outputs on the card = on the CPU to 1e-4 of scale,
              and by CUDA events a training step against its BiLM forward
              and its RNN heads' forward + backward.
+4e. scan   — the scan backend (``backend="scan"``: the recursions as plain
+             PyTorch operations per anti-diagonal, in the inputs' dtype),
+             after 4c (``phase_scan``).  (a) ``cli.train --backend scan``
+             at ProtT5-XL + CNN-1024 on 16 synthetic rows of 100-250
+             residues and 8 validation rows, batch 8, 1 epoch, at the
+             default ``--visualization-fraction`` 0.1, and the same
+             command with ``--backend pallas_bm --no-dp-bf16-residuals``:
+             counters zeroed before each, read after: no DP kernel under
+             scan, every training kernel under pallas_bm (the kernels
+             line's ninth path); the first ``train_loss`` equal to
+             ``SCAN_RTOL`` (the later ones reported: why at the constant);
+             the alignment texts and event files each run wrote (the
+             card's machine has tensorboard and no matplotlib: event
+             files, every pair's figure and text skipped).  (b) At the
+             potentials of the longest training batch: a DP step under
+             each backend (CUDA events), each one's outputs against a
+             float64 run of the scan (the scan at most twice the kernels'
+             distance plus 1e-4 of scale), and
+             every kernel = plain.  (c) float64 ``expected_alignment`` and
+             its gradient under scan at (4, 200, 150) on the card = on the
+             CPU to ``SCAN_F64_TOL`` of scale, outputs float64 on the
+             card.  (d) ``align`` under scan and under pallas_bm on the
+             same model, state agreement >= ``SCAN_ALIGN_AGREEMENT``.
 5. long    — the long-sequence backend (``pallas_long``: the Q-stream
              kernels, each pair split across a thread-block cluster).
              In the worker: each Q kernel against its plain version at
@@ -1250,7 +1273,7 @@ def check_autograd(theta, A, ln, lm, mode, operator, errs, backend=None,
 
     kern = grads(theta.device)
     passes = dp_ops._passes
-    dp_ops._passes = lambda t: dp_ref
+    dp_ops._passes = lambda t, be: dp_ref
     try:
         plain = grads(theta.device)
     finally:
@@ -1705,7 +1728,7 @@ def phase_evaluate(seed, card, out):
         batches = list(model._batches(ds, False, 0))
         names = [n for b in batches for n in b["names"]]
         passes = dp_ops._passes
-        dp_ops._passes = lambda t: dp_ref
+        dp_ops._passes = lambda t, be: dp_ref
         try:
             t0 = time.time()
             plain = model.test(ds)
@@ -2912,6 +2935,240 @@ class Worker:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the scan backend
+# ---------------------------------------------------------------------------
+
+#: phase ``scan``'s LM flags (a CPU rehearsal swaps in a small LM)
+SCAN_LM = ("--lm-type", "prot_t5")
+#: phase ``scan``'s training rows (how many, shortest, longest residues)
+#: and validation rows
+SCAN_ROWS = (16, 100, 250)
+SCAN_VALID = 8
+#: the first ``train_loss`` under scan against pallas_bm with float32
+#: residuals: one forward in fp32 by two routes (the scan's direct max3
+#: of the arguments, the kernels' of their differences), which part in
+#: the last bits.  The later steps are reported, not held: at seeded
+#: random weights of this width the gap head's gradient is a sum of
+#: float32 noise (``scripts/torch_scan_step_parting.py``, on the CPU:
+#: both routes' DP outputs 6e-4-8e-4 of scale from float64, their gap
+#: head's first gradient 0.67 and 1.0 of scale from float64's), and
+#: AdamW's first update is ``lr * sign(g)`` element by element, so the
+#: second steps part (1.1% in a first card run)
+SCAN_RTOL = 1e-4
+#: the float64 check's shape, and its card-vs-CPU limit of each output's
+#: largest magnitude (two libms' last bits through ~350 diagonals)
+SCAN_F64 = (4, 200, 150)
+SCAN_F64_TOL = 1e-9
+#: the least share of equal states between ``align`` under scan and
+#: under pallas_bm, a pair (fp32 by two routes: a near-tie of the greedy
+#: walk may go the other way)
+SCAN_ALIGN_AGREEMENT = 0.99
+
+
+def scan_rows(seed):
+    """Phase ``scan``'s TM-align rows (:data:`SCAN_ROWS`, ``SCAN_VALID``
+    validation rows of the same lengths)."""
+    rng = np.random.default_rng(seed + 5)
+    n, lo, hi = SCAN_ROWS
+    rows = [homolog_row(rng, f"c{i}", lo, hi) for i in range(n)]
+    valid = [homolog_row(rng, f"w{i}", lo, hi) for i in range(SCAN_VALID)]
+    return rows, valid
+
+
+def _of_max(got, want):
+    """``|got - want|`` over ``want``'s largest magnitude, both moved to
+    the CPU."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def scan_float64(seed):
+    """``expected_alignment(backend="scan")`` in float64 with its gap
+    output and the gradient of a random projection of both, on the card
+    and on the CPU from the same inputs: the relative differences; the
+    card's outputs must stay float64 on the card."""
+    from deepblast_torch.ops import dp as dp_ops
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 11)
+    theta, A, ln, lm = dp_problem(g, *SCAN_F64)
+    zt, za = (torch.randn(theta.shape, generator=g, device="cuda")
+              for _ in range(2))
+
+    def run(device):
+        t, a = (x.double().to(device).requires_grad_() for x in (theta, A))
+        E, EA = dp_ops.expected_alignment(
+            t, a, (ln.to(device), lm.to(device)), backend="scan",
+            return_gap=True)
+        loss = (E * zt.double().to(device)).sum() + \
+            (EA * za.double().to(device)).sum()
+        return (E, EA, *torch.autograd.grad(loss, (t, a)))
+
+    card_out, cpu_out = run("cuda"), run("cpu")
+    for x in card_out:
+        if x.device.type != "cuda" or x.dtype != torch.float64:
+            raise AssertionError(f"scan: an output on {x.device} in "
+                                 f"{x.dtype}, not float64 on the card")
+    return {name: _of_max(c, w) for name, c, w in
+            zip(("E", "EA", "d theta", "d A"), card_out, cpu_out)}
+
+
+def dp_step_ms(theta, A, lengths, backend, reps=2):
+    """ms of ``expected_alignment`` + the gradient of ``(E * E).sum()`` in
+    theta and A (``cli.benchmark``'s ``train`` depth) under ``backend``,
+    by CUDA events, and its outputs; in the dtype of ``theta``."""
+    from deepblast_torch.ops import dp as dp_ops
+    t, a = (x.detach().requires_grad_() for x in (theta, A))
+
+    def step():
+        E = dp_ops.expected_alignment(t, a, lengths, backend=backend)
+        return (E, *torch.autograd.grad((E * E).sum(), (t, a)))
+    return cuda_ms(step, reps), step()
+
+
+def phase_scan(seed, card):
+    """The scan backend on the card: (a) ``cli.train --backend scan`` and
+    the same command with ``--backend pallas_bm
+    --no-dp-bf16-residuals`` at ProtT5-XL + CNN-1024, batch 8, 1 epoch,
+    on :func:`scan_rows`, at the default ``--visualization-fraction``:
+    no DP kernel launched under scan, every training kernel under
+    pallas_bm (counters zeroed before, read after), ``"auto"`` resolved
+    to no menu under scan, the ``train_loss`` records equal to
+    ``SCAN_RTOL`` at the first step, finite after; the texts and event
+    files each run wrote.  (b) At the potentials of the longest training
+    batch (pallas_bm's trained model): a DP step under each backend,
+    timed, each one's outputs against a float64 run of the scan (the
+    scan's distance at most twice the kernels' plus 1e-4 of scale); every
+    kernel = plain.  (c) :func:`scan_float64`.  (d)
+    ``align`` of the validation pairs under scan and, on the same model,
+    under pallas_bm, to ``SCAN_ALIGN_AGREEMENT``.  Returns pallas_bm's
+    launches and the kernels' errors."""
+    from deepblast_torch.ops import dp_cuda
+    rows, valid = scan_rows(seed)
+    errs, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("train.tsv", "valid.tsv")]
+        _write_tsv(paths[0], rows)
+        _write_tsv(paths[1], valid)
+        for backend, extra in (("scan", ()),
+                               ("pallas_bm", ("--no-dp-bf16-residuals",))):
+            out = os.path.join(tmp, backend)
+            dp_cuda.reset_launches()
+            run = run_cli_train([
+                "--train-pairs", paths[0], "--valid-pairs", paths[1],
+                "-o", out, *SCAN_LM, "--batch-size", "8", "--epochs", "1",
+                "--seed", str(seed), "--backend", backend, *extra])
+            run["launches"] = dict(dp_cuda.LAUNCHES)
+            logdir = [d for d in os.listdir(out) if d.startswith("logdir_")]
+            run["event_files"] = sum(
+                f.startswith("events.out.tfevents")
+                for f in os.listdir(os.path.join(out, logdir[0])))
+            runs[backend] = run
+        scan, bm = runs["scan"], runs["pallas_bm"]
+        if any(scan["launches"].values()):
+            raise AssertionError(f"cli.train --backend scan launched DP "
+                                 f"kernels: {scan['launches']}")
+        if any(bm["launches"][k] == 0 for k in TRAIN_KERNELS):
+            raise AssertionError(f"a kernel did not run on pallas_bm's "
+                                 f"training path: {bm['launches']}")
+        for run, backend in ((scan, "scan"), (bm, "pallas_bm")):
+            model = run["model"]
+            if model.config.backend != backend or model.dp_dtypes is not None:
+                raise AssertionError(f"{backend} trained with backend "
+                                     f"{model.config.backend} and menu "
+                                     f"{model.dp_dtypes}")
+            run["losses"] = [(m["step"], m["value"]) for m in run["metrics"]
+                             if m["tag"] == "train_loss"]
+            run["texts"] = sum("text" in m for m in run["metrics"])
+        if [s for s, _ in scan["losses"]] != [s for s, _ in bm["losses"]] or \
+                not np.allclose(scan["losses"][0][1], bm["losses"][0][1],
+                                rtol=SCAN_RTOL, atol=0) or \
+                not all(np.isfinite(v) for _, v in scan["losses"]):
+            raise AssertionError(f"train_loss under scan {scan['losses']} "
+                                 f"against pallas_bm {bm['losses']}")
+        # (b) a DP step under each backend at the longest training batch
+        model = bm["model"]
+        data = model._dataset(model.config.train_pairs)
+        batch = max(model._batches(data, True, seed),
+                    key=lambda b: b["x"].shape[1])
+        with torch.no_grad():
+            b = model._as_batch(batch)
+            hx, hy = model._embeddings(b)
+            lengths = (b["x_len"].to(torch.int32), b["y_len"].to(torch.int32))
+            theta, A = model.aligner.potentials(hx, hy, lengths)
+        dp_cuda.reset_launches()
+        scan_ms, scan_out = dp_step_ms(theta, A, lengths, "scan")
+        if any(dp_cuda.LAUNCHES.values()):
+            raise AssertionError(f"the scan DP step launched DP kernels: "
+                                 f"{dp_cuda.LAUNCHES}")
+        bm_ms, bm_out = dp_step_ms(theta, A, lengths, "pallas_bm")
+        f64_ms, f64_out = dp_step_ms(theta.double(), A.double(), lengths,
+                                     "scan", reps=1)
+        names = ("E", "d theta", "d A")
+        step_diff = {route: {n: _of_max(o, w) for n, o, w in
+                             zip(names, out, f64_out)}
+                     for route, out in (("scan", scan_out),
+                                        ("pallas_bm", bm_out))}
+        step_diff["scan - pallas_bm"] = {
+            n: _of_max(o, w) for n, o, w in zip(names, scan_out, bm_out)}
+        if any(step_diff["scan"][n] > 2 * step_diff["pallas_bm"][n] + 1e-4
+               for n in names):
+            raise AssertionError(f"the DP step under scan is farther from "
+                                 f"float64 than pallas_bm's: {step_diff}")
+        with torch.no_grad():
+            check_kernels(theta, A, *lengths, "nw", "softmax", errs)
+        shape = tuple(theta.shape)
+        del theta, A, hx, hy, scan_out, bm_out, f64_out
+
+    f64 = scan_float64(seed)
+    if max(f64.values()) > SCAN_F64_TOL:
+        raise AssertionError(f"float64 scan, card against CPU: {f64}")
+
+    # (d) align under scan, then the same model under pallas_bm
+    model = scan["model"]
+    pairs = [r[5:7] for r in valid[:4]]
+    dp_cuda.reset_launches()
+    t0 = time.time()
+    states_scan = [model.align(x, y) for x, y in pairs]
+    t_align = time.time() - t0
+    if any(dp_cuda.LAUNCHES.values()):
+        raise AssertionError("align under scan launched DP kernels")
+    model.config.backend = model.aligner.backend = "pallas_bm"
+    states_bm = [model.align(x, y) for x, y in pairs]
+    agree = [_agreement(a, b) for a, b in zip(states_scan, states_bm)]
+    if min(agree) < SCAN_ALIGN_AGREEMENT:
+        raise AssertionError(f"align under scan against pallas_bm: "
+                             f"agreement {agree}")
+    for (x, y), st in zip(pairs, states_scan):
+        if st.count("1") + st.count(":") != len(x) or \
+                st.count("2") + st.count(":") != len(y):
+            raise AssertionError("align: states do not consume both strings")
+    del runs, scan["model"], bm["model"], model
+    torch.cuda.empty_cache()
+
+    log(f"phase scan: cli.train ProtT5-XL + CNN-1024, {len(rows)} train / "
+        f"{len(valid)} valid pairs of {SCAN_ROWS[1]}-{SCAN_ROWS[2]}, batch "
+        f"8, 1 epoch: --backend scan {scan['seconds']:.2f} s (peak "
+        f"{scan['peak'] / 2**30:.2f} GiB), --backend pallas_bm "
+        f"--no-dp-bf16-residuals {bm['seconds']:.2f} s (peak "
+        f"{bm['peak'] / 2**30:.2f} GiB); seconds between train_loss "
+        f"records {[round(t, 4) for t in step_intervals(scan['metrics'])]} "
+        f"/ {[round(t, 4) for t in step_intervals(bm['metrics'])]}; "
+        f"train_loss {scan['losses']} / {bm['losses']}; alignment texts "
+        f"logged {scan['texts']} / {bm['texts']}, event files "
+        f"{scan['event_files']} / {bm['event_files']} [{card}]")
+    log(f"phase scan: a DP step (expected_alignment + grad of sum(E * E)) "
+        f"at the longest training batch {shape}: scan {scan_ms:.4f} ms, "
+        f"pallas_bm {bm_ms:.4f} ms ({scan_ms / bm_ms:.1f}x), float64 scan "
+        f"{f64_ms:.4f} ms; each from float64 and from each other (of "
+        f"scale) {json.dumps(step_diff)}; kernels = plain "
+        f"there, max abs diff {json.dumps(errs)}; float64 scan {SCAN_F64} "
+        f"card against CPU (of scale) {json.dumps(f64)}; align x"
+        f"{len(pairs)} under scan {t_align:.2f} s, state agreement with "
+        f"pallas_bm {agree} [{card}]")
+    return bm["launches"], errs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the long-sequence backend
 # ---------------------------------------------------------------------------
 
@@ -3112,7 +3369,7 @@ def long_step_past(g, errs):
     ran = {k: dp_cuda.LAUNCHES[k] - before[k] for k in Q_KERNELS}
     line = split_line()
     passes = dp_ops._passes
-    dp_ops._passes = lambda t: dp_ref
+    dp_ops._passes = lambda t, be: dp_ref
     try:
         plain = step()
     finally:
@@ -3153,7 +3410,7 @@ def default_vs_long(theta, A, lengths, seed, errs):
         return [x.detach().double() for x in (E, t.grad, a.grad)]
 
     passes = dp_ops._passes
-    dp_ops._passes = lambda t: dp_ref
+    dp_ops._passes = lambda t, be: dp_ref
     try:
         ref = step(torch.float64)
     finally:
@@ -4196,6 +4453,7 @@ def main(argv):
     for k, v in done["seconds"].items():
         CHECK_SECONDS[k] = v
     bilm, bilm_errs = timed("bilm", phase_bilm, seed, card)
+    scan, scan_errs = timed("scan", phase_scan, seed, card)
     long_, long_errs = timed("long", phase_long, seed, card)
     # each split Q kernel's last split on the long path (its longest
     # batch); the bf16 instances' in long_times' bf16 DP step
@@ -4215,12 +4473,13 @@ def main(argv):
     for k in KERNELS + Q_KERNELS + Q_BF16:
         checked = [d[k] for d in (errs, path_errs, train_errs, eval_errs,
                                   options_errs, par_errs, worker_errs,
-                                  bilm_errs, long_errs, menu_errs) if k in d]
+                                  bilm_errs, scan_errs, long_errs,
+                                  menu_errs) if k in d]
         if not checked:
             raise AssertionError(f"{k} was never held to its plain version")
         launches = bf16_launches[k] if k in Q_BF16 else \
             serving[k] + training[k] + evaluate[k] + options[k] + par[k] + \
-            bilm[k] + long_[k] + menu[k]
+            bilm[k] + scan[k] + long_[k] + menu[k]
         kernels.append(dict(
             name=k, route="cuda", source=SOURCE,
             replaces=REPLACES[k.replace("_bf16", "")],

@@ -21,7 +21,9 @@ normal - 1, float32, full lengths.  ``--depth`` picks the function timed:
 * ``train``: ``torch.autograd.grad`` of ``(E * E).sum()`` in ``theta`` and
   ``A``, which runs the two adjoint passes.
 
-Times are :func:`~deepblast_torch.utils.timing.time_op`'s: CUDA events
+``--backend scan`` times the scan backend's plain operations per
+anti-diagonal, on the card as on the CPU.  Times are
+:func:`~deepblast_torch.utils.timing.time_op`'s: CUDA events
 around windows of back-to-back calls.  Without a card it raises unless
 ``--device cpu`` asks for the plain passes on the CPU.
 """
@@ -115,7 +117,7 @@ def main(argv=None):
                         default="headline")
     parser.add_argument("--mode", default="nw", choices=["nw", "sw"])
     parser.add_argument("--backend", default=None,
-                        choices=[None, "scan", *dp_ops.BACKENDS])
+                        choices=[None, *dp_ops.BACKENDS])
     parser.add_argument("--depth", default="fwd+bwd", choices=DEPTHS)
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--length", type=int, default=512)
@@ -129,7 +131,7 @@ def main(argv=None):
                         help="torch device to run on (cuda, or cpu for "
                              "the plain passes)")
     args = parser.parse_args(argv)
-    be = dp_ops.get_backend(args.backend)      # "scan" raises here
+    be = dp_ops.get_backend(args.backend)
     dtypes = make_menu(args.dtype_menu)
     menu_label = args.dtype_menu
     if dtypes is not None and not be.takes_menu:

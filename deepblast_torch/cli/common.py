@@ -5,10 +5,7 @@ weights offline: ``--pretrain-path`` takes a raw HuggingFace ProtT5
 directory (``pytorch_model.bin``) or an LM artifact of
 ``cli.convert_lm`` (a ProtT5 or a Bepler BiLM; ``cli/common.py:122-208``).
 
-Flags of options the port does not have yet are accepted so that a
-``deepblast-train`` command line parses, and :func:`config_from_args`
-rejects any of them set away from its default with an error that names
-the ROADMAP.md item that ports it; none is ignored.
+Every flag of ``deepblast-train`` is taken, with its default.
 """
 
 from __future__ import annotations
@@ -20,9 +17,8 @@ import os
 
 from deepblast_torch.ops.dp import BACKENDS
 from deepblast_torch.train.trainer import DeepBLASTConfig
-from deepblast_torch.unported import UNPORTED, check_ported, ported_values
 
-__all__ = ["MODE_ALIASES", "UNPORTED", "add_model_args", "add_infra_args",
+__all__ = ["MODE_ALIASES", "add_model_args", "add_infra_args",
            "config_from_args", "build_model"]
 
 MODE_ALIASES = {
@@ -69,21 +65,24 @@ def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--operator", type=str, default="softmax",
                         choices=["softmax", "sparsemax", "hardmax"])
     parser.add_argument("--backend", type=str, default=None,
-                        choices=[*BACKENDS, "scan"],
+                        choices=[*BACKENDS],
                         help="DP passes (default: pallas_bm's stored "
                              "differences); pallas and pallas_long store the "
                              "soft-argmax streams and train pairs past the "
                              "default kernels' limit (S = 6,144 slots; "
-                             "theirs 32,768 on an H100); scan is not "
-                             "ported"),
+                             "theirs 32,768 on an H100); scan runs the "
+                             "recursions as plain PyTorch operations in the "
+                             "inputs' dtype, with no slot limit, slowly")
     # type=bool as deepblast-train's parser: any non-empty value is True
     parser.add_argument("--finetune", type=bool, default=False,
                         help="train the LM's weights with the aligner")
     parser.add_argument("--mask-gaps", type=bool, default=True)
     parser.add_argument("--scheduler", type=str, default="cosine")
     parser.add_argument("--epochs", type=int, default=10)
-    parser.add_argument("--visualization-fraction", type=float, default=0.0,
-                        help="not ported: alignment figures")
+    parser.add_argument("--visualization-fraction", type=float, default=0.1,
+                        help="share of the first validation batch's pairs "
+                             "(at most 2) logged as figures and text each "
+                             "epoch")
     parser.add_argument("--max-len", type=int, default=1024)
     parser.add_argument("-o", "--output-directory", required=True,
                         help="Output directory of model results")
@@ -129,8 +128,8 @@ def add_infra_args(parser: argparse.ArgumentParser):
                         "reverse passes, the recurrences fp32.  Default "
                         "auto: on for the pallas backends (pallas_bm, the "
                         "default; pallas and pallas_long ignore the menu), "
-                        "as deepblast-train; --no-dp-bf16-residuals forces "
-                        "fp32 streams")
+                        "off for scan, as deepblast-train; "
+                        "--no-dp-bf16-residuals forces fp32 streams")
     parser.add_argument("--dp-i16-streams", action="store_true",
                         help="store the DP input streams (and the decode "
                         "path's expectation stream) in int16 fixed point "
@@ -151,11 +150,7 @@ def add_infra_args(parser: argparse.ArgumentParser):
 
 
 def config_from_args(args) -> DeepBLASTConfig:
-    """The config of a parsed command line; raises ``ValueError`` naming
-    the ROADMAP.md item for a flag the port does not have yet."""
-    for dest in UNPORTED:
-        check_ported(dest, getattr(args, dest, ported_values(dest)[0]),
-                     "--" + dest.replace("_", "-"))
+    """The config of a parsed command line."""
     mode = MODE_ALIASES.get(args.alignment_mode, args.alignment_mode)
     return DeepBLASTConfig(
         embedding_dim=args.embedding_dim,
@@ -189,6 +184,7 @@ def config_from_args(args) -> DeepBLASTConfig:
         test_pairs=args.test_pairs,
         max_len=args.max_len,
         output_directory=args.output_directory,
+        visualization_fraction=args.visualization_fraction,
         tp=getattr(args, "tp", 1),
     )
 

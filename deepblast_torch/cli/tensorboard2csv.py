@@ -4,9 +4,8 @@ a CSV (``deepblast_tpu/cli/tensorboard2csv.py``).
     python -m deepblast_torch.cli.tensorboard2csv --logdir out/logdir_... \\
         --output-csv metrics.csv [--pattern loss]
 
-Reads the logdir's ``metrics.jsonl`` (``utils.logging.tensorboard_to_csv``);
-a logdir of TensorBoard event files alone raises (ROADMAP.md queue A
-item 7).
+Reads the logdir's ``metrics.jsonl``, or, where there is none, its
+TensorBoard event files (``utils.logging.tensorboard_to_csv``).
 """
 
 from __future__ import annotations

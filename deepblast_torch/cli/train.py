@@ -22,7 +22,9 @@ and ``--load-from-checkpoint`` restores on every rank.
 
 ``--backend pallas_long`` (or ``pallas``) trains through the Q-stream DP
 kernels, which take pairs past the default kernels' limit (with
-``--max-len 4096``); the backend is kept in ``config.json``.  ``--precision bf16`` (or ``16``) computes the T5 LM
+``--max-len 4096``); ``--backend scan`` through the plain operations
+of the scan backend, in float32, with no slot limit; the backend is
+kept in ``config.json``.  ``--precision bf16`` (or ``16``) computes the T5 LM
 and the potentials' contractions in that dtype, ``--finetune True`` trains
 the LM too, ``--grad-accum k`` updates every k steps on their mean
 gradient, and ``--steps-per-dispatch K`` copies K same-shape batches to
@@ -33,7 +35,9 @@ heads; ``--pretrain-path`` loads LM weights offline, from a raw HF ProtT5
 directory or an artifact of ``cli.convert_lm`` (a Bepler BiLM artifact
 switches the tokenizer to Uniprot21 ids and sizes the heads from it), and
 ``config.json`` with ``model.pt`` keep the LM's geometry and weights.
-Flags of options that are not ported yet raise (``cli/common.py``).
+``--visualization-fraction`` (default 0.1) sets the share of the first
+validation batch's pairs logged as figures and text each epoch; the logs
+go to TensorBoard event files too where ``tensorboard`` is installed.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Alignment-accuracy scoring (own copies from
 ``deepblast_tpu/eval/score.py:33-155``): edge-set ROC statistics, the
-kernelised (position-tolerant) identity, a text render, and a
-``multiprocessing`` map over rows (:func:`score_alignments`).
-
-``alignment_visualization`` (a matplotlib figure) is not ported: it waits
-for ROADMAP.md queue A item 7 with the trainer's figures and TensorBoard.
+kernelised (position-tolerant) identity, a text render, the four-panel
+figure of the trainer's validation logs (:func:`alignment_visualization`,
+matplotlib imported when it is called), and a ``multiprocessing`` map
+over rows (:func:`score_alignments`).
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ __all__ = [
     "alignment_score",
     "alignment_score_kernel",
     "alignment_text",
+    "alignment_visualization",
     "score_alignments",
 ]
 
@@ -114,6 +114,29 @@ def alignment_text(x, y, pred, truth, stats):
             + f"    {true_alignment[0]}\n    {true_alignment[1]}"
             + "\n# Prediction\n"
             + f"    {pred_alignment[0]}\n    {pred_alignment[1]}")
+
+
+def alignment_visualization(truth, pred, match_m, gap_m, xlen, ylen):
+    """A ``(fig, axes)`` of four ``imshow`` panels, each cut to
+    ``(xlen, ylen)``: the true and the predicted alignment, the match and
+    the gap potentials (``deepblast_tpu/eval/score.py:116-134``)."""
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(1, 4, figsize=(12, 3))
+    panels = [
+        (truth, "Ground truth alignment", False),
+        (pred, "Predicted alignment", True),
+        (match_m, "Match scoring matrix", True),
+        (gap_m, "Gap scoring matrix", True),
+    ]
+    for a, (mat, title, cbar) in zip(ax, panels):
+        im = a.imshow(np.asarray(mat)[:xlen, :ylen], aspect="auto")
+        a.set_xlabel("Positions")
+        a.set_title(title)
+        if cbar:
+            fig.colorbar(im, ax=a)
+    ax[0].set_ylabel("Positions")
+    plt.tight_layout()
+    return fig, ax
 
 
 def _score_row(args):

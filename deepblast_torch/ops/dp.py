@@ -48,7 +48,18 @@ make_default=True)`` move:
   (:func:`alignment_score` runs the Q forward and keeps ``vt``) and no
   stream accessor (:func:`expected_alignment_stream` raises, as
   ``dp.py:371-373``).  The TPU's two names differ only in their
-  relayout kernels; here both use the one skew and unskew.
+  relayout kernels; here both use the one skew and unskew;
+* ``"scan"`` (:class:`_Scan`; ``dp.py:83-146``), the JAX package's
+  default off the TPU (``:148``): the Q-stream recursions as plain PyTorch
+  operations per anti-diagonal (``ops/dp_ref.py``; the scan oracle,
+  ``ops/dp_scan.py``, reaches no Pallas kernel), relayouts included, on
+  the device the inputs are on (never moved), in the inputs' type
+  (float64 included; the Q streams too); a score-only forward that keeps
+  ``vt``, a stream accessor, and no slot limit.  Of the menu it reads
+  ``d`` only, as ``_scan_with_dtypes``: the forward and the adjoint
+  forward rebuild each stored Q and Qd from argument differences rounded
+  through it.  ``backend=None`` never selects it unless
+  :func:`set_default_backend` says so.
 
 The Q backends' one storage switch is the module global :data:`Q_DTYPE`,
 the counterpart of ``dp_pallas.Q_DTYPE`` (``dp_pallas.py:74``, ``:234``):
@@ -74,9 +85,9 @@ because the fused form gained nothing end to end on its chip; on the
 H100 the pair is bit-identical to two skews and no slower, so the port
 has the one path.
 
-For CUDA tensors every pass launches a kernel of ``ops/dp_cuda.py``; for
-CPU tensors it runs the plain version in ``ops/dp_ref.py``.  Any other
-device raises.
+For CUDA tensors every pass of the other backends launches a kernel of
+``ops/dp_cuda.py``; for CPU tensors it runs the plain version in
+``ops/dp_ref.py``.  Any other device raises, except under ``scan``.
 """
 
 from __future__ import annotations
@@ -109,8 +120,11 @@ __all__ = [
 ]
 
 
-def _passes(t):
-    """The kernels (CUDA tensor) or their plain versions (CPU tensor)."""
+def _passes(t, be):
+    """The kernels (CUDA tensor) or their plain versions (CPU tensor); the
+    plain versions on any device for a backend with ``plain`` set."""
+    if getattr(be, "plain", False):
+        return dp_ref
     if t.device.type == "cuda":
         return dp_cuda
     if t.device.type == "cpu":
@@ -195,7 +209,7 @@ class _QStreams:
         return ops.forward_q(th_s, A_s, ln, lm, q_dtype=Q_DTYPE, **kw)[0]
 
     @staticmethod
-    def backward(ops, aux, ln, lm, Et, kw, want_gap, menu):
+    def backward(ops, aux, ln, lm, Et, kw, want_gap, menu, decode=False):
         return ops.backward_q(*aux, ln, lm, Et, mode=kw["mode"],
                               want_gap=want_gap)
 
@@ -210,12 +224,42 @@ class _QStreams:
                                       mode=kw["mode"])
 
 
+class _Scan(_QStreams):
+    """The scan oracle (``deepblast_tpu/ops/dp_scan.py`` through the JAX
+    registry's ``"scan"`` entry, ``dp.py:83-146``): the Q-stream
+    recursions of ``ops/dp_ref.py`` as plain PyTorch operations per
+    anti-diagonal on whatever device the inputs are on, in their type, the
+    Q streams too (:data:`Q_DTYPE` ignored); of the menu only ``d``
+    (``_scan_with_dtypes``), which rebuilds each stored Q and Qd from
+    differences rounded through it; no slot limit."""
+
+    stream = True
+    takes_menu = True
+    plain = True
+
+    @staticmethod
+    def forward(ops, th_s, A_s, ln, lm, kw, menu):
+        vt, qx, qm, qy = ops.forward_q(th_s, A_s, ln, lm,
+                                       residual_dtype=menu.d_dtype, **kw)
+        return vt, (qx, qm, qy)
+
+    @staticmethod
+    def score(ops, th_s, A_s, ln, lm, kw, menu):
+        return ops.forward_q(th_s, A_s, ln, lm, **kw)[0]
+
+    @staticmethod
+    def adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw, menu):
+        vtd, *qd = ops.adjoint_forward_q(*aux, zt_s, za_s, ln, lm,
+                                         residual_dtype=menu.d_dtype, **kw)
+        return vtd, tuple(qd)
+
+
 #: backend name -> its passes (a class like :class:`_Residuals`: ``stream``,
-#: ``takes_menu`` and the static methods ``skew_inputs`` to
-#: ``adjoint_backward``), as the JAX package's ``--backend``;
-#: :func:`register_backend` adds to it
+#: ``takes_menu``, optionally ``plain`` (the plain passes on every device)
+#: and the static methods ``skew_inputs`` to ``adjoint_backward``), as the
+#: JAX package's ``--backend``; :func:`register_backend` adds to it
 BACKENDS = {"pallas_bm": _Residuals, "pallas": _QStreams,
-            "pallas_long": _QStreams}
+            "pallas_long": _QStreams, "scan": _Scan}
 #: the name of the backend that ``backend=None`` selects, read at every call
 DEFAULT_BACKEND = "pallas_bm"
 
@@ -245,10 +289,6 @@ def get_backend(name=None):
         name = DEFAULT_BACKEND
     if name in BACKENDS:
         return BACKENDS[name]
-    if name == "scan":
-        raise ValueError('DP backend "scan" (the lax.scan oracle, '
-                         "deepblast_tpu/ops/dp_scan.py) is not ported to "
-                         "deepblast_torch yet: ROADMAP.md queue A item 10")
     raise ValueError(f"unknown DP backend {name!r}; the port has "
                      f"{sorted(BACKENDS)} and None (the default, "
                      f"{DEFAULT_BACKEND!r})")
@@ -285,7 +325,7 @@ class _Expected(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap, be,
                 menu):
-        ops = _passes(theta)
+        ops = _passes(theta, be)
         B, N, M = theta.shape
         kw = dict(mode=mode, operator=operator)
         th_s, A_s = be.skew_inputs(ops, theta, A, menu)
@@ -304,7 +344,7 @@ class _Expected(torch.autograd.Function):
     def backward(ctx, Zt, Za=None):
         E_s, ln, lm, *aux = ctx.saved_tensors
         mode, operator, return_gap, be, menu, dtype = ctx.cfg
-        ops = _passes(E_s)
+        ops = _passes(E_s, be)
         B, K, S = E_s.shape
         N, M = S - 1, K - S + 2
         # cotangents are unbounded: never int16 (menu.cotangent_dtype); no
@@ -330,7 +370,7 @@ class _Score(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, theta, A, ln, lm, mode, operator, be, menu):
-        ops = _passes(theta)
+        ops = _passes(theta, be)
         ctx.save_for_backward(theta, A, ln, lm)
         ctx.cfg = (mode, operator, be, menu)
         th_s, A_s = be.skew_inputs(ops, theta, A, menu)
@@ -395,7 +435,7 @@ def expected_alignment_stream(theta, A, lengths=None, Et=None, *, mode="nw",
                          "accessor; use expected_alignment")
     menu = as_menu(dtypes)
     theta, A = _check(theta, A)
-    ops = _passes(theta)
+    ops = _passes(theta, be)
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
     kw = dict(mode=mode, operator=operator)

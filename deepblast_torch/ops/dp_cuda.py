@@ -269,8 +269,9 @@ def _check_slots(name, S):
     does not fit: its strips in the registers of 1,024 threads, or, for
     the split Q kernels, of a cluster of them."""
     q_most = max(CLUSTER_SLOTS.values())
-    hint = ("longer pairs need the DP rows in device memory (ROADMAP.md "
-            "queue A item 4)")
+    hint = ('backend="scan" runs longer pairs, slowly (plain operations '
+            "per anti-diagonal, no slot limit); kernels for them need the "
+            "DP rows in device memory (ROADMAP.md queue A item 4)")
     if name in CLUSTER_SLOTS:
         most = CLUSTER_SLOTS[name]
         if S > most:

@@ -74,6 +74,12 @@ forward stores ``Qd = hessian3(Q, args_d)`` along the tangent arguments
 ``(Za + shr(Vd[r-1]), shr(Vd[r-2]), Za + Vd[r-1])`` with
 ``Vd[r] = Zt[r] + Qx xd + Qm md + Qy yd``, and the adjoint backward reads
 both.  Rows past ``K - 1`` read as zero (the TPU kernels' zero carries).
+The ``scan`` backend (``ops/dp.py``) runs the same four passes on every
+device, in the input type (float64 included), with ``residual_dtype`` as
+its one storage knob: the scan oracle's recursions
+(``deepblast_tpu/ops/dp_scan.py:83-283``) are these, with Q and Qd masked
+to the valid band, which changes nothing they feed (E and Ed are zero
+outside it).
 
 Storage (``dtypes=``, a :class:`~deepblast_torch.ops.menu.DTypeMenu`) of
 the default backend's passes, with the semantics of their JAX
@@ -329,19 +335,32 @@ def _row(x, r, z):
 
 
 def _widen(*qs):
-    """Q streams as float32 (a bfloat16 store widens exactly), as the TPU
-    reverse passes read them (``dp_pallas.py:296-310``, ``:396-398``,
-    ``:499-502``)."""
-    return tuple(q.float() for q in qs)
+    """Q streams in the compute type: a bfloat16 store widens exactly to
+    float32, as the TPU reverse passes read them (``dp_pallas.py:296-310``,
+    ``:396-398``, ``:499-502``); float64 stays float64."""
+    return tuple(q.to(compute_dtype(q.dtype)) for q in qs)
+
+
+def _rounded(x, residual_dtype):
+    """``x`` rounded through ``residual_dtype`` and back (``astype(rd)
+    .astype(dtype)``, ``dp_scan.py:130-132``); float64 reaches bfloat16
+    through float32, as XLA's convert does."""
+    return x.to(torch.float32).to(residual_dtype).to(x.dtype)
 
 
 def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
-              q_dtype=None):
+              q_dtype=None, residual_dtype=None):
     """Forward storing the soft-argmax streams: ``(vt (B,), Qx, Qm, Qy
-    (B, K, S))``, Q written for every slot, in ``q_dtype`` (None:
-    float32; ``torch.bfloat16`` rounds each store to nearest even, as
-    ``dp_pallas.forward_pallas`` under ``Q_DTYPE``, ``:212-214``).  Plain
-    version of the ``forward_q`` kernel."""
+    (B, K, S))``, Q written for every slot, in ``q_dtype`` (None: the
+    input's type; ``torch.bfloat16`` rounds each store to nearest even,
+    as ``dp_pallas.forward_pallas`` under ``Q_DTYPE``, ``:212-214``).
+    Plain version of the ``forward_q`` kernel.
+
+    With ``residual_dtype`` (the scan backend's ``d`` menu,
+    ``dp_scan.forward_scan``, ``:127-134``) each stored Q is rebuilt as
+    ``softargmax(Dx, Dm, 0)`` from the argument differences
+    ``Dx = xarg - yarg`` and ``Dm = marg - yarg`` rounded through that
+    type; the value recursion keeps the unrounded arguments."""
     B, K, S = th_s.shape
     lo = MODE_BOUNDS[mode][0]
     slots = torch.arange(S, device=th_s.device)
@@ -352,8 +371,13 @@ def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
     qx, qm, qy = (torch.empty_like(th_s, dtype=q_dtype) for _ in range(3))
     for r in range(K):
         a = A_s[:, r]
-        val, (px, pm, py) = smooth.max3(operator, a + _shr(v1), _shr(v2),
-                                        a + v1)
+        xarg, marg, yarg = a + _shr(v1), _shr(v2), a + v1
+        val, (px, pm, py) = smooth.max3(operator, xarg, marg, yarg)
+        if residual_dtype is not None:
+            dx = _rounded(xarg - yarg, residual_dtype)
+            dm = _rounded(marg - yarg, residual_dtype)
+            _, (px, pm, py) = smooth.max3(operator, dx, dm,
+                                          torch.zeros_like(dx))
         qx[:, r], qm[:, r], qy[:, r] = px, pm, py
         v = th_s[:, r] + val
         valid, term = _masks(slots, r + 2, ln, lm, lo)
@@ -366,8 +390,9 @@ def forward_q(th_s, A_s, ln, lm, *, mode="nw", operator="softmax",
 def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
     """Expected alignment ``E (B, K, S)`` from the stored Q streams, seeded
     with ``Et (B,)``, and with ``want_gap`` ``EA = E (Qx + Qy)`` (else
-    None).  Returns ``(E, EA)``, float32 whatever the Q streams store.
-    Plain version of the ``backward_q`` kernel."""
+    None).  Returns ``(E, EA)`` in the compute type of the Q streams
+    (float32 for float32 or bfloat16 ones).  Plain version of the
+    ``backward_q`` kernel."""
     qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][1]
@@ -392,11 +417,15 @@ def backward_q(qx, qm, qy, ln, lm, Et, *, mode="nw", want_gap=False):
 
 
 def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
-                      operator="softmax"):
+                      operator="softmax", residual_dtype=None):
     """Tangent of the Q forward along the skewed cotangents ``zt_s`` and
     ``za_s`` (``None``: a zero gap cotangent, no Za term).  Returns
-    ``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))``, float32 whatever the Q
-    streams store.  Plain version of the ``adjoint_forward_q`` kernel."""
+    ``(vtd (B,), Qdx, Qdm, Qdy (B, K, S))`` in the compute type of the Q
+    streams.  Plain version of the ``adjoint_forward_q`` kernel.
+
+    With ``residual_dtype`` (``dp_scan.adjoint_forward_scan``,
+    ``:223-229``) ``Qd`` is the Hessian product along the tangent
+    differences ``(xd - yd, md - yd, 0)`` rounded through that type."""
     qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][2]
@@ -415,8 +444,13 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
             xd, yd = za + _shr(vd1), za + vd1
         md = _shr(vd2)
         vd = zt_s[:, r] + q[0] * xd + q[1] * md + q[2] * yd
-        qdx[:, r], qdm[:, r], qdy[:, r] = smooth.hessian3(operator, q,
-                                                          (xd, md, yd))
+        if residual_dtype is None:
+            hargs = (xd, md, yd)
+        else:
+            dxd = _rounded(xd - yd, residual_dtype)
+            hargs = (dxd, _rounded(md - yd, residual_dtype),
+                     torch.zeros_like(dxd))
+        qdx[:, r], qdm[:, r], qdy[:, r] = smooth.hessian3(operator, q, hargs)
         valid, term = _masks(slots, r + 2, ln, lm, lo)
         vd = torch.where(valid, vd, zero)
         vtd = vtd + torch.where(term, vd, zero).sum(1)
@@ -427,8 +461,8 @@ def adjoint_forward_q(qx, qm, qy, zt_s, za_s, ln, lm, *, mode="nw",
 def adjoint_backward_q(qx, qm, qy, qdx, qdm, qdy, E, ln, lm, *, mode="nw"):
     """Tangent of the Q backward: ``(Ed, EdA)``, both ``(B, K, S)``, from
     the Q and Qd streams and the backward's ``E``, with
-    ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``, float32 whatever the Q
-    streams store.  Plain version of the ``adjoint_backward_q`` kernel."""
+    ``EdA = Ed (Qx + Qy) + E (Qdx + Qdy)``, in the compute type of the Q
+    streams.  Plain version of the ``adjoint_backward_q`` kernel."""
     qx, qm, qy = _widen(qx, qm, qy)
     B, K, S = qx.shape
     lo = MODE_BOUNDS[mode][3]

@@ -69,6 +69,18 @@ int16 E in the decode) and ``dp_decode_menu`` ("fast": bf16 residuals and
 int16 E for :meth:`DeepBLAST.align` only).  ``fit`` and ``score_pairs``
 run the training menu, ``align`` the decode menu.
 
+Validation figures (``trainer.py:597-607``, ``:633-666``): with a
+logger and ``visualization_fraction`` above 0, the first validation
+batch of each epoch logs, for each of its first two pairs that a draw
+``<= visualization_fraction`` keeps, the figure ``alignment-matrix/{b}``
+(``eval.score.alignment_visualization``) and the text ``alignment/{b}``
+(``alignment_text`` of the traceback with its ROC statistics).  The
+draws come from a ``random.Random`` seeded with ``seed`` at each ``fit``
+(the JAX package draws from the global ``random``), so fractions 0 and 1
+are deterministic in both.  A pair whose figure or text fails (no
+matplotlib, say) is skipped: visualisation never stops training.  Only
+rank 0 draws figures.
+
 Data parallel training (``fit(mesh=...)``, ``trainer.py:485-522``) runs
 one process a device under ``torch.distributed`` (``parallel/mesh.py``):
 every rank builds the same global batch sequence (the same shuffle seed;
@@ -108,6 +120,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import random
 from typing import Optional
 
 import numpy as np
@@ -119,7 +132,9 @@ from torch.nn.parallel import DistributedDataParallel
 from deepblast_torch.data.alphabet import ProtT5Tokenizer
 from deepblast_torch.data.dataset import TMAlignDataset, make_batches
 from deepblast_torch.data.state_utils import revstate_f, states2edges
-from deepblast_torch.eval.score import ROC_COLUMNS, filter_gaps, roc_edges
+from deepblast_torch.eval.score import (ROC_COLUMNS, alignment_text,
+                                        alignment_visualization, filter_gaps,
+                                        roc_edges)
 from deepblast_torch.models.aligner import NeuralAligner
 from deepblast_torch.models import exact_cuda_math
 from deepblast_torch.models.lm import (BiLM, RMSNorm, T5Config, T5Encoder,
@@ -129,15 +144,13 @@ from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.parallel import mesh as mesh_lib
 from deepblast_torch.train.losses import get_loss
 from deepblast_torch.train.schedules import make_schedule
-from deepblast_torch.unported import UNPORTED, check_ported
 
 __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
 
 #: JAX config.json fields that change nothing the port computes or trains:
-#: the share of validation pairs drawn as figures (no figures yet), and
 #: ``use_tp_params``, which the JAX package reads nowhere
-_DROPPED_FIELDS = ("visualization_fraction", "use_tp_params")
+_DROPPED_FIELDS = ("use_tp_params",)
 #: the port's own LM blocks of config.json (read by ``load_model``)
 _LM_BLOCKS = ("t5", "bilm")
 
@@ -162,7 +175,7 @@ class DeepBLASTConfig:
     layer_type: str = "cnn"
     alignment_mode: str = "needleman-wunsch"
     operator: str = "softmax"
-    backend: Optional[str] = None   # DP passes: None/pallas_bm, pallas(_long)
+    backend: Optional[str] = None   # None/pallas_bm, pallas(_long), scan
     lm_type: str = "embed"          # embed | bilstm | prot_t5
     vocab_size: int = 32
     finetune: bool = False          # train the LM with the aligner
@@ -194,20 +207,22 @@ class DeepBLASTConfig:
     max_len: int = 1024
     pad_multiple: int = 16
     output_directory: Optional[str] = None
+    # the share of the first validation batch's pairs (at most 2) logged
+    # as figures and text each epoch
+    visualization_fraction: float = 0.1
     # the model axis of fit's mesh="auto" (replicated work, as in JAX)
     tp: int = 1
 
     @classmethod
     def from_json(cls, s):
         """The config of a ``config.json`` written by the port or by the
-        JAX package.  A field whose value the port does not take (e.g.
-        ``"backend": "scan"``) raises ``ValueError`` naming its ROADMAP.md item, as does a field neither
-        package writes.  Dropped: the fields of
-        ``_DROPPED_FIELDS``, which change nothing the port computes or
-        trains, and ``"t5"`` / ``"bilm"``, the port's own LM geometry
-        (read by ``load_model``).  A bilstm config without
-        ``bilstm_onehot_channel`` predates the channel and is refused with
-        the JAX package's message (``trainer.py:146-153``)."""
+        JAX package.  A field neither package writes raises
+        ``ValueError``.  Dropped: the fields of ``_DROPPED_FIELDS``,
+        which change nothing the port computes or trains, and ``"t5"`` /
+        ``"bilm"``, the port's own LM geometry (read by ``load_model``).
+        A bilstm config without ``bilstm_onehot_channel`` predates the
+        channel and is refused with the JAX package's message
+        (``trainer.py:146-153``)."""
         d = json.loads(s)
         if d.get("lm_type") == "bilstm" and "bilstm_onehot_channel" not in d:
             raise ValueError(
@@ -222,10 +237,6 @@ class DeepBLASTConfig:
         for k, v in d.items():
             if k in _DROPPED_FIELDS or k in _LM_BLOCKS:
                 continue
-            if k in UNPORTED:
-                check_ported(k, v, f"config.json field {k!r} =")
-                if k not in names:      # the one value the port runs
-                    continue
             if k not in names:
                 raise ValueError(f"config.json field {k!r} is not a field of "
                                  "DeepBLASTConfig")
@@ -332,7 +343,7 @@ class DeepBLAST:
     def _dp_dtype_menu(config):
         """The training and scoring storage menu (``trainer.py:208-227``):
         ``"auto"`` resolves by the backend's name, on for the pallas
-        backends (``None`` is ``pallas_bm``)."""
+        backends (``None`` is ``pallas_bm``), off for ``scan``."""
         bf16 = config.dp_bf16_residuals
         if bf16 == "auto":
             name = dp_ops.DEFAULT_BACKEND if config.backend is None \
@@ -638,12 +649,45 @@ class DeepBLAST:
 
     @torch.no_grad()
     def validation_step(self, batch):
-        """``(loss, aln)`` of a batch with the aligner in eval mode."""
+        """``(loss, aln, theta, A)`` of a batch with the aligner in eval
+        mode: the expected alignment and the match and gap potentials
+        (``trainer.py:401-406``)."""
         self.aligner.eval()
         b = self._loss_batch(batch)
         hx, hy = self._embeddings(b)
-        aln, _, _ = self.aligner(hx, hy, (b["x_len"], b["y_len"]))
-        return self.compute_loss(b, aln), aln
+        aln, theta, A = self.aligner(hx, hy, (b["x_len"], b["y_len"]))
+        return self.compute_loss(b, aln), aln, theta, A
+
+    def _log_visualizations(self, logger, batch, aln, theta, gap, step,
+                            max_pairs=2):
+        """The figure ``alignment-matrix/{b}`` and the text
+        ``alignment/{b}`` of each of the first ``max_pairs`` pairs that a
+        draw of :attr:`_vis_random` keeps (``trainer.py:633-666``); a
+        pair that fails is skipped."""
+        aln, theta, gap = (t.detach().float().cpu().numpy()
+                           for t in (aln, theta, gap))
+        for b in range(min(max_pairs, len(batch["x_len"]))):
+            if self._vis_random.random() > self.config.visualization_fraction:
+                continue
+            n, mm = int(batch["x_len"][b]), int(batch["y_len"][b])
+            try:
+                fig, _ = alignment_visualization(
+                    np.asarray(batch["aln"][b]), aln[b], theta[b], gap[b],
+                    n, mm)
+                logger.log_figure(f"alignment-matrix/{b}", fig, step)
+                pred_states = [s for _, _, s in
+                               dp_ops.traceback(aln[b, :n, :mm])]
+                x_str = self.tokenizer.decode(batch["x"][b][:n])
+                y_str = self.tokenizer.decode(batch["y"][b][:mm])
+                true_states = np.asarray(batch["states"][b])
+                stats = roc_edges(
+                    filter_gaps(true_states, states2edges(true_states)),
+                    filter_gaps(pred_states, states2edges(pred_states)))
+                text = alignment_text(x_str, y_str, np.asarray(pred_states),
+                                      true_states, list(stats))
+                logger.log_text(f"alignment/{b}", text, step)
+            except Exception:   # visualisation never stops training
+                continue
 
     def validation_stats(self, batch, aln):
         """Per-pair traceback accuracy stats ``ROC_COLUMNS`` of the natural
@@ -674,7 +718,7 @@ class DeepBLAST:
             self.config.test_pairs, return_names=True)
         rows = []
         for batch in self._batches(test_dataset, False, 0):
-            _, aln = self.validation_step(batch)
+            _, aln, _, _ = self.validation_step(batch)
             for b, st in enumerate(self.validation_stats(batch, aln)):
                 row = {f"test_{c}": v for c, v in zip(ROC_COLUMNS, st)}
                 if "names" in batch:
@@ -807,6 +851,7 @@ class DeepBLAST:
                                                 process_group=self._data[0])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(c.seed + 1 + (coord[0] if coord else 0))
+        self._vis_random = random.Random(c.seed)
         history = []
         best = math.inf
         try:
@@ -873,11 +918,15 @@ class DeepBLAST:
         if valid_dataset is None:
             return entry
         vlosses, vstats = [], []
-        for batch in self._batches(valid_dataset, False, 0):
+        for bi, batch in enumerate(self._batches(valid_dataset, False, 0)):
             part = self._rows(batch)
-            vloss, aln = self.validation_step(part)
+            vloss, aln, theta, gap = self.validation_step(part)
             vlosses.append(float(vloss))
             vstats.append(self.validation_stats(part, aln))
+            if (logger and bi == 0 and c.visualization_fraction > 0
+                    and mesh_lib.is_writer()):
+                self._log_visualizations(logger, part, aln, theta, gap,
+                                         self.step)
         vlosses, vstats = self._gather_validation(vlosses, vstats)
         entry["validation_loss"] = float(np.mean(vlosses))
         means = np.mean(np.asarray(vstats, float), axis=0)

@@ -10,10 +10,11 @@ and its timing and profiling utilities against the JAX package's.
   ``stream_cell``, since the JAX scan stream is ``(K, B, S)``.
 * ``main``, with ``run_config`` replaced in both modules, requests the
   same shapes with the same menu labels for every sweep and menu, on the
-  default backend and on ``pallas`` (where the menu is ignored);
-  ``--backend scan`` raises in the port, naming ROADMAP.md queue A item
-  10; the port's records have the JAX record's keys and the device's
-  name; without a card it refuses to run unless ``--device cpu`` asks.
+  default backend, on ``pallas`` (where the menu is ignored) and on
+  ``scan`` (which takes it); ``--backend scan --device cpu`` times the
+  scan backend; the port's records have the JAX record's keys and the
+  device's name; without a card it refuses to run unless ``--device cpu``
+  asks.
 * ``time_op`` runs ``reps x (iters + warmup)`` calls; ``trace`` writes a
   Chrome trace; ``timed`` reports its label.
 """
@@ -118,7 +119,7 @@ def _requests(monkeypatch, capsys, module, argv):
 
 @pytest.mark.parametrize("sweep", ["batch", "length", "headline"])
 @pytest.mark.parametrize("menu", MENUS)
-@pytest.mark.parametrize("backend", [None, "pallas"])
+@pytest.mark.parametrize("backend", [None, "pallas", "scan"])
 def test_main_requests_match_jax(monkeypatch, capsys, sweep, menu, backend):
     argv = ["--sweep", sweep, "--dtype-menu", menu, "--batch-size", "3",
             "--length", "40"] + (["--backend", backend] if backend else [])
@@ -130,8 +131,15 @@ def test_main_requests_match_jax(monkeypatch, capsys, sweep, menu, backend):
 
 
 def test_scan_raises_and_records_name_the_device(monkeypatch, capsys):
-    with pytest.raises(ValueError, match="queue A item 10"):
-        tbench.main(["--backend", "scan", "--device", "cpu"])
+    """``--backend scan`` runs (it once raised) and the records name the
+    device."""
+    capsys.readouterr()
+    assert tbench.main(["--backend", "scan", "--device", "cpu",
+                        "--batch-size", "2", "--length", "6", "--iters", "1",
+                        "--depth", "train", "--dtype-menu", "d-bf16"]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["backend"] == "scan" and rec["dtype_menu"] == "d-bf16"
+    assert rec["device"] == "cpu" and rec["seconds"] > 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tbench.main(["--batch-size", "2", "--length", "6"])

@@ -147,21 +147,25 @@ def test_from_json_refuses_a_bilstm_config_without_the_channel_marker():
 ])
 def test_load_model_refuses_unported_jax_fields(tmp_path, field, value,
                                                 item):
-    """A JAX ``config.json`` with an option the port does not have raises,
-    naming the ROADMAP.md item (before, ``from_json`` dropped it and the
-    port computed or trained something else than the JAX model)."""
+    """A JAX ``config.json`` with the option that ``item`` once kept out
+    of the port loads with it, and the model aligns through it: under
+    ``"backend": "scan"`` the decode walks the scan backend's stream."""
     cfg = dict(TINY, **{field: value})
     with open(tmp_path / "config.json", "w") as f:
         f.write(jtrainer.DeepBLASTConfig(**cfg).to_json())
-    with pytest.raises(ValueError,
-                       match=f"'{field}'.*not ported.*ROADMAP.md {item}"):
-        load_model(str(tmp_path), device="cpu")
+    model = load_model(str(tmp_path), device="cpu")
+    assert getattr(model.config, field) == value
+    assert model.aligner.backend == "scan" and model.dp_dtypes is None
+    s = model.align("ACDEFGHIKL", "ACDFGHIKLM")
+    assert s.count(":") + s.count("1") == 10
+    assert s.count(":") + s.count("2") == 10
 
 
 def test_from_json_drops_only_what_changes_nothing():
     """The JAX fields that change nothing the port computes load (and are
-    dropped, ``use_tp_params`` among them); the mesh's ``tp`` is kept; a
-    field neither package writes raises."""
+    dropped: ``use_tp_params``); the mesh's ``tp`` and the
+    ``visualization_fraction`` are kept; a field neither package writes
+    raises."""
     raw = json.loads(jtrainer.DeepBLASTConfig(**TINY).to_json())
     raw.update(visualization_fraction=0.5, tp=2, use_tp_params=True,
                steps_per_dispatch=8)
@@ -169,6 +173,7 @@ def test_from_json_drops_only_what_changes_nothing():
     assert cfg.embedding_dim == 16 and cfg.dp_bf16_residuals == "auto"
     assert cfg.steps_per_dispatch == 8
     assert cfg.tp == 2 and not hasattr(cfg, "use_tp_params")
+    assert cfg.visualization_fraction == 0.5
     raw["bogus"] = 1
     with pytest.raises(ValueError, match="'bogus' is not a field"):
         ttrainer.DeepBLASTConfig.from_json(json.dumps(raw))

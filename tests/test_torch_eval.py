@@ -746,15 +746,29 @@ def test_collate_names_match_jax():
 # no pandas, no matplotlib
 # ---------------------------------------------------------------------------
 
+#: the functions that draw figures, the only ones that import matplotlib
+#: (inside themselves: JAX's ``eval/score.py:119``, ``utils/logging.py:53``)
+FIGURE_FUNCTIONS = {("eval/score.py", "alignment_visualization"),
+                    ("utils/logging.py", "log_figure")}
+
+
 def test_port_imports_no_pandas_or_matplotlib():
     """The card's machine has neither: no module of the port (or
-    ``chip_smoke.py``) imports them."""
-    paths = [os.path.join(d, f)
-             for d, _, fs in os.walk(os.path.join(REPO, "deepblast_torch"))
+    ``chip_smoke.py``) imports pandas, and only the figure functions
+    (``FIGURE_FUNCTIONS``) import matplotlib, inside themselves, so that
+    importing any module needs neither."""
+    pkg = os.path.join(REPO, "deepblast_torch")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
     for path in paths + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
+        rel = os.path.relpath(path, pkg)
+        allowed = set()
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and \
+                    (rel, fn.name) in FIGURE_FUNCTIONS:
+                allowed |= {id(n) for n in ast.walk(fn)}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -763,5 +777,6 @@ def test_port_imports_no_pandas_or_matplotlib():
             else:
                 continue
             for n in names:
-                assert n.split(".")[0] not in ("pandas", "matplotlib"), \
-                    (path, n)
+                top = n.split(".")[0]
+                assert top != "pandas", (path, n)
+                assert top != "matplotlib" or id(node) in allowed, (path, n)

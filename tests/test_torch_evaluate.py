@@ -204,10 +204,22 @@ def test_tensorboard2csv_matches_jax(tmp_path, pattern):
 
 
 def test_tensorboard2csv_refuses_a_logdir_without_jsonl(tmp_path):
-    with pytest.raises(FileNotFoundError, match="queue A item 7"):
-        ttb2csv.main(["--logdir", str(tmp_path), "--output-csv",
-                      str(tmp_path / "m.csv")])
-    assert not (tmp_path / "m.csv").exists()
+    """A logdir of TensorBoard event files alone (it once raised) is read
+    from them: the port's CLI writes the JAX function's bytes."""
+    log = tlogging.MetricsLogger(str(tmp_path), "events")
+    for step in range(3):
+        log.log_scalar("train_loss", 1.0 / (step + 1), step)
+        log.log_text("alignment/0", "text", step)
+    log.log_scalar("validation_loss", 0.1, 3)
+    log.close()
+    os.remove(os.path.join(log.path, "metrics.jsonl"))
+    got, want = tmp_path / "m.csv", tmp_path / "j.csv"
+    assert ttb2csv.main(["--logdir", log.path, "--output-csv",
+                         str(got)]) == 0
+    jlogging.tensorboard_to_csv(log.path, str(want))
+    assert got.read_bytes() == want.read_bytes()
+    assert got.read_text().splitlines()[0] == "tag,value,step"
+    assert len(got.read_text().splitlines()) == 5
 
 
 OPTIONS = [dict(), dict(return_names=True), dict(construct_paths=True),

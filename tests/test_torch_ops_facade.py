@@ -24,7 +24,6 @@ import deepblast_tpu.ops as jops
 from deepblast_torch.cli import common as tcommon
 from deepblast_torch.ops import dp as tdp
 from deepblast_torch.train import trainer as ttrainer
-from deepblast_torch.unported import check_ported
 import torch_threads  # noqa: F401  (PyTorch threads a worker)
 
 ATOL = 1e-10
@@ -94,7 +93,8 @@ def test_every_reader_follows_the_default(registry_guard):
     assert calls == ["spy"]
     # "auto" is on for the pallas backends only (trainer.py:208-227)
     assert ttrainer.DeepBLAST._dp_dtype_menu(cfg) is None
-    check_ported("backend", "spy", "--backend")
+    assert ttrainer.DeepBLASTConfig.from_json(
+        '{"backend": "spy"}').backend == "spy"
     args = tcommon.add_infra_args(tcommon.add_model_args(
         argparse.ArgumentParser())).parse_args(
         ["--train-pairs", "t", "--valid-pairs", "v", "-o", "o",

@@ -341,16 +341,32 @@ def test_cli_train_then_load_model_aligns(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--visualization-fraction", "0.1"],
                                   ["--backend", "scan"]])
-def test_cli_train_rejects_unported_flags(tmp_path, flag):
-    """Each flag of an option the port does not have yet raises, naming
-    its ROADMAP.md item (``--pretrain-path``, ``--layer-type rnn`` and
-    ``--lm-type bilstm`` are ported: ``tests/test_torch_bilm.py``,
-    ``tests/test_torch_lm_convert.py``; ``--nodes``, ``--tp``,
-    ``--coordinator`` and ``--process-id``:
+def test_cli_train_rejects_unported_flags(tmp_path, monkeypatch, flag):
+    """The last two flags the port once refused train and land in
+    config.json: ``--visualization-fraction`` (figures and events:
+    ``tests/test_torch_visualization.py``) and ``--backend scan``, whose
+    steps run the plain Q-stream passes and none of the residual ones
+    (``--pretrain-path``, ``--layer-type rnn`` and ``--lm-type bilstm``:
+    ``tests/test_torch_bilm.py``, ``tests/test_torch_lm_convert.py``;
+    ``--nodes``, ``--tp``, ``--coordinator`` and ``--process-id``:
     ``test_cli_train_takes_the_distributed_flags``)."""
-    with pytest.raises(ValueError, match="not ported.*ROADMAP.md"):
-        ttrain.main(["--train-pairs", "t", "--valid-pairs", "v",
-                     "-o", str(tmp_path), "--device", "cpu", *flag])
+    train, valid = tmp_path / "train.tsv", tmp_path / "valid.tsv"
+    _write_tsv(train, fixture_frame(n_rows=4, seed=1))
+    _write_tsv(valid, fixture_frame(n_rows=4, seed=2))
+    q = _count_calls(monkeypatch, dp_ref, "adjoint_forward_q")
+    d = _count_calls(monkeypatch, dp_ref, "adjoint_forward")
+    out = tmp_path / "out"
+    assert ttrain.main([
+        "--train-pairs", str(train), "--valid-pairs", str(valid),
+        "-o", str(out), "--embedding-dim", "16", "--hidden-dim", "16",
+        "--batch-size", "4", "--epochs", "1", "--max-len", "64",
+        "--device", "cpu", *flag]) == 0
+    with open(out / "config.json") as f:
+        cfg = json.load(f)
+    key = flag[0][2:].replace("-", "_")
+    assert cfg[key] == (float(flag[1]) if key.endswith("fraction")
+                        else flag[1])
+    assert (len(q), len(d)) == ((1, 0) if flag[1] == "scan" else (0, 1))
 
 
 class _Joined(Exception):

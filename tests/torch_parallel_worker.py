@@ -19,11 +19,15 @@ process group: the models each rank loaded).  The rank's results go to
 import json
 import os
 import sys
+import types
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+# tensorboard's own TensorFlow stub, as tests/torch_threads.py sets it
+sys.modules.setdefault("tensorboard.compat.notf",
+                       types.ModuleType("tensorboard.compat.notf"))
 
 from deepblast_torch.parallel import mesh as mesh_lib  # noqa: E402
 

@@ -7,11 +7,22 @@ slower (a test that takes 3.5 s alone took 94 s in a 6-worker run).
 Imported by every ``tests/test_torch_*.py``, this module gives each
 worker ``cores // workers`` threads (at least one); a run in one process
 keeps PyTorch's default.
+
+It also points ``tensorboard``'s TensorFlow compatibility layer at its own
+stub (the ``tensorboard.compat.notf`` marker of its no-TensorFlow build):
+``torch.utils.tensorboard`` resolves that layer when it is imported, and
+where TensorFlow is installed that imports all of it (~20 s a process)
+only to write event files, which the stub writes the same.
 """
 
 import os
+import sys
+import types
 
 import torch
+
+sys.modules.setdefault("tensorboard.compat.notf",
+                       types.ModuleType("tensorboard.compat.notf"))
 
 
 def share_cores():
