@@ -1,0 +1,13 @@
+"""``mfu.train``: the window's training matmul operations on valid
+residues (a frozen LM forward, the heads and potentials forward and
+backward; ``count/model.py``) over the window at the float32 peak
+outside the tensor cores (the configuration states TF32 off)."""
+
+from portbench.count.peaks import FP32_FLOPS
+
+
+def read(ctx):
+    flops = ctx.work.get("model_flops")
+    if not flops or not ctx.window_s:
+        return None
+    return 100.0 * flops / (ctx.window_s * FP32_FLOPS)
