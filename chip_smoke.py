@@ -1865,52 +1865,63 @@ def uniform_rows(rng, n, lo, hi, prefix):
 
 class count_waits:
     """Within the block, the host's waits for the card inside the training
-    loop of ``DeepBLAST.fit``: the synchronizing CUDA operations
-    (``torch.cuda.set_sync_debug_mode("warn")``) inside its steps, its
-    chunks' host-to-device copies and its losses' device-to-host copies,
-    and its loss readbacks (each an event wait on one dispatch's losses);
-    the chunks and steps it issued; and the host's seconds in each of
-    those calls (``seconds``: issuing the steps, the copies, and waiting
-    at the readbacks)."""
+    loop of ``DeepBLAST.fit``, from the program's own spans and counters
+    (``utils/profiling.py``, recorded for the block): the synchronizing
+    CUDA operations (``torch.cuda.set_sync_debug_mode("warn")``) whose
+    warnings fall inside a ``step`` span or a ``fit.readback`` span; the
+    readbacks (each an event wait on one dispatch's losses), the chunks of
+    more than one step and the steps it issued (``fit.steps``); and the
+    host's seconds in each span (``seconds``: ``fit.issue``, the steps;
+    ``fit.copy_in``, the copies; ``fit.readback``, the waits).  A ``step``
+    span runs from one dispatch's issue to the next's, so the count
+    covers the whole loop: the chunks' host-to-device copies, the steps
+    (with the warnings autograd replays at the end of a backward), the
+    losses' device-to-host copy, and the fetch and collation of the next
+    batch; only the work between epochs is outside it."""
 
-    HOOKS = ("_step", "_device_chunk", "_losses_to_host", "_consume_loss")
+    SPANS = ("fit.issue", "fit.copy_in", "fit.readback")
 
     def __enter__(self):
         import warnings
-        from deepblast_torch.train.trainer import DeepBLAST
+        from deepblast_torch.utils import profiling
         self.n = dict(syncs=0, readbacks=0, chunks=0, steps=0,
-                      seconds={h: 0.0 for h in self.HOOKS})
-        self.caught = warnings.catch_warnings(record=True)
-        seen = self.caught.__enter__()
+                      seconds={h: 0.0 for h in self.SPANS})
+        self.caught = warnings.catch_warnings()
+        self.caught.__enter__()
         warnings.simplefilter("always")
-        self.orig = {h: getattr(DeepBLAST, h) for h in self.HOOKS}
-        n, orig = self.n, self.orig
+        self.syncs = []
+        stamps = self.syncs
 
-        def hook(name, counter):
-            def wrapped(*args):
-                before = sum("synchronizing" in str(w.message) for w in seen)
-                t0 = time.time()
-                out = orig[name](*args)
-                n["seconds"][name] += time.time() - t0
-                n["syncs"] += sum("synchronizing" in str(w.message)
-                                  for w in seen) - before
-                if counter:
-                    n[counter] += 1
-                return out
-            return wrapped
-
-        for name, counter in zip(self.HOOKS, ("steps", "chunks", None,
-                                              "readbacks")):
-            setattr(DeepBLAST, name, hook(name, counter))
+        def show(message, *args, **kw):
+            if "synchronizing" in str(message):
+                stamps.append(time.time_ns())
+        warnings.showwarning = show
+        profiling.drain()
+        self.recording = profiling.recording()
+        self.recording.__enter__()
         torch.cuda.set_sync_debug_mode("warn")
         return self.n
 
     def __exit__(self, *exc):
-        from deepblast_torch.train.trainer import DeepBLAST
+        from deepblast_torch.utils import profiling
         torch.cuda.set_sync_debug_mode("default")
-        for name, fn in self.orig.items():
-            setattr(DeepBLAST, name, fn)
+        self.recording.__exit__(*exc)
         self.caught.__exit__(*exc)
+        got = profiling.drain()
+        spans, n = got["spans"], self.n
+        n["steps"] = got["counters"].get("fit.steps", 0)
+        issued = {}
+        for s in spans:
+            if s["name"] in self.SPANS:
+                n["seconds"][s["name"]] += (s["end_ns"] - s["start_ns"]) / 1e9
+            if s["name"] == "fit.issue":
+                issued[s["parent"]] = issued.get(s["parent"], 0) + 1
+        n["readbacks"] = sum(s["name"] == "fit.readback" for s in spans)
+        n["chunks"] = sum(k > 1 for k in issued.values())
+        loop = [(s["start_ns"], s["end_ns"]) for s in spans
+                if s["name"] in ("step", "fit.readback")]
+        n["syncs"] = sum(any(a <= t <= b for a, b in loop)
+                         for t in self.syncs)
 
 
 def run_cli_train(argv, outputs=True):
@@ -2053,9 +2064,9 @@ def phase_options(seed, card):
             f"training loop: {waits['readbacks']} loss readbacks (one a "
             f"chunk), {waits['syncs']} synchronizing operations in the "
             f"steps and the chunks' copies; host seconds issuing the steps "
-            f"{waits['seconds']['_step']:.4f}, copying the chunks "
-            f"{waits['seconds']['_device_chunk']:.4f}, waiting at the "
-            f"readbacks {waits['seconds']['_consume_loss']:.4f}; seconds "
+            f"{waits['seconds']['fit.issue']:.4f}, copying the chunks "
+            f"{waits['seconds']['fit.copy_in']:.4f}, waiting at the "
+            f"readbacks {waits['seconds']['fit.readback']:.4f}; seconds "
             f"between the chunks' train_loss records "
             f"{[round(b - a, 4) for a, b in zip(walls, walls[1:])]}; peak "
             f"device memory {peak / 2**30:.2f} GiB; losses {losses} "
@@ -4319,8 +4330,13 @@ def trace_step(label, step, card, errs, top=10):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ka = prof.key_averages()
+    # the program's spans (``trace`` records them) also show as device rows
+    # of their names: not device time
+    ranges = {e.key for e in ka
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key not in ranges]
     total = sum(e.self_device_time_total for e in dev) / 1e3 / 3   # ms
     if not total:
         errs.append(f"{label}: the profiler recorded no device time")

@@ -34,6 +34,7 @@ from torch import nn
 
 from deepblast_torch.models.heads import build_head
 from deepblast_torch.ops import dp as dp_ops
+from deepblast_torch.utils.profiling import span
 
 __all__ = ["NeuralAligner"]
 
@@ -73,19 +74,20 @@ class NeuralAligner(nn.Module):
                 self.gap_embedding(hx, lengths, generator))
 
     def potentials(self, hx, hy, lengths=None, generator=None):
-        """Match and gap potentials ``(B, N, M)`` float32."""
+        """Match and gap potentials ``(B, N, M)`` float32 (in a ``heads``
+        span, ``utils/profiling.py``)."""
         ln, lm = lengths if lengths is not None else (None, None)
-        zx, gx = self.blosum_factor(hx, ln, generator)
-        zy, gy = self.blosum_factor(hy, lm, generator)
-        if self.matmul_dtype is not None:
-            dt = self.matmul_dtype
-            zx, zy, gx, gy = (v.to(dt).float() for v in (zx, zy, gx, gy))
-        match = torch.einsum("bid,bjd->bij", zx, zy).float()
-        gap = torch.einsum("bid,bjd->bij", gx, gy).float()
-        theta = torch.logaddexp(match, torch.zeros((), dtype=match.dtype,
-                                                   device=match.device))
-        A = F.logsigmoid(gap)
-        return theta, A
+        with span("heads", device=True):
+            zx, gx = self.blosum_factor(hx, ln, generator)
+            zy, gy = self.blosum_factor(hy, lm, generator)
+            if self.matmul_dtype is not None:
+                dt = self.matmul_dtype
+                zx, zy, gx, gy = (v.to(dt).float() for v in (zx, zy, gx, gy))
+            match = torch.einsum("bid,bjd->bij", zx, zy).float()
+            gap = torch.einsum("bid,bjd->bij", gx, gy).float()
+            theta = torch.logaddexp(match, torch.zeros(
+                (), dtype=match.dtype, device=match.device))
+            return theta, F.logsigmoid(gap)
 
     def forward(self, hx, hy, lengths=None, generator=None):
         """``(aln, theta, A)``: the expected alignment ``(B, N, M)``,

@@ -88,6 +88,10 @@ has the one path.
 For CUDA tensors every pass of the other backends launches a kernel of
 ``ops/dp_cuda.py``; for CPU tensors it runs the plain version in
 ``ops/dp_ref.py``.  Any other device raises, except under ``scan``.
+
+Each op's forward, :class:`_Expected`'s backward and the stream's passes
+run inside a ``dp`` span timed on the card (``utils/profiling.py``), which
+costs nothing unless recording is on.
 """
 
 from __future__ import annotations
@@ -99,6 +103,7 @@ from torch.autograd.function import once_differentiable
 from deepblast_torch import native
 from deepblast_torch.ops import dp_cuda, dp_ref
 from deepblast_torch.ops.menu import E_SCALE, DTypeMenu, as_menu
+from deepblast_torch.utils.profiling import span
 
 __all__ = [
     "AlignmentDecoder",
@@ -325,44 +330,49 @@ class _Expected(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, A, Et, ln, lm, mode, operator, return_gap, be,
                 menu):
-        ops = _passes(theta, be)
-        B, N, M = theta.shape
-        kw = dict(mode=mode, operator=operator)
-        th_s, A_s = be.skew_inputs(ops, theta, A, menu)
-        _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
-        del th_s, A_s
-        E_s, EA_s = be.backward(ops, aux, ln, lm, Et, kw, return_gap, menu)
-        # the backend's own residual, opaque here (the JAX "aux")
-        ctx.save_for_backward(E_s, ln, lm, *aux)
-        ctx.cfg = (mode, operator, return_gap, be, menu, theta.dtype)
-        ctx.set_materialize_grads(False)
-        E = ops.unskew(E_s, N, M)
-        return (E, ops.unskew(EA_s, N, M)) if return_gap else E
+        with span("dp", device=True):
+            ops = _passes(theta, be)
+            B, N, M = theta.shape
+            kw = dict(mode=mode, operator=operator)
+            th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+            _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
+            del th_s, A_s
+            E_s, EA_s = be.backward(ops, aux, ln, lm, Et, kw, return_gap,
+                                    menu)
+            # the backend's own residual, opaque here (the JAX "aux")
+            ctx.save_for_backward(E_s, ln, lm, *aux)
+            ctx.cfg = (mode, operator, return_gap, be, menu, theta.dtype)
+            ctx.set_materialize_grads(False)
+            E = ops.unskew(E_s, N, M)
+            return (E, ops.unskew(EA_s, N, M)) if return_gap else E
 
     @staticmethod
     @once_differentiable
     def backward(ctx, Zt, Za=None):
-        E_s, ln, lm, *aux = ctx.saved_tensors
-        mode, operator, return_gap, be, menu, dtype = ctx.cfg
-        ops = _passes(E_s, be)
-        B, K, S = E_s.shape
-        N, M = S - 1, K - S + 2
-        # cotangents are unbounded: never int16 (menu.cotangent_dtype); no
-        # gap cotangent (the training decode path): the adjoint forward
-        # drops the Za stream instead of streaming zeros
-        if Zt is None:
-            Zt = E_s.new_zeros((B, N, M), dtype=dtype)
-        Za = None if (not return_gap or Za is None) else Za.contiguous()
-        zt_s, za_s = be.skew_cotangents(ops, Zt.contiguous(), Za, menu)
-        kw = dict(mode=mode, operator=operator)
-        vtd, adj = be.adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw, menu)
-        del zt_s, za_s
-        Ed_s, EdA_s = be.adjoint_backward(ops, aux, adj, E_s, ln, lm, kw,
+        with span("dp", device=True):
+            E_s, ln, lm, *aux = ctx.saved_tensors
+            mode, operator, return_gap, be, menu, dtype = ctx.cfg
+            ops = _passes(E_s, be)
+            B, K, S = E_s.shape
+            N, M = S - 1, K - S + 2
+            # cotangents are unbounded: never int16
+            # (menu.cotangent_dtype); no gap cotangent (the training
+            # decode path): the adjoint forward drops the Za stream
+            # instead of streaming zeros
+            if Zt is None:
+                Zt = E_s.new_zeros((B, N, M), dtype=dtype)
+            Za = None if (not return_gap or Za is None) else Za.contiguous()
+            zt_s, za_s = be.skew_cotangents(ops, Zt.contiguous(), Za, menu)
+            kw = dict(mode=mode, operator=operator)
+            vtd, adj = be.adjoint_forward(ops, aux, zt_s, za_s, ln, lm, kw,
                                           menu)
-        # E is linear in Et, so d<cts, E>/dEt = <cts, E>/Et = vtd (the
-        # adjoint forward's terminal tangent does not involve Et)
-        return (ops.unskew(Ed_s, N, M), ops.unskew(EdA_s, N, M), vtd,
-                None, None, None, None, None, None, None)
+            del zt_s, za_s
+            Ed_s, EdA_s = be.adjoint_backward(ops, aux, adj, E_s, ln, lm, kw,
+                                              menu)
+            # E is linear in Et, so d<cts, E>/dEt = <cts, E>/Et = vtd (the
+            # adjoint forward's terminal tangent does not involve Et)
+            return (ops.unskew(Ed_s, N, M), ops.unskew(EdA_s, N, M), vtd,
+                    None, None, None, None, None, None, None)
 
 
 class _Score(torch.autograd.Function):
@@ -373,9 +383,10 @@ class _Score(torch.autograd.Function):
         ops = _passes(theta, be)
         ctx.save_for_backward(theta, A, ln, lm)
         ctx.cfg = (mode, operator, be, menu)
-        th_s, A_s = be.skew_inputs(ops, theta, A, menu)
-        return be.score(ops, th_s, A_s, ln, lm,
-                        dict(mode=mode, operator=operator), menu)
+        with span("dp", device=True):
+            th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+            return be.score(ops, th_s, A_s, ln, lm,
+                            dict(mode=mode, operator=operator), menu)
 
     @staticmethod
     def backward(ctx, gVt):
@@ -439,10 +450,12 @@ def expected_alignment_stream(theta, A, lengths=None, Et=None, *, mode="nw",
     ln, lm = _lengths(theta, lengths)
     Et = _terminal_seed(theta, Et)
     kw = dict(mode=mode, operator=operator)
-    th_s, A_s = be.skew_inputs(ops, theta, A, menu)
-    _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
-    del th_s, A_s
-    return be.backward(ops, aux, ln, lm, Et, kw, False, menu, decode=True)[0]
+    with span("dp", device=True):
+        th_s, A_s = be.skew_inputs(ops, theta, A, menu)
+        _, aux = be.forward(ops, th_s, A_s, ln, lm, kw, menu)
+        del th_s, A_s
+        return be.backward(ops, aux, ln, lm, Et, kw, False, menu,
+                           decode=True)[0]
 
 
 def stream_cell(stream, b, i, j):

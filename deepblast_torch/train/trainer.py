@@ -117,6 +117,7 @@ from a ``torch.Generator`` seeded with ``seed + 1``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -144,6 +145,7 @@ from deepblast_torch.ops.menu import DTypeMenu
 from deepblast_torch.parallel import mesh as mesh_lib
 from deepblast_torch.train.losses import get_loss
 from deepblast_torch.train.schedules import make_schedule
+from deepblast_torch.utils.profiling import active, count, span
 
 __all__ = ["DeepBLASTConfig", "DeepBLAST", "resolve_device"]
 
@@ -414,22 +416,25 @@ class DeepBLAST:
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
 
     def _lm_apply(self, tokens, lengths):
-        if isinstance(self.lm, BiLM):
-            # the features at position i never see token i (a cloze
-            # contract): the one-hot identity channel gives the heads the
-            # residue itself (trainer.py:256-275)
-            feats = self.lm.encode(tokens, lengths)
-            if not self.config.bilstm_onehot_channel:
-                return feats
-            ids = torch.arange(self.config.vocab_size, device=tokens.device)
-            onehot = (tokens[..., None] == ids).to(feats.dtype)
-            return torch.cat([onehot, feats], dim=-1)
-        if isinstance(self.lm, T5Encoder):
-            L = tokens.shape[1]
-            mask = torch.arange(L, device=tokens.device)[None, :] \
-                < lengths[:, None]
-            return self.lm(tokens, mask)
-        return self.lm(tokens)
+        """The LM's features of one side, in an ``lm`` span."""
+        with span("lm", device=True):
+            if isinstance(self.lm, BiLM):
+                # the features at position i never see token i (a cloze
+                # contract): the one-hot identity channel gives the heads
+                # the residue itself (trainer.py:256-275)
+                feats = self.lm.encode(tokens, lengths)
+                if not self.config.bilstm_onehot_channel:
+                    return feats
+                ids = torch.arange(self.config.vocab_size,
+                                   device=tokens.device)
+                onehot = (tokens[..., None] == ids).to(feats.dtype)
+                return torch.cat([onehot, feats], dim=-1)
+            if isinstance(self.lm, T5Encoder):
+                L = tokens.shape[1]
+                mask = torch.arange(L, device=tokens.device)[None, :] \
+                    < lengths[:, None]
+                return self.lm(tokens, mask)
+            return self.lm(tokens)
 
     def _embeddings(self, batch, train=False):
         """LM embeddings of both sides: under ``no_grad`` unless ``train``
@@ -448,27 +453,38 @@ class DeepBLAST:
     def align(self, x: str, y: str) -> str:
         """Alignment of two residue strings as a TM-align state string
         (``1`` gap in y, ``:`` match, ``2`` gap in x), with the aligner in
-        eval mode (no dropout), as the JAX package's deterministic apply."""
-        self.aligner.eval()
-        x_tok, _ = self.tokenizer(x)
-        y_tok, _ = self.tokenizer(y)
-        batch = self._as_batch(dict(
-            x=x_tok[None], y=y_tok[None],
-            x_len=np.asarray([len(x_tok)], np.int32),
-            y_len=np.asarray([len(y_tok)], np.int32)))
-        hx, hy = self._embeddings(batch)
-        lengths = (batch["x_len"], batch["y_len"])
-        if dp_ops.get_backend(self.config.backend).stream:
-            theta, A = self.aligner.potentials(hx, hy, lengths)
-            E = dp_ops.expected_alignment_stream(
-                theta, A, lengths, mode=self.aligner.mode,
-                operator=self.config.operator, backend=self.config.backend,
-                dtypes=self.dp_decode_dtypes)
-            states = dp_ops.traceback_stream(E, len(x_tok), len(y_tok), 0)
-        else:
-            aln, _, _ = self.aligner(hx, hy, lengths)
-            states = dp_ops.traceback(aln[0])
-        return "".join(revstate_f(s) for _, _, s in states)
+        eval mode (no dropout), as the JAX package's deterministic apply.
+        Recorded as an ``align`` span over ``align.prepare``, ``lm``,
+        ``heads``, ``dp``, ``align.copy_out`` and ``align.walk``
+        (``utils/profiling.py``)."""
+        with span("align"):
+            self.aligner.eval()
+            with span("align.prepare"):
+                x_tok, _ = self.tokenizer(x)
+                y_tok, _ = self.tokenizer(y)
+                batch = self._as_batch(dict(
+                    x=x_tok[None], y=y_tok[None],
+                    x_len=np.asarray([len(x_tok)], np.int32),
+                    y_len=np.asarray([len(y_tok)], np.int32)))
+            hx, hy = self._embeddings(batch)
+            lengths = (batch["x_len"], batch["y_len"])
+            stream = dp_ops.get_backend(self.config.backend).stream
+            if stream:
+                theta, A = self.aligner.potentials(hx, hy, lengths)
+                E = dp_ops.expected_alignment_stream(
+                    theta, A, lengths, mode=self.aligner.mode,
+                    operator=self.config.operator,
+                    backend=self.config.backend,
+                    dtypes=self.dp_decode_dtypes)
+            else:
+                E = self.aligner(hx, hy, lengths)[0][0]
+            with span("align.copy_out"):    # waits for the card
+                E = dp_ops._host(E)
+            with span("align.walk"):
+                states = dp_ops.traceback_stream(
+                    E, len(x_tok), len(y_tok), 0) if stream \
+                    else dp_ops.traceback(E)
+                return "".join(revstate_f(s) for _, _, s in states)
 
     @torch.no_grad()
     def score_pairs(self, batch):
@@ -590,6 +606,18 @@ class DeepBLAST:
                             for k, v in batch.items()
                             if not isinstance(v, list)))
 
+    def _count_step(self, batch):
+        """``fit``'s counters of one issued step of global batch ``batch``
+        while recording: this rank's valid and padded residues (both
+        sides)."""
+        if not active():
+            return
+        b = self._rows(batch)
+        B, Lx = np.shape(b["x"])
+        count("fit.steps")
+        count("fit.residues", int(np.sum(b["x_len"]) + np.sum(b["y_len"])))
+        count("fit.residues_padded", B * (Lx + np.shape(b["y"])[1]))
+
     def _clip_grads(self):
         """optax ``clip_by_global_norm``: ``g / |g| * c`` when the global
         norm ``|g|`` of every trained parameter's gradient is at least
@@ -637,13 +665,16 @@ class DeepBLAST:
         self.aligner.train()
         forward = self._train_forward if self._ddp is None else self._ddp
         aln = forward(b, generator)
-        loss = self.compute_loss(b, aln)
+        with span("loss", device=True):
+            loss = self.compute_loss(b, aln)
         self._opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.config.grad_accum == 1 or self._accumulate():
-            self._clip_grads()
-            self._opt.step()
-            self._sched.step()
+        with span("backward", device=True):
+            loss.backward()
+        with span("optimizer", device=True):
+            if self.config.grad_accum == 1 or self._accumulate():
+                self._clip_grads()
+                self._opt.step()
+                self._sched.step()
         self.step += 1
         return loss.detach()
 
@@ -828,7 +859,14 @@ class DeepBLAST:
         checkpointer saves when the validation loss improves, else every
         epoch.  ``mesh``: None (this process alone), ``"auto"`` or a
         ``(data, model)`` ``DeviceMesh`` of ``parallel.make_mesh`` (see the
-        module docstring)."""
+        module docstring).
+
+        Recorded (``utils/profiling.py``) as a ``step`` span a dispatch
+        over ``fit.copy_in``, one ``fit.issue`` a step (``lm``, ``heads``,
+        ``dp``, ``loss``, ``backward``, ``optimizer``), the previous
+        dispatch's ``fit.readback`` and the next ``fit.batch``; and per
+        step the counters ``fit.steps``, ``fit.residues`` and
+        ``fit.residues_padded``."""
         c = self.config
         self.mesh = mesh = self._resolve_mesh(mesh)
         self._data = None
@@ -883,37 +921,59 @@ class DeepBLAST:
         # check fires one step (chunk) late, as in the JAX package
         losses = []
         pending = None
+        # a dispatch's ``step`` span runs from its issue to the next
+        # dispatch's, so it holds the fetch of the batch after it
+        root = contextlib.ExitStack()
 
         def issue(batches):
             nonlocal pending
-            steps = self._device_chunk(batches) if len(batches) == K > 1 \
-                else [self._loss_batch(self._rows(b)) for b in batches]
+            root.close()
+            root.enter_context(span("step"))
+            with span("fit.copy_in"):
+                steps = self._device_chunk(batches) if len(batches) == K > 1 \
+                    else [self._loss_batch(self._rows(b)) for b in batches]
             first = self.step + 1
-            out = torch.stack([self._step(b, gen) for b in steps])
-            out = self._losses_to_host(self._data_mean(out))
+            out = []
+            for b, batch in zip(steps, batches):
+                with span("fit.issue"):
+                    out.append(self._step(b, gen))
+                self._count_step(batch)
+            out = self._losses_to_host(self._data_mean(torch.stack(out)))
             if pending is not None:
-                self._consume_loss(pending, losses, logger)
+                with span("fit.readback"):
+                    self._consume_loss(pending, losses, logger)
             pending = (out, first)
 
+        def fetched():
+            batches = self._batches(train_dataset, True, c.seed + epoch)
+            while True:
+                with span("fit.batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    return
+                yield batch
+
         chunk, shape = [], None
-        for batch in self._batches(train_dataset, True, c.seed + epoch):
-            if K == 1:
-                issue([batch])
-                continue
-            sh = self._batch_shapes(batch)
-            if chunk and sh != shape:
-                for b in chunk:     # a shape change: single steps
-                    issue([b])
-                chunk = []
-            chunk.append(batch)
-            shape = sh
-            if len(chunk) == K:
-                issue(chunk)
-                chunk = []
-        for b in chunk:             # the epoch's tail: single steps
-            issue([b])
+        with root:
+            for batch in fetched():
+                if K == 1:
+                    issue([batch])
+                    continue
+                sh = self._batch_shapes(batch)
+                if chunk and sh != shape:
+                    for b in chunk:     # a shape change: single steps
+                        issue([b])
+                    chunk = []
+                chunk.append(batch)
+                shape = sh
+                if len(chunk) == K:
+                    issue(chunk)
+                    chunk = []
+            for b in chunk:             # the epoch's tail: single steps
+                issue([b])
         if pending is not None:
-            self._consume_loss(pending, losses, logger)
+            with span("fit.readback"):
+                self._consume_loss(pending, losses, logger)
         entry = {"epoch": epoch, "train_loss": float(np.mean(losses))}
         if valid_dataset is None:
             return entry
