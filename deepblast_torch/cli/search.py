@@ -112,7 +112,10 @@ def _search(args):
             if cuda:
                 t = t.pin_memory()
             dev[k] = t.to(model.device, non_blocking=True)
-        scores = model.score_pairs(dev)
+        # the host's lengths beside their copies: the LM counts its valid
+        # residues from them without waiting for the card
+        scores = model.score_pairs(dict(dev, x_len_host=batch["x_len"],
+                                        y_len_host=batch["y_len"]))
         if ranks > 1:
             # each rank's rows into zeros, summed: every rank gets all the
             # scores exactly (gloo reduces CUDA tensors, but gathers none)

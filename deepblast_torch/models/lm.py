@@ -22,7 +22,22 @@ scaling of the scores (``lm.py:249``), the relative-position bias table
 only in block 0 and shared by every block (``lm.py:252-263``), pad keys
 masked with ``finfo(float32).min`` (``lm.py:264-266``), attention scores,
 their softmax and the RMSNorm variance taken in float32 (``lm.py:214``,
-``:250``), and the output multiplied by the mask (``lm.py:333``).
+``:250``), and the output zero at pad positions (``lm.py:333``).
+
+Packed rows: where the mask leaves positions padded, the residual stream
+is ``(T, d_model)`` over the ``T`` valid positions (:class:`_Packing`),
+so the embedding, the RMSNorms, the q/k/v/o projections, the FFN and the
+residual adds run on valid rows only; each block scatters q, k and v into
+zero-filled ``(B, L, H, d_kv)`` for the attention core, which is the
+padded computation unchanged, and gathers its output back before ``o``.
+Every valid position computes the same mathematics (a masked key's
+probability is exactly 0), so only a GEMM's rounding can differ with its
+row count.  A mask with every position valid takes the padded path
+itself, with no index operation, and so does a call that gives no
+count of valid positions (``rows``): the count comes from the host's
+lengths, never from the mask.  The counters ``lm.rows`` (rows the
+token-wise layers ran on) and ``lm.rows_padded`` (``B * L``) count each
+call while recording (``utils/profiling.py``).
 Submodule names follow the flax parameter names (``block0.attn.q``, ...)
 so ``models/convert.py`` maps flax trees by name.
 
@@ -54,6 +69,7 @@ from torch import nn
 
 from deepblast_torch.models import exact_cuda_math
 from deepblast_torch.models.heads import flax_biases, flip_sequences
+from deepblast_torch.utils.profiling import count
 
 __all__ = ["BiLM", "convert_bepler_bilm", "load_bilm", "TokenEmbed",
            "T5Config", "RMSNorm", "relative_position_bucket", "T5Attention",
@@ -248,6 +264,32 @@ def relative_position_bucket(rel_pos, num_buckets=32, max_distance=128):
     return ret + torch.where(is_small, n, val_if_large)
 
 
+class _Packing:
+    """The valid positions of a ``(B, L)`` mask as the rows of a packed
+    ``(T, ...)`` stream, in the mask's row-major order; ``T`` (``rows``)
+    is the mask's count of valid positions, known on the host, so nothing
+    here reads the device."""
+
+    def __init__(self, mask, rows):
+        self.shape = tuple(mask.shape)
+        # the flat index of the t-th valid position: the first place the
+        # running count of valid positions reaches t + 1
+        seen = mask.reshape(-1).cumsum(0)
+        self.index = torch.searchsorted(
+            seen, torch.arange(1, rows + 1, device=mask.device))
+
+    def pack(self, t):
+        """``(B, L, ...)`` -> the valid rows ``(T, ...)``."""
+        return t.reshape((-1,) + t.shape[2:]).index_select(0, self.index)
+
+    def unpack(self, t):
+        """The valid rows ``(T, ...)`` -> ``(B, L, ...)``, zero at pad
+        positions."""
+        B, L = self.shape
+        out = t.new_zeros((B * L,) + t.shape[1:])
+        return out.index_copy_(0, self.index, t).view((B, L) + t.shape[1:])
+
+
 class T5Attention(nn.Module):
     def __init__(self, cfg: T5Config, has_relative_bias=False, device=None,
                  dtype=None):
@@ -272,14 +314,18 @@ class T5Attention(nn.Module):
             self.cfg.relative_attention_max_distance)
         return self.relative_attention_bias(buckets).permute(2, 0, 1)[None]
 
-    def forward(self, x, mask, position_bias=None):
+    def forward(self, x, mask, position_bias=None, packing=None):
+        """``x`` is ``(B, L, d_model)``, or with ``packing`` the packed
+        valid rows ``(T, d_model)``, and so is the output."""
         cfg = self.cfg
         dt = cfg.compute_dtype
-        B, L, _ = x.shape
+        B, L = x.shape[:2] if packing is None else packing.shape
         shape = (B, L, cfg.num_heads, cfg.d_kv)
-        q = _dense(self.q, x, dt).view(shape)
-        k = _dense(self.k, x, dt).view(shape)
-        v = _dense(self.v, x, dt).view(shape)
+
+        def heads(linear):
+            h = _dense(linear, x, dt)
+            return (h if packing is None else packing.unpack(h)).view(shape)
+        q, k, v = heads(self.q), heads(self.k), heads(self.v)
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         if self.relative_attention_bias is not None:
             position_bias = self.position_bias(L, x.device)
@@ -290,6 +336,8 @@ class T5Attention(nn.Module):
                                         torch.finfo(torch.float32).min)
         probs = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, -1)
+        if packing is not None:
+            out = packing.pack(out)
         return _dense(self.o, out, dt), position_bias
 
 
@@ -326,8 +374,9 @@ class T5Block(nn.Module):
         self.ln_ff = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
         self.ff = T5FF(cfg, **kw)
 
-    def forward(self, x, mask, position_bias=None):
-        attn, position_bias = self.attn(self.ln_attn(x), mask, position_bias)
+    def forward(self, x, mask, position_bias=None, packing=None):
+        attn, position_bias = self.attn(self.ln_attn(x), mask, position_bias,
+                                        packing)
         x = x + attn
         x = x + self.ff(self.ln_ff(x))
         return x, position_bias
@@ -347,17 +396,31 @@ class T5Encoder(nn.Module):
                             T5Block(cfg, has_relative_bias=(i == 0), **kw))
         self.ln_final = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, **kw)
 
-    def forward(self, tokens, mask=None):
+    def forward(self, tokens, mask=None, rows=None):
+        """Embeddings of ``tokens`` ``(B, L)`` under ``mask`` (every
+        position valid if None).  ``rows``: the mask's count of valid
+        positions, as the caller holds it on the host; without it every
+        position runs, since counting the mask would wait for a card."""
+        padded = tokens.numel()
         if mask is None:
             mask = torch.ones(tokens.shape, dtype=torch.bool,
                               device=tokens.device)
         mask = mask.bool()
+        if rows is None:
+            rows = padded
+        count("lm.rows", rows)
+        count("lm.rows_padded", padded)
+        packing = _Packing(mask, rows) if rows < padded else None
+        if packing is not None:
+            tokens = packing.pack(tokens)
         x = self.embed(tokens).to(self.cfg.compute_dtype)
         position_bias = None
         for i in range(self.cfg.num_layers):
-            x, position_bias = getattr(self, f"block{i}")(x, mask,
-                                                          position_bias)
+            x, position_bias = getattr(self, f"block{i}")(
+                x, mask, position_bias, packing)
         x = self.ln_final(x)
+        if packing is not None:
+            return packing.unpack(x)
         return x * mask[..., None].to(x.dtype)
 
 

@@ -282,6 +282,22 @@ def init_weights(module, generator):
             nn.init.ones_(m.weight)
 
 
+def _host_lengths(batch):
+    """``x_len_host`` and ``y_len_host``: a batch's lengths as the host
+    holds them (numpy, by row like the rest of the batch), to ride beside
+    their copies on the device; the batch's own where it carries them,
+    and none for a side whose lengths are only on a card, since reading
+    them would wait for it."""
+    out = {}
+    for side in ("x", "y"):
+        key = f"{side}_len_host"
+        lengths = batch[key] if key in batch else batch[f"{side}_len"]
+        if not (isinstance(lengths, torch.Tensor)
+                and lengths.device.type != "cpu"):
+            out[key] = np.asarray(lengths)
+    return out
+
+
 class DeepBLAST:
     """Language model + aligner on one device, for ``align`` and
     ``score_pairs``.
@@ -413,10 +429,17 @@ class DeepBLAST:
     # -- forward -----------------------------------------------------------
 
     def _as_batch(self, batch, keys=("x", "y", "x_len", "y_len")):
-        return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        """The batch's ``keys`` on the device, and beside them the host's
+        lengths (:func:`_host_lengths`)."""
+        out = {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
+        return dict(out, **_host_lengths(batch))
 
-    def _lm_apply(self, tokens, lengths):
-        """The LM's features of one side, in an ``lm`` span."""
+    def _lm_apply(self, tokens, lengths, host_lengths=None):
+        """The LM's features of one side, in an ``lm`` span;
+        ``host_lengths``, the side's lengths as the host holds them, give
+        a T5 the count of valid residues under the mask of ``lengths``, so
+        that it runs its token-wise layers on those alone without reading
+        the card."""
         with span("lm", device=True):
             if isinstance(self.lm, BiLM):
                 # the features at position i never see token i (a cloze
@@ -433,7 +456,9 @@ class DeepBLAST:
                 L = tokens.shape[1]
                 mask = torch.arange(L, device=tokens.device)[None, :] \
                     < lengths[:, None]
-                return self.lm(tokens, mask)
+                rows = None if host_lengths is None \
+                    else int(np.clip(host_lengths, 0, L).sum())
+                return self.lm(tokens, mask, rows)
             return self.lm(tokens)
 
     def _embeddings(self, batch, train=False):
@@ -443,8 +468,10 @@ class DeepBLAST:
         grad = train and self.config.finetune
         self.lm.train(grad)
         with torch.set_grad_enabled(grad):
-            hx = self._lm_apply(batch["x"], batch["x_len"])
-            hy = self._lm_apply(batch["y"], batch["y_len"])
+            hx = self._lm_apply(batch["x"], batch["x_len"],
+                                batch.get("x_len_host"))
+            hy = self._lm_apply(batch["y"], batch["y_len"],
+                                batch.get("y_len_host"))
         return hx, hy
 
     # -- inference ---------------------------------------------------------
@@ -489,8 +516,10 @@ class DeepBLAST:
     @torch.no_grad()
     def score_pairs(self, batch):
         """Alignment scores ``(B,)`` float32 of a padded batch with keys
-        ``x``, ``y`` (token ids) and ``x_len``, ``y_len``; the aligner in
-        eval mode."""
+        ``x``, ``y`` (token ids) and ``x_len``, ``y_len`` (and, where those
+        are on a card already, their host copies ``x_len_host``,
+        ``y_len_host``: :func:`_host_lengths`); the aligner in eval
+        mode."""
         self.aligner.eval()
         batch = self._as_batch(batch)
         hx, hy = self._embeddings(batch)
@@ -587,7 +616,8 @@ class DeepBLAST:
         """K same-shape batches as K steps' tensors on the device: each key
         stacked into a ``(K, B, ...)`` array (under a mesh, the rank's rows
         of the second axis) in pinned host memory (on a CUDA device) and
-        copied in one asynchronous copy (``trainer.py:467-475``)."""
+        copied in one asynchronous copy (``trainer.py:467-475``); each
+        step keeps the host's lengths too, as :meth:`_as_batch`."""
         arrays = {k: np.stack([np.asarray(b[k]) for b in chunk])
                   for k in self._loss_keys()}
         if self.mesh is not None:
@@ -598,7 +628,9 @@ class DeepBLAST:
             if self.device.type == "cuda":
                 host = host.pin_memory()
             out[k] = host.to(self.device, non_blocking=True)
-        return [{k: v[i] for k, v in out.items()} for i in range(len(chunk))]
+        return [dict({k: v[i] for k, v in out.items()},
+                     **_host_lengths({k: v[i] for k, v in arrays.items()}))
+                for i in range(len(chunk))]
 
     @staticmethod
     def _batch_shapes(batch):
